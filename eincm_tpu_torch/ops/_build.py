@@ -1,0 +1,155 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+Each `csrc/<name>.cu` has a plain C interface (`extern "C"` entry points
+returning `cudaError_t`). It is compiled by `nvcc` into
+`eincm_tpu_torch/_build/lib<name>-<hash>.so` at first use and loaded with
+ctypes; the hash of the source names the library, so an edited source is
+rebuilt and a stale library is never loaded. Nothing here runs at import
+time, so the CPU-only test suite imports every module without a toolkit.
+
+Every kernel wrapper is a `Kernel`: it resolves its entry point lazily,
+raises when the launch returns a CUDA error, and counts its launches, so a
+run can show that the main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(name: str, verbose: bool = False) -> Path:
+    """Compile `csrc/<name>.cu` unless its library is already built."""
+    out = library_path(name)
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS]
+    if verbose:
+        cmd += ["-Xptxas", "-v"]
+    cmd += ["-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed for {name}.cu (rc {proc.returncode}):\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    if verbose and (proc.stdout or proc.stderr):
+        print(proc.stdout + proc.stderr, end="")
+    os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name)))
+        _LIBS[name] = lib
+    return lib
+
+
+def build_all() -> float:
+    """Build every kernel library; returns the wall seconds it took."""
+    t0 = time.perf_counter()
+    for src in sorted(CSRC.glob("*.cu")):
+        build(src.stem)
+    return time.perf_counter() - t0
+
+
+def check_cuda_f32(name: str, tensors, shapes) -> None:
+    """Raise unless every tensor is a contiguous float32 tensor of the
+    given shape on one CUDA device: what a kernel's pointers assume."""
+    dev = tensors[0].device
+    for t, shape in zip(tensors, shapes):
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: every tensor must be on one CUDA device")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: float32 only, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
+
+
+class Kernel:
+    """One `extern "C"` entry point plus its launch count."""
+
+    def __init__(self, lib: str, symbol: str, argtypes):
+        self.lib = lib
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self._fn = None
+
+    def __call__(self, *args) -> None:
+        if self._fn is None:
+            fn = getattr(load(self.lib), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        err = self._fn(*args)
+        if err != 0:
+            raise RuntimeError(
+                f"{self.symbol} launch failed: cudaError_t {err}"
+            )
+        self.launches += 1
+
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float
+LL = ctypes.c_longlong
+
+KERNELS: Dict[str, Kernel] = {
+    # (theta, xs, ys, out, n_events, h, w, scale_y, scale_x, stream)
+    "interp_fwd": Kernel("interp", "eincm_interp_fwd", (P, P, P, P, LL, I, I, F, F, P)),
+    # (g, xs, ys, dtheta, n_events, h, w, scale_y, scale_x, stream)
+    "interp_bwd": Kernel("interp", "eincm_interp_bwd", (P, P, P, P, LL, I, I, F, F, P)),
+    # (wx, wy, frames, n_refs, n_events, H, W, stream)
+    "splat_fwd": Kernel("splat", "eincm_splat_fwd", (P, P, P, I, LL, I, I, P)),
+    # (wx, wy, grad_frames, dwx, dwy, n_refs, n_events, H, W, stream)
+    "splat_bwd": Kernel("splat", "eincm_splat_bwd", (P, P, P, P, P, I, LL, I, I, P)),
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {k: v.launches for k, v in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0

@@ -1,0 +1,77 @@
+"""eincm_tpu_torch runs where JAX and PyYAML are not installed, as on the
+GPU machine; chip_smoke.py refuses to report without a CUDA device."""
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+_BLOCKED = """
+import sys
+sys.modules["jax"] = None
+sys.modules["yaml"] = None
+import importlib, pkgutil
+import eincm_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(eincm_tpu_torch.__path__, "eincm_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import torch
+from eincm_tpu_torch.models.loss import (
+    LossParams, LossStatics, compute_window_statics, solver_loss)
+g = torch.Generator().manual_seed(0)
+xs = torch.randint(0, 32, (500,), generator=g).float()
+ys = torch.randint(0, 24, (500,), generator=g).float()
+ts = torch.rand(500, generator=g)
+edges = torch.rand(2, 24, 32, generator=g)
+edge_ts = torch.tensor([0.0, 1.0])
+ws = compute_window_statics(xs, ys, edges, (24, 32))
+theta = torch.zeros(4, 4, 2, requires_grad=True)
+loss = solver_loss(theta, xs, ys, ts, edges, edge_ts, LossParams(20.0, 35.0),
+                   0, LossStatics((24, 32), 3), ws)
+loss.backward()
+assert torch.isfinite(loss) and torch.isfinite(theta.grad).all()
+assert not any(m == "jax" or m.startswith(("jax.", "eincm_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("imported", len(names), "modules")
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    env["OMP_NUM_THREADS"] = "1"  # several test workers share the machine
+    return env
+
+
+def test_port_imports_and_runs_without_jax_or_yaml():
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED], cwd=REPO, env=_env(),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "imported" in out.stdout
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    out = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=REPO, env=_env(),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = _env()
+    env.pop("PYTHONPATH")
+    out = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
