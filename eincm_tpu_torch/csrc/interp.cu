@@ -4,11 +4,12 @@
 // _interp_fwd) and _bwd_kernel (reached through _interp_bwd).
 //
 // Forward: out[e, c] = sum_{a,b} uy[e, a] * vx[e, b] * theta[ky_a, kx_b, c]
-// with the scale-and-translate triangle weights of _axis_weights: at most two
-// taps per axis, masked to [0, n) and divided by max(sum, 1e-20). Every f32
-// operation of the weights and of the contraction is written with the
-// round-to-nearest intrinsics, so nvcc cannot contract them into FMAs and the
-// result is the plain PyTorch version's operation for operation.
+// with the scale-and-translate triangle weights of _axis_weights
+// (common.cuh: axis_taps, sample_theta): at most two taps per axis, masked
+// to [0, n) and divided by max(sum, 1e-20). Every f32 operation of the
+// weights and of the contraction is written with the round-to-nearest
+// intrinsics, so nvcc cannot contract them into FMAs and the result is the
+// plain PyTorch version's operation for operation.
 //
 // Backward: dtheta[h, w, c] = sum_e (vx[e, w] * g[e, c]) * uy[e, h]. Each
 // block accumulates the whole (h, w, 2) grid in shared memory (2 KB at the
@@ -24,53 +25,18 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "common.cuh"
+
 namespace {
+
+using eincm::axis_taps;
+using eincm::clamp_idx;
+using eincm::sample_theta;
+using eincm::Taps;
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 8;
 constexpr int kBwdBlocks = 132 * 2;
-
-struct Taps {
-  int k0;    // first tap index (second is k0 + 1); clamped for safe reads
-  float w0;  // normalized weight of tap k0 (0 when k0 is outside [0, n))
-  float w1;  // normalized weight of tap k0 + 1
-  bool in0, in1;
-};
-
-__device__ __forceinline__ Taps axis_taps(float coord, int n, float scale) {
-  Taps t;
-  t.k0 = 0;
-  t.w0 = 0.f;
-  t.w1 = 0.f;
-  t.in0 = t.in1 = false;
-  // rintf rounds half to even, as jnp.round does
-  const float c = rintf(coord);
-  const float u = __fsub_rn(__fmul_rn(__fadd_rn(c, 0.5f), scale), 0.5f);
-  if (isnan(u)) {  // the reference's weights are NaN on every row
-    t.w0 = t.w1 = u;
-    return t;
-  }
-  // a coordinate with no tap in [0, n), +-inf included; tested in float
-  // before any conversion to int
-  if (!(u > -2.f && u < (float)n + 1.f)) return t;
-  const float kf = floorf(u);
-  const int k0 = (int)kf;
-  float a = fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(kf, u))));
-  float b = fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(__fadd_rn(kf, 1.f), u))));
-  t.in0 = k0 >= 0 && k0 < n;
-  t.in1 = k0 + 1 >= 0 && k0 + 1 < n;
-  if (!t.in0) a = 0.f;
-  if (!t.in1) b = 0.f;
-  const float s = fmaxf(__fadd_rn(a, b), 1e-20f);
-  t.w0 = __fdiv_rn(a, s);
-  t.w1 = __fdiv_rn(b, s);
-  t.k0 = k0;
-  return t;
-}
-
-__device__ __forceinline__ int clamp_idx(int k, int n) {
-  return k < 0 ? 0 : (k >= n ? n - 1 : k);
-}
 
 __global__ void interp_fwd_kernel(const float* __restrict__ theta,
                                   const float* __restrict__ xs,
@@ -82,19 +48,8 @@ __global__ void interp_fwd_kernel(const float* __restrict__ theta,
        e < n_events; e += stride) {
     const Taps ty = axis_taps(ys[e], h, sy);
     const Taps tx = axis_taps(xs[e], w, sx);
-    const int y0 = clamp_idx(ty.k0, h), y1 = clamp_idx(ty.k0 + 1, h);
-    const int x0 = clamp_idx(tx.k0, w), x1 = clamp_idx(tx.k0 + 1, w);
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const float t00 = __ldg(theta + (y0 * w + x0) * 2 + c);
-      const float t10 = __ldg(theta + (y1 * w + x0) * 2 + c);
-      const float t01 = __ldg(theta + (y0 * w + x1) * 2 + c);
-      const float t11 = __ldg(theta + (y1 * w + x1) * 2 + c);
-      // rows first (column x0, then x1), then columns: the reference order
-      const float m0 = __fadd_rn(__fmul_rn(ty.w0, t00), __fmul_rn(ty.w1, t10));
-      const float m1 = __fadd_rn(__fmul_rn(ty.w0, t01), __fmul_rn(ty.w1, t11));
-      out[e * 2 + c] = __fadd_rn(__fmul_rn(m0, tx.w0), __fmul_rn(m1, tx.w1));
-    }
+    out[e * 2] = sample_theta(theta, ty, tx, h, w, 0);
+    out[e * 2 + 1] = sample_theta(theta, ty, tx, h, w, 1);
   }
 }
 

@@ -31,22 +31,15 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "common.cuh"
+
 namespace {
+
+using eincm::gauss;
+using eincm::window_hits;
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;
-constexpr float kInvSqrt2Pi = 0.3989422804014327f;
-
-__device__ __forceinline__ float gauss(float q) {
-  // exp(-0.5 * q * q) * (1 / sqrt(2 pi)), the reference's operation order
-  return expf((-0.5f * q) * q) * kInvSqrt2Pi;
-}
-
-// true when the rounded 3x3 window of (rx, ry) touches the sensor; false for
-// NaN and +-inf, which fail every comparison or the bounds
-__device__ __forceinline__ bool window_hits(float rx, float ry, int H, int W) {
-  return ry >= -1.f && ry <= (float)H && rx >= -1.f && rx <= (float)W;
-}
 
 __global__ void splat_fwd_kernel(const float* __restrict__ wx,
                                  const float* __restrict__ wy,
@@ -57,7 +50,7 @@ __global__ void splat_fwd_kernel(const float* __restrict__ wx,
        i += stride) {
     const float x = wx[i], y = wy[i];
     const float rx = rintf(x), ry = rintf(y);  // half to even
-    if (!window_hits(rx, ry, H, W)) continue;
+    if (!window_hits(rx, ry, H, W, 1)) continue;
     const int iy = (int)ry, ix = (int)rx;
     float* frame = frames + (i / n_events) * (long long)H * W;
     float gy[3], gx[3];
@@ -92,7 +85,7 @@ __global__ void splat_bwd_kernel(const float* __restrict__ wx,
     const float x = wx[i], y = wy[i];
     const float rx = rintf(x), ry = rintf(y);
     float ox = 0.f, oy = 0.f;
-    if (window_hits(rx, ry, H, W)) {
+    if (window_hits(rx, ry, H, W, 1)) {
       const int iy = (int)ry, ix = (int)rx;
       const float* G = grad + (i / n_events) * (long long)H * W;
       float u[3], du[3], v[3], dv[3], t[3][3];

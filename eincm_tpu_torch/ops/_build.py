@@ -3,9 +3,10 @@
 Each `csrc/<name>.cu` has a plain C interface (`extern "C"` entry points
 returning `cudaError_t`). It is compiled by `nvcc` into
 `eincm_tpu_torch/_build/lib<name>-<hash>.so` at first use and loaded with
-ctypes; the hash of the source names the library, so an edited source is
-rebuilt and a stale library is never loaded. Nothing here runs at import
-time, so the CPU-only test suite imports every module without a toolkit.
+ctypes; the hash of the source and of every `csrc/*.cuh` header it
+includes names the library, so an edited source or header is rebuilt and a
+stale library is never loaded. Nothing here runs at import time, so the
+CPU-only test suite imports every module without a toolkit.
 
 Every kernel wrapper is a `Kernel`: it resolves its entry point lazily,
 raises when the launch returns a CUDA error, and counts its launches, so a
@@ -17,11 +18,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -44,9 +47,25 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> List[Path]:
+    """`csrc/<name>.cu` and every csrc header it includes, transitively."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    for path in _sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -83,10 +102,12 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def build_all() -> float:
-    """Build every kernel library; returns the wall seconds it took."""
+    """Build every kernel library, one nvcc per source, all at once;
+    returns the wall seconds it took."""
     t0 = time.perf_counter()
-    for src in sorted(CSRC.glob("*.cu")):
-        build(src.stem)
+    names = sorted(src.stem for src in CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(build, names))
     return time.perf_counter() - t0
 
 
@@ -143,6 +164,21 @@ KERNELS: Dict[str, Kernel] = {
     "splat_fwd": Kernel("splat", "eincm_splat_fwd", (P, P, P, I, LL, I, I, P)),
     # (wx, wy, grad_frames, dwx, dwy, n_refs, n_events, H, W, stream)
     "splat_bwd": Kernel("splat", "eincm_splat_bwd", (P, P, P, P, P, I, LL, I, I, P)),
+    # (xi, yi, ts, thx, thy, frame, n_events, t_ref, H, W, hw, stream)
+    "fused_warp_splat": Kernel(
+        "fused", "eincm_fused_warp_splat", (P, P, P, P, P, P, LL, F, I, I, I, P)
+    ),
+    # (xi, yi, ts, theta, frame, n_events, t_ref, H, W, hw, h, w,
+    #  scale_y, scale_x, stream)
+    "fully_fused_warp_splat": Kernel(
+        "fused", "eincm_fully_fused_warp_splat",
+        (P, P, P, P, P, LL, F, I, I, I, I, I, F, F, P),
+    ),
+    # (theta, xs, ys, out, n_events, h, w, hp, wp, scale_y, scale_x, mode,
+    #  stream)
+    "interp_dense": Kernel(
+        "interp_dense", "eincm_interp_dense", (P, P, P, P, LL, I, I, I, I, F, F, I, P)
+    ),
 }
 
 

@@ -29,13 +29,15 @@ from eincm_tpu_torch.ops._build import KERNELS, check_cuda_f32
 MAX_GRID = 128  # the kernel gate of eincm_tpu/ops/warp.py:interp_theta_at_events
 
 
-def _axis_taps(coord: torch.Tensor, n: int, full_n: int):
+def _axis_taps(coord: torch.Tensor, n: int, full_n: int, round_coords: bool):
     """Two taps per event along one axis: (index0, index1, w0, w1).
 
     Indices are clamped for safe gathers; a clamped tap carries weight 0.
     A NaN coordinate gives NaN weights, as the reference's do.
     """
-    u = (torch.round(coord) + 0.5) * (n / full_n) - 0.5
+    if round_coords:
+        coord = torch.round(coord)
+    u = (coord + 0.5) * (n / full_n) - 0.5
     k0 = torch.floor(u)
     k1 = k0 + 1.0
     w0 = torch.clamp_min(1.0 - torch.abs(k0 - u), 0.0)
@@ -51,18 +53,36 @@ def _axis_taps(coord: torch.Tensor, n: int, full_n: int):
     return k0.clamp(0, n - 1), (k0 + 1).clamp(0, n - 1), w0, w1
 
 
+def _axis_weights(coord, n, npad, scale, norm):
+    """The same weights as dense (E, npad) rows at the rounded coordinates,
+    zero beyond n; NaN rows for NaN coordinates. The dense-layout interp
+    (experimental/interp_proto.py) is built from these."""
+    u = (torch.round(coord) + 0.5) * scale - 0.5
+    k = torch.arange(npad, dtype=u.dtype, device=u.device)
+    w = torch.clamp_min(1.0 - torch.abs(k - u[:, None]), 0.0)
+    if npad > n:
+        w = torch.where(k < n, w, torch.zeros((), dtype=w.dtype, device=w.device))
+    if norm:
+        w = w / torch.clamp_min(w.sum(1, keepdim=True), 1e-20)
+    return w
+
+
 def interp_theta_at_events_plain(
     theta: torch.Tensor,
     xs: torch.Tensor,
     ys: torch.Tensor,
     sensor_size: Tuple[int, int],
+    round_coords: bool = True,
 ) -> torch.Tensor:
     """The plain version: four gathered taps, rows summed first, then
-    columns, as the reference contracts them. Differentiable by autograd."""
+    columns, as the reference contracts them. Differentiable by autograd.
+
+    `round_coords=False` samples at the coordinates as given, as the fully
+    fused warp+splat does with its (already rounded) inputs."""
     h, w, _ = theta.shape
     H, W = sensor_size
-    y0, y1, uy0, uy1 = _axis_taps(ys.to(theta.dtype), h, H)
-    x0, x1, vx0, vx1 = _axis_taps(xs.to(theta.dtype), w, W)
+    y0, y1, uy0, uy1 = _axis_taps(ys.to(theta.dtype), h, H, round_coords)
+    x0, x1, vx0, vx1 = _axis_taps(xs.to(theta.dtype), w, W, round_coords)
     uy0, uy1 = uy0[:, None], uy1[:, None]
     m0 = uy0 * theta[y0, x0] + uy1 * theta[y1, x0]
     m1 = uy0 * theta[y0, x1] + uy1 * theta[y1, x1]

@@ -37,16 +37,19 @@ def splat_plain(
     warped_xs: torch.Tensor,
     warped_ys: torch.Tensor,
     sensor_size: Tuple[int, int],
+    window_size: int = 3,
 ) -> torch.Tensor:
     """The plain version: a 9-tap `index_put(accumulate=True)` into the
-    flattened frames, differentiated by autograd. Also the scatter oracle."""
+    flattened frames, differentiated by autograd. Also the scatter oracle.
+    `window_size` w deposits the (2 (w // 2) + 1)^2 taps instead."""
     R, E = warped_xs.shape
     H, W = sensor_size
     dtype = torch.promote_types(warped_xs.dtype, torch.float32)
     wx, wy = warped_xs.to(dtype), warped_ys.to(dtype)
     dev = wx.device
-    d = torch.tensor([-1.0, 0.0, 1.0], dtype=dtype, device=dev)
-    rows = torch.round(wy)[..., None] + d  # (R, E, 3)
+    hw = window_size // 2
+    d = torch.arange(-hw, hw + 1, dtype=dtype, device=dev)
+    rows = torch.round(wy)[..., None] + d  # (R, E, 2 hw + 1)
     cols = torch.round(wx)[..., None] + d
     # NaN and +-inf fail these comparisons: such taps are dropped
     vr = (rows >= 0) & (rows <= H - 1)
@@ -57,7 +60,7 @@ def splat_plain(
     qx = torch.where(vc, cols - wx[..., None], zero)
     gy = torch.where(vr, _gauss1d(qy), zero)
     gx = torch.where(vc, _gauss1d(qx), zero)
-    vals = gy[..., :, None] * gx[..., None, :]  # (R, E, 3, 3)
+    vals = gy[..., :, None] * gx[..., None, :]  # (R, E, taps, taps)
     ri = torch.where(vr, rows, zero).long()
     ci = torch.where(vc, cols, zero).long()
     ref = torch.arange(R, device=dev)[:, None, None, None]

@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from collections import defaultdict
@@ -32,18 +31,11 @@ import torch
 from eincm_tpu_torch.models.pyramid import make_window_solver
 from eincm_tpu_torch.ops import _build
 from eincm_tpu_torch.utils import workloads as wl
+from eincm_tpu_torch.utils.profiling import card as card_name
 
 # 100 handover windows: enough for a p90, and for the spread of the chain
 # AEE that the card's atomics cause
 N_RUNS = 20
-
-
-def _card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def _profile_window(solver, cfg, windows, vels) -> dict:
@@ -87,7 +79,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
-    card = _card()
+    card = card_name()
     print(f"{card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     _build.build_all()
     windows, vels = wl.stage_mvsec_windows(device)

@@ -7,14 +7,16 @@ machine that has no JAX. `tests/conftest.py` imports JAX, so skip it there:
 
 The tests marked `gpu` skip without a CUDA device. Tolerances, relative to
 max |plain|: 1e-6 where each output sums a fixed handful of terms (interp
-forward, splat backward), 1e-5 where atomics reorder long sums (splat
-forward, interp backward).
+forward, splat backward, dense interp), 1e-5 where atomics reorder long
+sums (splat forward, interp backward, fused warp+splat).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from eincm_tpu_torch.experimental import interp_proto as tp
+from eincm_tpu_torch.experimental import splat_fused as tf
 from eincm_tpu_torch.ops import _build
 from eincm_tpu_torch.ops import interp as ti
 from eincm_tpu_torch.ops import splat as ts
@@ -75,6 +77,38 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     assert set(_build.launch_counts().values()) == {0}
 
 
+def test_fused_and_dense_wrappers_refuse_cpu_tensors():
+    _build.reset_launch_counts()
+    theta = torch.zeros(4, 4, 2)
+    xs = torch.zeros(10)
+    with pytest.raises(ValueError, match="CUDA"):
+        tf.fused_warp_splat_cuda(xs, xs, xs, xs, xs, 0.5, SENSOR)
+    with pytest.raises(ValueError, match="CUDA"):
+        tf.fully_fused_warp_splat_cuda(xs, xs, xs, theta, 0.5, SENSOR)
+    with pytest.raises(ValueError, match="CUDA"):
+        tp.interp_dense_cuda(theta, xs, xs, SENSOR, "dot3")
+    assert set(_build.launch_counts().values()) == {0}
+
+
+def test_library_path_follows_included_headers(tmp_path, monkeypatch):
+    """An edited csrc header names a new library, so it is rebuilt; a
+    header the source does not include changes nothing."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include <math.h>\n#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "other.cuh").write_text("// other\n")
+    first = _build.library_path("k")
+    assert [p.name for p in _build._sources("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    (tmp_path / "other.cuh").write_text("// other, edited\n")
+    assert _build.library_path("k") == first
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    second = _build.library_path("k")
+    assert second != first and second.name.startswith("libk-")
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n// a\n')
+    assert _build.library_path("k") not in (first, second)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("gh,gw", [(1, 1), (2, 2), (16, 16), (128, 128)])
 def test_interp_kernels_match_plain(cuda, gh, gw):
@@ -129,7 +163,10 @@ def test_routers_launch_the_kernels_on_cuda(cuda):
 
     _build.reset_launch_counts()
     val_k, grad_k = loss(ti.interp_theta_at_events, ts.splat_multi_ref)
-    assert set(_build.launch_counts().values()) == {1}
+    counts = _build.launch_counts()
+    solve = ("interp_fwd", "interp_bwd", "splat_fwd", "splat_bwd")
+    assert {counts[k] for k in solve} == {1}
+    assert sum(counts.values()) == 4  # nothing in the solve calls the others
     val_p, grad_p = loss(ti.interp_theta_at_events_plain, tk.splat_plain)
     _close(val_p, val_k, 1e-5)
     _close(grad_p, grad_k, 1e-4)
@@ -148,3 +185,68 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         tk.splat_fwd_cuda(w, w, SENSOR)
     with pytest.raises(ValueError):
         tk.splat_fwd_cuda(torch.zeros(2, 100, device=cuda), xs[None], SENSOR)
+
+
+def _events_ts(rng, n, device):
+    x, y = _coords(rng, n, device, spread=3.0)
+    ts = torch.as_tensor(rng.uniform(0, 1, x.shape[0]).astype(np.float32), device=device)
+    return x, y, ts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window_size", [3, 5])
+def test_fused_warp_splat_matches_plain(cuda, window_size):
+    rng = np.random.default_rng(8)
+    x, y, ts = _events_ts(rng, 30_000, cuda)
+    thx = torch.as_tensor(rng.normal(0, 3, x.shape[0]).astype(np.float32), device=cuda)
+    thy = torch.as_tensor(rng.normal(0, 3, x.shape[0]).astype(np.float32), device=cuda)
+    for t_ref in (0.0, 0.37, 1.0):
+        _close(
+            tf.fused_warp_splat_frame_plain(x, y, ts, thx, thy, t_ref, SENSOR, window_size),
+            tf.fused_warp_splat_cuda(x, y, ts, thx, thy, t_ref, SENSOR, window_size),
+            1e-5,
+        )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window_size", [3, 5])
+@pytest.mark.parametrize("gh,gw", [(1, 1), (16, 16), (128, 128)])
+def test_fully_fused_warp_splat_matches_plain(cuda, gh, gw, window_size):
+    rng = np.random.default_rng(9)
+    x, y, ts = _events_ts(rng, 30_000, cuda)
+    theta = torch.as_tensor(rng.normal(0, 3, (gh, gw, 2)).astype(np.float32), device=cuda)
+    for t_ref in (0.0, 1.0):
+        _close(
+            tf.fully_fused_warp_splat_frame_plain(x, y, ts, theta, t_ref, SENSOR, window_size),
+            tf.fully_fused_warp_splat_cuda(x, y, ts, theta, t_ref, SENSOR, window_size),
+            1e-5,
+        )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", tp.MODES)
+@pytest.mark.parametrize("gh,gw", [(1, 1), (5, 12), (16, 16), (128, 128)])
+def test_interp_dense_matches_plain(cuda, mode, gh, gw):
+    rng = np.random.default_rng(10)
+    x, y = _coords(rng, 30_000, cuda)
+    theta = torch.as_tensor(rng.normal(0, 3, (gh, gw, 2)).astype(np.float32), device=cuda)
+    _close(
+        tp.interp_dense_plain(theta, x, y, SENSOR, mode),
+        tp.interp_dense_cuda(theta, x, y, SENSOR, mode),
+        1e-6,
+    )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gh,gw", [(1, 1), (16, 16), (128, 128)])
+def test_interp_dense_highest_equals_interp_fwd(cuda, gh, gw):
+    rng = np.random.default_rng(11)
+    x, y = _coords(rng, 30_000, cuda, spread=0.0)
+    keep = torch.isfinite(x) & torch.isfinite(y) & (x >= -0.5) & (x < W - 0.5) \
+        & (y >= -0.5) & (y < H - 0.5)
+    x, y = x[keep].contiguous(), y[keep].contiguous()
+    theta = torch.as_tensor(rng.normal(0, 3, (gh, gw, 2)).astype(np.float32), device=cuda)
+    assert torch.equal(
+        tp.interp_dense_cuda(theta, x, y, SENSOR, "highest"),
+        ti.interp_fwd_cuda(theta, x, y, SENSOR),
+    )
