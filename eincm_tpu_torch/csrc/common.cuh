@@ -2,7 +2,7 @@
 // coarse theta and splats an event with the same f32 operations:
 //   - axis_u / tri_weight / axis_taps / axis_taps_at / clamp_idx /
 //     sample_theta: the bilinear scale-and-translate sample of interp.cu
-//     (kernel 1), fused.cu and (axis_u, tri_weight) interp_dense.cu;
+//     (kernel 1), fused.cu and (axis_taps) interp_dense.cu;
 //   - gauss / window_hits: the IWE splat taps of splat.cu and fused.cu.
 // Every f32 operation whose rounding matters is written with a
 // round-to-nearest intrinsic, so nvcc cannot contract it into an FMA.
@@ -36,8 +36,10 @@ __device__ __forceinline__ float tri_weight(float k, float u) {
 
 // The two triangle taps of one axis of n coarse cells at the sensor
 // coordinate c, used as given: tri_weight at axis_u(c), masked to [0, n)
-// and divided by max(sum, 1e-20).
-__device__ __forceinline__ Taps axis_taps_at(float c, int n, float scale) {
+// and, with norm, divided by max(sum, 1e-20). Every other cell's weight is
+// an exact 0, so the sum is the one over all n cells in any order.
+__device__ __forceinline__ Taps axis_taps_at(float c, int n, float scale,
+                                             bool norm = true) {
   Taps t;
   t.k0 = 0;
   t.w0 = 0.f;
@@ -59,17 +61,23 @@ __device__ __forceinline__ Taps axis_taps_at(float c, int n, float scale) {
   t.in1 = k0 + 1 >= 0 && k0 + 1 < n;
   if (!t.in0) a = 0.f;
   if (!t.in1) b = 0.f;
+  t.k0 = k0;
+  if (!norm) {
+    t.w0 = a;
+    t.w1 = b;
+    return t;
+  }
   const float s = fmaxf(__fadd_rn(a, b), 1e-20f);
   t.w0 = __fdiv_rn(a, s);
   t.w1 = __fdiv_rn(b, s);
-  t.k0 = k0;
   return t;
 }
 
 // The taps at the rounded coordinate (half to even, as jnp.round): the
 // production interp's sample point.
-__device__ __forceinline__ Taps axis_taps(float coord, int n, float scale) {
-  return axis_taps_at(rintf(coord), n, scale);
+__device__ __forceinline__ Taps axis_taps(float coord, int n, float scale,
+                                          bool norm = true) {
+  return axis_taps_at(rintf(coord), n, scale, norm);
 }
 
 __device__ __forceinline__ int clamp_idx(int k, int n) {

@@ -24,7 +24,7 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -88,7 +88,7 @@ def build(name: str, verbose: bool = False) -> Path:
             f"{proc.stdout}\n{proc.stderr}"
         )
     if verbose and (proc.stdout or proc.stderr):
-        print(proc.stdout + proc.stderr, end="")
+        print(f"[nvcc -Xptxas -v] {name}.cu\n{proc.stdout}{proc.stderr}", end="", flush=True)
     os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
     return out
 
@@ -101,13 +101,14 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def build_all() -> float:
-    """Build every kernel library, one nvcc per source, all at once;
+def build_all(verbose: Tuple[str, ...] = ()) -> float:
+    """Build every kernel library, one nvcc per source, all at once, with
+    `-Xptxas -v`'s report printed for the sources named in `verbose`;
     returns the wall seconds it took."""
     t0 = time.perf_counter()
     names = sorted(src.stem for src in CSRC.glob("*.cu"))
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
-        list(pool.map(build, names))
+        list(pool.map(lambda n: build(n, verbose=n in verbose), names))
     return time.perf_counter() - t0
 
 
@@ -160,8 +161,11 @@ KERNELS: Dict[str, Kernel] = {
     "interp_fwd": Kernel("interp", "eincm_interp_fwd", (P, P, P, P, LL, I, I, F, F, P)),
     # (g, xs, ys, dtheta, n_events, h, w, scale_y, scale_x, stream)
     "interp_bwd": Kernel("interp", "eincm_interp_bwd", (P, P, P, P, LL, I, I, F, F, P)),
-    # (wx, wy, frames, n_refs, n_events, H, W, stream)
-    "splat_fwd": Kernel("splat", "eincm_splat_fwd", (P, P, P, I, LL, I, I, P)),
+    # (wx, wy, frames, n_refs, n_events, H, W, tile_rows, tile_cols,
+    #  row_slabs, col_slabs, chunks, threads, stream)
+    "splat_fwd": Kernel(
+        "splat", "eincm_splat_fwd", (P, P, P, I, LL, I, I, I, I, I, I, I, I, P)
+    ),
     # (wx, wy, grad_frames, dwx, dwy, n_refs, n_events, H, W, stream)
     "splat_bwd": Kernel("splat", "eincm_splat_bwd", (P, P, P, P, P, I, LL, I, I, P)),
     # (xi, yi, ts, thx, thy, frame, n_events, t_ref, H, W, hw, stream)

@@ -162,3 +162,49 @@ def test_bench_inputs_are_the_prototypes():
         xs.numpy(), rng.uniform(0, W - 1, tp.N_EVENTS).astype(np.float32)
     )
     assert ys.shape == (tp.N_EVENTS,) and theta.shape == (16, 16, 2)
+
+
+def _tf32(a):
+    """Round float32 values to TF32 (10 mantissa bits), to nearest with
+    ties away from zero, as `cvt.rna.tf32.f32`: on the 32-bit view, add half
+    of the 13 dropped bits and clear them (the sign bit is left alone)."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+@pytest.mark.parametrize("gh,gw", [(1, 1), (5, 12), (16, 16), (128, 128)])
+def test_3xtf32_split_keeps_highest_within_1e_6(gh, gw):
+    """Kernel 9's `highest` on the card: m = lo.hi + hi.lo + hi.hi with
+    hi = tf32(x), lo = tf32(x - hi), exact TF32 products summed in f32, then
+    the f32 contraction with vx. Emulated here, it stays within 1e-6 x
+    max |out| of the f64 result, the tolerance the card's kernel is held to
+    against kernel 1; a single TF32 product does not."""
+    H, W = SENSOR
+    rng = np.random.default_rng(100 + gh + gw)
+    n = 20_000
+    xs = rng.uniform(-2, W + 1, n).astype(np.float32)
+    ys = rng.uniform(-2, H + 1, n).astype(np.float32)
+    theta = rng.normal(0, 4, (gh, gw, 2)).astype(np.float32)
+    hp, wp = tp._pad8(gh), tp._pad8(gw)
+
+    uy = ti._axis_weights(torch.as_tensor(ys), gh, hp, gh / H, True).numpy()
+    vx = ti._axis_weights(torch.as_tensor(xs), gw, wp, gw / W, True).numpy()
+    thT = np.zeros((2 * wp, hp), np.float32)
+    thT[:gw, :gh] = theta[..., 0].T
+    thT[wp:wp + gw, :gh] = theta[..., 1].T
+
+    def contract(m, vx):
+        return np.stack([(m[:, :wp] * vx).sum(1), (m[:, wp:] * vx).sum(1)], -1)
+
+    # the f32 weights and theta, multiplied out in f64
+    f = lambda a: a.astype(np.float64)
+    ref = contract(f(uy) @ f(thT).T, f(vx))
+    ah, bh = _tf32(uy), _tf32(thT)
+    al, bl = _tf32(uy - ah), _tf32(thT - bh)
+    m3 = (f(al) @ f(bh).T + f(ah) @ f(bl).T + f(ah) @ f(bh).T).astype(np.float32)
+    scale = np.abs(ref).max()
+    err3 = np.abs(contract(m3, vx).astype(np.float64) - ref).max()
+    assert err3 <= 1e-6 * scale, err3 / scale
+    m1 = (f(ah) @ f(bh).T).astype(np.float32)
+    err1 = np.abs(contract(m1, vx).astype(np.float64) - ref).max()
+    assert err1 > 1e-6 * scale, err1 / scale
