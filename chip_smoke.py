@@ -7,13 +7,17 @@ Phases, each failing loudly (any failure exits non-zero):
 1. set-up: card name and power limit, torch and CUDA versions, and the
    nvcc build of every kernel in eincm_tpu_torch/csrc (one nvcc per
    source, all started together; `-Xptxas -v`'s registers, shared memory
-   and spills for the splat and the dense interp), and the splat forward's
-   slab plan at both shapes;
+   and spills for the interp, the splat and the dense interp), and the
+   splat forward's slab plan at both shapes;
 2. each CUDA kernel of the solve against its plain PyTorch version on the
    card, at the MVSEC shape (16x16 theta, 30k events x 2 refs, 256x336)
    and the DSEC shape (1.5M events x 2 refs, 480x640), edge cases
    included, with the time of both and of one PyTorch library call that
-   computes the same function, from CUDA events;
+   computes the same function, from CUDA events; and both interp kernels
+   at every grid the chain solves (1x1 to 16x16) and at 128x128, which is
+   above the sizes their shared-memory designs take, with unaligned views,
+   each timed beside its bound and its library call, the backward twice
+   for bitwise equal results;
 3. the measurement kernels (fused warp+splat, fully fused warp+splat,
    dense-layout interp) against their plain versions at the MVSEC shape
    (staged window 0, GT theta, both refs) and the DSEC shape of the fused
@@ -51,14 +55,19 @@ from eincm_tpu_torch.utils.profiling import card as nvidia_smi
 from eincm_tpu_torch.utils.profiling import cuda_ms
 
 # tolerances, as max |kernel - plain| <= tol * max |plain|:
-# atomics reorder the float sums of splat fwd, interp bwd and the fused
-# warp+splat, and the reordering grows with the number of events summed
-# into one entry
+# atomics reorder the float sums of splat fwd, the fused warp+splat and
+# interp bwd above 16x16, and the reordering grows with the number of events
+# summed into one entry
 TOL_ATOMIC = 1e-5
 # interp fwd, splat bwd and the dense interp sum a fixed handful of terms
 # per output (the dense interp's `highest` is 3xTF32, within ~2^-21 of f32
 # per term)
 TOL_GATHER = 1e-6
+# interp bwd against the plain version's float32 terms summed in float64
+# (`interp_bwd_plain`): a block's sums are exact (fixed point) or short f32
+# sums (registers), and the blocks' partial grids are added in f32 in a
+# fixed order. The float-atomic kernel of the large grids keeps TOL_ATOMIC.
+TOL_INTERP_BWD = 1e-6
 TOL_DSEC_LOSS = 1e-4  # relative loss difference, card kernels vs CPU plain
 # px, mean over MVSEC chain windows 1..5 (|V| = 5 px): the JAX package's
 # own reading on this chain (0.30 px in float32 on CPU,
@@ -228,11 +237,95 @@ def splat_planes(wx, wy, sensor):
 
 # ---- phase 2 ----------------------------------------------------------------
 
+INTERP_GRIDS = ((1, 1), (2, 2), (4, 4), (8, 8), (16, 16))  # the chain's levels
+LARGE_GRID = (128, 128)  # theta not staged (fwd), float atomics (bwd)
+
+
+def check_interp_grids(tag, xs, ys, sensor, rows):
+    """Both interp kernels at each grid against the plain version, timed
+    beside their bound and library call; results under `by_grid`."""
+    from eincm_tpu_torch.ops import interp as ti
+
+    H, W = sensor
+    E = xs.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    ex, ey = with_edges(xs, ys, H, W)
+    fin = torch.isfinite(ex) & torch.isfinite(ey)
+    bx, by = ex[fin].contiguous(), ey[fin].contiguous()
+    g = torch.randn(bx.shape[0], 2, generator=gen, device="cuda")
+    g_main = g[:E].contiguous()
+    by_grid = {"interp_fwd": {}, "interp_bwd": {}}
+    for h, w in INTERP_GRIDS + (LARGE_GRID,):
+        name = f"{h}x{w}"
+        theta = 3.0 * torch.randn(h, w, 2, generator=gen, device="cuda")
+        p_fwd = ti.plan_interp(E, h, w)
+        p_bwd = ti.plan_interp(E, h, w, True)
+        print(f"[interp] {tag} {name}: fwd {p_fwd.mode}, {p_fwd.blocks} x {p_fwd.threads}; "
+              f"bwd {p_bwd.mode}, {p_bwd.blocks} x {p_bwd.threads}, {p_bwd.slices} slices")
+        out_p = ti.interp_theta_at_events_plain(theta, ex, ey, sensor)
+        err_f = 0.0
+        # whole, and as views that start 4 and 12 bytes into a 16-byte line
+        # (in groups of four from the first aligned event, and one by one)
+        for off in (0, 1, 3):
+            for grouped in (True, False):
+                vx, vy = ex[off:], ey[off:]
+                plan = ti.plan_interp(vx.shape[0], h, w, grouped=grouped, offsets=(
+                    ti.float_offset(vx), ti.float_offset(vy), 0))  # a new output
+                out_k = ti.interp_fwd_cuda(theta, vx, vy, sensor, plan)
+                torch.cuda.synchronize()
+                what = f"interp_fwd {name} +{off} {'groups' if grouped else 'single'}"
+                err_f = max(err_f, max_err(out_k, out_p[off:], TOL_GATHER, what))
+                if not torch.equal(out_k[fin[off:]], out_p[off:][fin[off:]]):
+                    raise AssertionError(f"{what}: not bitwise the plain version's")
+        d_p = ti.interp_bwd_plain(g, bx, by, (h, w, 2), sensor, torch.float64)
+        tol = TOL_ATOMIC if p_bwd.mode == "float" else TOL_INTERP_BWD
+        err_b = 0.0
+        for off in (0, 1, 3):
+            for grouped in (True, False):
+                vx, vy, vg = bx[off:], by[off:], g[off:]
+                plan = ti.plan_interp(vx.shape[0], h, w, True, tuple(
+                    map(ti.float_offset, (vx, vy, vg))), grouped=grouped)
+                d_k = ti.interp_bwd_cuda(vg, vx, vy, (h, w, 2), sensor, plan)
+                d_again = ti.interp_bwd_cuda(vg, vx, vy, (h, w, 2), sensor, plan)
+                torch.cuda.synchronize()
+                ref = d_p if off == 0 else ti.interp_bwd_plain(
+                    vg, vx, vy, (h, w, 2), sensor, torch.float64)
+                what = f"interp_bwd {name} +{off} {'groups' if grouped else 'single'}"
+                err_b = max(err_b, max_err(d_k, ref, tol, what))
+                if plan.mode != "float" and not torch.equal(d_k, d_again):
+                    raise AssertionError(f"{what}: two runs differ")
+        n_bytes = 16 * E + 8 * h * w
+        lib_call, _ = grid_sample_interp(theta, xs, ys, sensor)
+        uy = ti._axis_weights(ys, h, h, float(h) / H, True)  # dense (E, h) weights
+        vx = ti._axis_weights(xs, w, w, float(w) / W, True)
+        reps = 3 if E * h > 10_000_000 else 10  # the large grid's einsum takes ms
+        for kernel, err, ms, ops, lib in (
+            ("interp_fwd", err_f,
+             cuda_ms(lambda: ti.interp_fwd_cuda(theta, xs, ys, sensor)),
+             OPS_INTERP_WEIGHTS + OPS_INTERP_CONTRACT, cuda_ms(lib_call)),
+            ("interp_bwd", err_b,
+             cuda_ms(lambda: ti.interp_bwd_cuda(g_main, xs, ys, (h, w, 2), sensor)),
+             OPS_INTERP_BWD,
+             cuda_ms(lambda: torch.einsum("eh,ew,ec->hwc", uy, vx, g_main), reps)),
+        ):
+            bound_ms, bound_by = bound(n_bytes, ops * E)
+            by_grid[kernel][name] = {
+                "max_abs_err": err, "ms": ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib,
+                "mode": (p_fwd if kernel == "interp_fwd" else p_bwd).mode,
+            }
+            print(f"  {kernel} {name}: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}), library {lib:.4f} ms")
+        del uy, vx
+    for kernel, grids in by_grid.items():
+        rows[kernel][tag]["by_grid"] = grids
+
+
 def check_kernels(tag, window, theta, sensor, rows):
     """Phase 2 at one shape; adds per-kernel results to `rows`."""
     from eincm_tpu_torch.models.loss import _sanitize_events
     from eincm_tpu_torch.ops.interp import (
-        _axis_weights, interp_bwd_cuda, interp_fwd_cuda,
+        _axis_weights, interp_bwd_cuda, interp_bwd_plain, interp_fwd_cuda,
         interp_theta_at_events_plain,
     )
     from eincm_tpu_torch.ops.splat_kernel import (
@@ -272,19 +365,19 @@ def check_kernels(tag, window, theta, sensor, rows):
     g = torch.randn(bx.shape[0], 2, generator=gen, device="cuda")
     d_k = interp_bwd_cuda(g, bx, by, tuple(theta.shape), sensor)
     torch.cuda.synchronize()
+    d_p = interp_bwd_plain(g, bx, by, tuple(theta.shape), sensor, torch.float64)
     th = theta.detach().clone().requires_grad_(True)
-    out = interp_theta_at_events_plain(th, bx, by, sensor)
-    (d_p,) = torch.autograd.grad(out, th, g, retain_graph=True)
     g_main = torch.randn(E, 2, generator=gen, device="cuda")
     out_main = interp_theta_at_events_plain(th, xs, ys, sensor)
     uy = _axis_weights(ys, h, h, float(h) / H, True)  # dense (E, h) weights
     vx = _axis_weights(xs, w, w, float(w) / W, True)
-    record(rows, "interp_bwd", tag, max_err(d_k, d_p, TOL_ATOMIC, "interp_bwd"),
+    record(rows, "interp_bwd", tag, max_err(d_k, d_p, TOL_INTERP_BWD, "interp_bwd"),
            cuda_ms(lambda: interp_bwd_cuda(g_main, xs, ys, tuple(theta.shape), sensor)),
            cuda_ms(lambda: torch.autograd.grad(out_main, th, g_main, retain_graph=True)),
            16 * E + 8 * h * w, OPS_INTERP_BWD * E,
            cuda_ms(lambda: torch.einsum("eh,ew,ec->hwc", uy, vx, g_main)))
     del uy, vx
+    check_interp_grids(tag, xs, ys, sensor, rows)
 
     # splat at the warped coordinates of the real window, edge cases appended
     wx, wy = warp_events_multi_ref_coarse(theta, xs, ys, ts, window.edge_ts, sensor)
@@ -426,10 +519,10 @@ def main() -> int:
     print(f"[setup] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, python {sys.version.split()[0]}")
     print("[setup] TF32 off for matmul and cuDNN")
-    build_s = _build.build_all(verbose=("splat", "interp_dense"))
+    build_s = _build.build_all(verbose=("interp", "splat", "interp_dense"))
     print(f"[setup] built {sorted(p.stem for p in _build.CSRC.glob('*.cu'))} "
           f"with nvcc for sm_90a in {build_s:.2f} s (ptxas report above for the "
-          f"splat and the dense interp)")
+          f"interp, the splat and the dense interp)")
 
     # ---- 2. the solve's kernels vs plain -------------------------------------
     t0 = time.perf_counter()

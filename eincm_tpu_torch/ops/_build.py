@@ -157,10 +157,18 @@ F = ctypes.c_float
 LL = ctypes.c_longlong
 
 KERNELS: Dict[str, Kernel] = {
-    # (theta, xs, ys, out, n_events, h, w, scale_y, scale_x, stream)
-    "interp_fwd": Kernel("interp", "eincm_interp_fwd", (P, P, P, P, LL, I, I, F, F, P)),
-    # (g, xs, ys, dtheta, n_events, h, w, scale_y, scale_x, stream)
-    "interp_bwd": Kernel("interp", "eincm_interp_bwd", (P, P, P, P, LL, I, I, F, F, P)),
+    # (theta, xs, ys, out, n_events, head, groups, vec, h, w, scale_y,
+    #  scale_x, staged, blocks, threads, stream)
+    "interp_fwd": Kernel(
+        "interp", "eincm_interp_fwd",
+        (P, P, P, P, LL, LL, LL, I, I, I, F, F, I, I, I, P),
+    ),
+    # (g, xs, ys, dtheta, partials, ticket, n_events, head, groups, vec, h,
+    #  w, scale_y, scale_x, mode, blocks, threads, slices, stream)
+    "interp_bwd": Kernel(
+        "interp", "eincm_interp_bwd",
+        (P, P, P, P, P, P, LL, LL, LL, I, I, I, F, F, I, I, I, I, P),
+    ),
     # (wx, wy, frames, n_refs, n_events, H, W, tile_rows, tile_cols,
     #  row_slabs, col_slabs, chunks, threads, stream)
     "splat_fwd": Kernel(

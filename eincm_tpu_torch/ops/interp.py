@@ -20,7 +20,8 @@ kernel, and anything the kernel does not take raises.
 
 from __future__ import annotations
 
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Dict, Tuple
 
 import torch
 
@@ -89,6 +90,24 @@ def interp_theta_at_events_plain(
     return m0 * vx0[:, None] + m1 * vx1[:, None]
 
 
+def interp_bwd_plain(g, xs, ys, theta_shape, sensor_size, sum_dtype=None):
+    """The plain version of the backward: the float32 taps and products
+    (vx * g) * uy of `interp_theta_at_events_plain`, added into dtheta with
+    `index_add_` in `sum_dtype` (default: g's). In float64 it is the exact
+    sum of the terms the kernel adds, so it measures the kernel's summation
+    alone; a tap outside the grid adds its zero weight times g."""
+    h, w, _ = theta_shape
+    H, W = sensor_size
+    y0, y1, uy0, uy1 = _axis_taps(ys.to(g.dtype), h, H, True)
+    x0, x1, vx0, vx1 = _axis_taps(xs.to(g.dtype), w, W, True)
+    dtheta = torch.zeros((h * w, 2), dtype=sum_dtype or g.dtype, device=g.device)
+    for xc, vx in ((x0, vx0), (x1, vx1)):
+        c = vx[:, None] * g
+        for yc, uy in ((y0, uy0), (y1, uy1)):
+            dtheta.index_add_(0, yc * w + xc, (c * uy[:, None]).to(dtheta.dtype))
+    return dtheta.reshape(h, w, 2)
+
+
 def _scales(h, w, sensor_size):
     H, W = sensor_size
     if not (1 <= h <= MAX_GRID and 1 <= w <= MAX_GRID):
@@ -96,35 +115,219 @@ def _scales(h, w, sensor_size):
     return float(h) / H, float(w) / W
 
 
-def interp_fwd_cuda(theta, xs, ys, sensor_size) -> torch.Tensor:
-    """Launch the forward kernel: (h, w, 2) theta, (E,) coords -> (E, 2)."""
+# ---- the launch plan of csrc/interp.cu --------------------------------------
+
+N_SM = 132  # streaming multiprocessors of an H100 SXM
+SMEM_BLOCK = 232_448  # one block's shared memory on an H100 (opt-in limit)
+STATIC_SMEM = 21 * 1024  # the backward kernels' own, beside the grid
+EVENTS_PER_GROUP = 4  # events a thread loads at once: one float4 of xs, of ys
+# events are read in groups from this many on; below, one event per thread
+# was faster on the card (PERF.md)
+GROUP_EVENTS = 1 << 17
+# the forward reads theta from a shared-memory copy up to this many bytes
+# (64x64 cells); above it, it gathers from device memory
+FWD_STAGED_BYTES = 32 * 1024
+# the backward keeps a block's partial grid in registers for these sizes
+BWD_REGISTER_SIZES = (1, 2, 4)
+# ... and above them in fixed point in shared memory (9 bytes per word: two
+# 32-bit halves and a flag byte) up to this many words (16x16 cells); above
+# it, the float-atomic kernel with a zeroed output (at 32x32 the two were
+# about even at 30k events on the card; PERF.md)
+BWD_FIXED_WORDS = 2 * 16 * 16
+MODES = {"registers": 0, "fixed": 1, "float": 2}
+
+
+@dataclass(frozen=True)
+class InterpPlan:
+    """How csrc/interp.cu cuts the E events of a call and sizes its launch.
+
+    Events [0, head) and the last `tail` are read one by one; between them
+    `groups` runs of EVENTS_PER_GROUP events start where xs and ys are
+    16-byte aligned and are read as one float4 each. `vec` says how the
+    (E, 2) array (the forward's output, the backward's cotangent) is
+    accessed there: 4 (two float4), 2 (four float2) or 1 (scalars). Thread
+    t of block b takes groups b T + t, b T + t + B T, ... and the scalar
+    events of the same numbers (head first, then tail).
+
+    `mode`: the forward's "staged" (theta copied to shared memory) or
+    "ldg"; the backward's "registers", "fixed" or "float". `slices`: the
+    backward's last block sums the blocks' partial grids as `slices`
+    interleaved slices, each in block order, then the slices in order."""
+
+    mode: str
+    head: int
+    groups: int
+    tail: int
+    vec: int
+    blocks: int
+    threads: int
+    smem_bytes: int
+    slices: int = 1
+
+    @property
+    def work(self) -> int:
+        """Trips of the busiest loop: groups, or the scalar events."""
+        return max(self.groups, self.head + self.tail)
+
+
+def float_offset(t: torch.Tensor) -> int:
+    """Where the tensor starts within a 16-byte line, in floats (0-3)."""
+    return (t.data_ptr() // 4) % 4
+
+
+def _cut(E, offsets):
+    """(head, groups, tail, vec) of E events whose xs, ys and (E, 2) array
+    start at these float offsets: groups need xs and ys aligned at the same
+    events."""
+    xo, yo, go = offsets
+    head = E if xo != yo else min(E, -xo % 4)
+    groups = (E - head) // EVENTS_PER_GROUP
+    tail = E - head - EVENTS_PER_GROUP * groups
+    return head, groups, tail, {0: 4, 2: 2}.get((go + 2 * head) % 4, 1)
+
+
+def _plan_for(E, h, w, backward, tensors, plan):
+    """`plan`, checked against the tensors' alignment, or the default."""
+    offsets = tuple(map(float_offset, tensors))
+    if plan is None:
+        return plan_interp(E, h, w, backward, offsets)
+    cut = (plan.head, plan.groups, plan.tail, plan.vec)
+    if cut != _cut(E, offsets) and cut[:3] != (E, 0, 0):  # or one by one
+        raise ValueError(f"interp: {plan} does not cut {E} events at offsets {offsets}")
+    return plan
+
+
+def plan_interp(E, h, w, backward=False, offsets=(0, 0, 0), mode=None,
+                blocks=None, threads=None, grouped=None) -> InterpPlan:
+    """The plan of the forward (or backward) kernel for E events on an
+    (h, w, 2) theta. `offsets`: `float_offset` of xs, ys and the (E, 2)
+    array. `mode`, `blocks`, `threads` and `grouped` (False: every event
+    read one by one) override the defaults (for timing sweeps and tests)."""
+    if not (E >= 0 and 1 <= h <= MAX_GRID and 1 <= w <= MAX_GRID):
+        raise ValueError(f"plan_interp: E >= 0, 1 <= h, w <= {MAX_GRID}, got {(E, h, w)}")
+    if grouped is None:
+        grouped = E >= GROUP_EVENTS
+    head, groups, tail, vec = _cut(E, offsets) if grouped else (E, 0, 0, 1)
+    words = 2 * h * w
+    if backward:
+        if mode is None:
+            if h in BWD_REGISTER_SIZES and w in BWD_REGISTER_SIZES:
+                mode = "registers"
+            else:
+                mode = "fixed" if words <= BWD_FIXED_WORDS else "float"
+        if mode == "registers":
+            if not (h in BWD_REGISTER_SIZES and w in BWD_REGISTER_SIZES):
+                raise ValueError(f"plan_interp: no register kernel for {h}x{w}")
+            smem, max_threads = 0, 512
+        elif mode == "fixed":
+            smem, max_threads = 8 * words + 4 * (-(-words // 4)), 1024
+        elif mode == "float":
+            smem, max_threads = 4 * words, 1024
+        else:
+            raise ValueError(f"plan_interp: unknown backward mode {mode!r}")
+        # static shared memory beside the grid: the warps' sums, the last
+        # block's slices
+        if smem > SMEM_BLOCK - STATIC_SMEM:
+            raise ValueError(f"plan_interp: {h}x{w} does not fit mode {mode!r}")
+    else:
+        if mode is None:
+            mode = "staged" if 4 * words <= FWD_STAGED_BYTES else "ldg"
+        if mode not in ("staged", "ldg"):
+            raise ValueError(f"plan_interp: unknown forward mode {mode!r}")
+        if mode == "staged" and 4 * words > 48 * 1024:
+            raise ValueError(f"plan_interp: {h}x{w} is too large to stage")
+        smem, max_threads = (4 * words if mode == "staged" else 0), 512
+    work = max(groups, head + tail)
+    # the launches that were fastest on an H100 at 30k and at 1.5M events
+    # (PERF.md): the forward one trip per thread; the backward, which pays
+    # for a partial grid per block, one block of 1024 threads per SM in
+    # fixed point, two of 512 (one at 4x4) in registers, and four of 256 of
+    # the float kernel, which adds its grids with atomics
+    large = work > N_SM * 512
+    if threads is None:
+        threads = {"fixed": 1024 if large else 512,
+                   "registers": 512 if large else 256}.get(mode, 256)
+    per_sm = {"fixed": 1 if large else 2, "registers": 2 if words < 32 else 1,
+              "float": 4}.get(mode)
+    if threads % 32 or not 32 <= threads <= max_threads:
+        raise ValueError(f"plan_interp: threads {threads} not a multiple of 32 "
+                         f"in [32, {max_threads}]")
+    if blocks is None:
+        blocks = max(1, -(-work // threads))
+        if per_sm:
+            blocks = min(blocks, N_SM * per_sm)
+    if blocks < 1:
+        raise ValueError(f"plan_interp: blocks {blocks} < 1")
+    slices = 1
+    if backward and mode != "float":
+        # a thread of a slice sums four words at a time where it can
+        lanes = words // 4 if words % 4 == 0 else words
+        if lanes > threads:
+            raise ValueError(f"plan_interp: {threads} threads cannot sum {words} words")
+        while 2 * slices * lanes <= threads and 2 * slices <= blocks:
+            slices *= 2
+    return InterpPlan(mode=mode, head=head, groups=groups, tail=tail, vec=vec,
+                      blocks=blocks, threads=threads, smem_bytes=smem, slices=slices)
+
+
+_TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    """The backward's arrival counter for launches on `stream` of `device`:
+    zero between launches (the last block resets it), so the launches of a
+    stream, which run in order, share it."""
+    t = _TICKETS.get((device, stream))
+    if t is None:
+        t = _TICKETS[device, stream] = torch.zeros(1, dtype=torch.int32, device=device)
+    return t
+
+
+def interp_fwd_cuda(theta, xs, ys, sensor_size, plan: InterpPlan = None) -> torch.Tensor:
+    """Launch the forward kernel: (h, w, 2) theta, (E,) coords -> (E, 2),
+    cut as `plan` (default: `plan_interp`'s) says."""
     h, w, c = theta.shape
     e = xs.shape[0]
     check_cuda_f32("interp_fwd", (theta, xs, ys), ((h, w, 2), (e,), (e,)))
     sy, sx = _scales(h, w, sensor_size)
     out = torch.empty((e, 2), dtype=torch.float32, device=theta.device)
     if e:
+        p = _plan_for(e, h, w, False, (xs, ys, out), plan)
         with torch.cuda.device(theta.device):
             KERNELS["interp_fwd"](
                 theta.data_ptr(), xs.data_ptr(), ys.data_ptr(), out.data_ptr(),
-                e, h, w, sy, sx, torch.cuda.current_stream().cuda_stream,
+                e, p.head, p.groups, p.vec, h, w, sy, sx, int(p.mode == "staged"),
+                p.blocks, p.threads, torch.cuda.current_stream().cuda_stream,
             )
     return out
 
 
-def interp_bwd_cuda(g, xs, ys, theta_shape, sensor_size) -> torch.Tensor:
-    """Launch the backward kernel: (E, 2) cotangent -> (h, w, 2) dtheta."""
+def interp_bwd_cuda(g, xs, ys, theta_shape, sensor_size, plan: InterpPlan = None) -> torch.Tensor:
+    """Launch the backward kernel: (E, 2) cotangent -> (h, w, 2) dtheta,
+    cut as `plan` (default: `plan_interp`'s) says. In the modes "registers"
+    and "fixed" it is one launch into an unzeroed output, and the result is
+    bitwise the same from run to run."""
     h, w, _ = theta_shape
     e = xs.shape[0]
     check_cuda_f32("interp_bwd", (g, xs, ys), ((e, 2), (e,), (e,)))
     sy, sx = _scales(h, w, sensor_size)
-    dtheta = torch.zeros((h, w, 2), dtype=torch.float32, device=g.device)
-    if e:
-        with torch.cuda.device(g.device):
-            KERNELS["interp_bwd"](
-                g.data_ptr(), xs.data_ptr(), ys.data_ptr(), dtheta.data_ptr(),
-                e, h, w, sy, sx, torch.cuda.current_stream().cuda_stream,
-            )
+    if not e:
+        return torch.zeros((h, w, 2), dtype=torch.float32, device=g.device)
+    p = _plan_for(e, h, w, True, (xs, ys, g), plan)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if p.mode == "float":
+            dtheta = torch.zeros((h, w, 2), dtype=torch.float32, device=g.device)
+            partials, ticket = 0, 0
+        else:
+            dtheta = torch.empty((h, w, 2), dtype=torch.float32, device=g.device)
+            scratch = torch.empty((p.blocks, 2 * h * w), dtype=torch.float32, device=g.device)
+            partials, ticket = scratch.data_ptr(), _ticket(g.device, stream).data_ptr()
+        KERNELS["interp_bwd"](
+            g.data_ptr(), xs.data_ptr(), ys.data_ptr(), dtheta.data_ptr(),
+            partials, ticket, e, p.head, p.groups, p.vec, h, w, sy, sx,
+            MODES[p.mode], p.blocks, p.threads, p.slices, stream,
+        )
     return dtheta
 
 

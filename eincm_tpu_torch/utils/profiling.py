@@ -102,9 +102,12 @@ def timed(fn, *args, iters: int = 10, warmup: int = 1):
 
 def cuda_ms(fn, reps: int = 10) -> float:
     """Mean device ms of fn() over `reps` back-to-back calls, after a
-    warm-up. The card first sleeps for longer than the host needs to
-    enqueue the calls, so the events time the device work, not the host's
-    launch rate (at 30k events a kernel is shorter than its launch)."""
+    warm-up: the smaller of two such means. The card first sleeps for
+    longer than the host needs to enqueue the calls, so the events time the
+    device work, not the host's launch rate (at 30k events a kernel is
+    shorter than its launch). A host stall longer than that sleep (a
+    garbage-collection pause of ~1 ms was seen) leaves the card idle between
+    two launches and would enter a single mean; it would have to hit both."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -112,15 +115,18 @@ def cuda_ms(fn, reps: int = 10) -> float:
     fn()
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(min(4 * reps * host_s, 2.0) * 2e9))  # ~2 GHz clock
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    means = []
+    for _ in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(min(4 * reps * host_s, 2.0) * 2e9))  # ~2 GHz clock
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(stop) / reps)
+    return min(means)
 
 
 def card() -> str:

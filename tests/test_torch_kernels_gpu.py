@@ -8,8 +8,10 @@ machine that has no JAX. `tests/conftest.py` imports JAX, so skip it there:
 The tests marked `gpu` skip without a CUDA device. Tolerances, relative to
 max |plain|: 1e-6 where each output sums a fixed handful of terms (interp
 forward, splat backward, dense interp, whose `highest` is 3xTF32), 1e-5
-where atomics reorder long sums (splat forward, interp backward, fused
-warp+splat).
+where atomics reorder long sums (splat forward, fused warp+splat, interp
+backward above 16x16), 1e-6 against the plain version's float32 terms
+summed in float64 for the interp backward up to 16x16, whose own sums are
+exact or short.
 """
 
 import dataclasses
@@ -113,23 +115,71 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("gh,gw", [(1, 1), (2, 2), (16, 16), (128, 128)])
+@pytest.mark.parametrize(
+    "gh,gw",
+    [(1, 1), (2, 2), (4, 4), (8, 8), (16, 16),  # the chain's levels
+     (1, 4), (4, 2), (3, 5), (5, 12),  # not square: registers and fixed point
+     (32, 32), (128, 128)],  # float atomics; theta not staged at 128x128
+)
 def test_interp_kernels_match_plain(cuda, gh, gw):
+    """Forward within 1e-6 and bitwise on finite events; backward within
+    1e-6 of the plain version's terms summed in float64 (1e-5 for the float-atomic kernel
+    of the large grids) and, below them, bitwise the same twice. Whole
+    tensors, views that start 4 and 12 bytes into a 16-byte line, an event
+    count that is no multiple of 4, in groups of four and one by one."""
     rng = np.random.default_rng(7)
-    x, y = _coords(rng, 30_000, cuda)
+    x, y = _coords(rng, 30_001, cuda)
     theta = torch.as_tensor(rng.normal(0, 3, (gh, gw, 2)).astype(np.float32), device=cuda)
-    _close(
-        ti.interp_theta_at_events_plain(theta, x, y, SENSOR),
-        ti.interp_fwd_cuda(theta, x, y, SENSOR),
-        1e-6,
-    )
+    ref = ti.interp_theta_at_events_plain(theta, x, y, SENSOR)
+    finite = torch.isfinite(x) & torch.isfinite(y)
+    for off in (0, 1, 3):
+        for grouped in (None, True, False):
+            vx, vy = x[off:], y[off:]
+            plan = ti.plan_interp(vx.shape[0], gh, gw, grouped=grouped, offsets=(
+                ti.float_offset(vx), ti.float_offset(vy), 0))
+            got = ti.interp_fwd_cuda(theta, vx, vy, SENSOR, plan)
+            _close(ref[off:], got, 1e-6)
+            assert torch.equal(ref[off:][finite[off:]], got[finite[off:]])
     # NaN events poison different subsets of dtheta in the two versions
-    fin = torch.isfinite(x) & torch.isfinite(y)
-    x, y = x[fin].contiguous(), y[fin].contiguous()
+    x, y = x[finite].contiguous(), y[finite].contiguous()
     g = torch.as_tensor(rng.normal(size=(x.shape[0], 2)).astype(np.float32), device=cuda)
-    th = theta.clone().requires_grad_(True)
-    (ref,) = torch.autograd.grad(ti.interp_theta_at_events_plain(th, x, y, SENSOR), th, g)
-    _close(ref, ti.interp_bwd_cuda(g, x, y, (gh, gw, 2), SENSOR), 1e-5)
+    for off in (0, 1, 3):
+        vx, vy, vg = x[off:], y[off:], g[off:]
+        ref = ti.interp_bwd_plain(vg, vx, vy, (gh, gw, 2), SENSOR, torch.float64)
+        for grouped in (None, True, False):
+            plan = ti.plan_interp(vx.shape[0], gh, gw, True, tuple(
+                map(ti.float_offset, (vx, vy, vg))), grouped=grouped)
+            got = ti.interp_bwd_cuda(vg, vx, vy, (gh, gw, 2), SENSOR, plan)
+            _close(ref, got, 1e-5 if plan.mode == "float" else 1e-6)
+            if plan.mode != "float":
+                assert torch.equal(got, ti.interp_bwd_cuda(vg, vx, vy, (gh, gw, 2), SENSOR, plan))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gh,gw", [(1, 1), (2, 2), (4, 4), (8, 8), (16, 16)])
+def test_interp_bwd_every_event_on_one_cell(cuda, gh, gw):
+    """The worst contention: 20k events inside one pixel, with cotangents
+    of very different sizes and a NaN and an infinite one."""
+    rng = np.random.default_rng(14)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=cuda)
+    x, y = t(rng.uniform(20.2, 20.4, 20_000)), t(rng.uniform(30.1, 30.3, 20_000))
+    g = t(rng.normal(0, 1, (20_000, 2)) * 10.0 ** rng.uniform(-3, 3, (20_000, 1)))
+    _close(ti.interp_bwd_plain(g, x, y, (gh, gw, 2), SENSOR, torch.float64),
+           ti.interp_bwd_cuda(g, x, y, (gh, gw, 2), SENSOR), 1e-6)
+    g[5, 0], g[6, 1] = np.nan, np.inf
+    got = ti.interp_bwd_cuda(g, x, y, (gh, gw, 2), SENSOR)
+    assert bool(torch.isnan(got[..., 0]).any()) and not bool(torch.isnan(got[..., 1]).any())
+    assert bool(torch.isposinf(got[..., 1]).any())
+    assert torch.equal(torch.isfinite(got[..., 0]), torch.isfinite(got[..., 1]))
+
+
+@pytest.mark.gpu
+def test_interp_wrappers_refuse_a_plan_that_does_not_fit(cuda):
+    x = torch.zeros(101, device=cuda)
+    theta = torch.zeros(8, 8, 2, device=cuda)
+    plan = ti.plan_interp(100, 8, 8, grouped=True)  # cut for aligned tensors
+    with pytest.raises(ValueError):
+        ti.interp_fwd_cuda(theta, x[1:], x[1:], SENSOR, plan)
 
 
 @pytest.mark.gpu
