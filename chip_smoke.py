@@ -7,8 +7,9 @@ Phases, each failing loudly (any failure exits non-zero):
 1. set-up: card name and power limit, torch and CUDA versions, and the
    nvcc build of every kernel in eincm_tpu_torch/csrc (one nvcc per
    source, all started together; `-Xptxas -v`'s registers, shared memory
-   and spills for the interp, the splat and the dense interp), and the
-   splat forward's slab plan at both shapes;
+   and spills for the interp, the splat, the fused warp+splat and the dense
+   interp), and the launch plans of the splat forward, the splat backward
+   and the fully fused warp+splat at both shapes;
 2. each CUDA kernel of the solve against its plain PyTorch version on the
    card, at the MVSEC shape (16x16 theta, 30k events x 2 refs, 256x336)
    and the DSEC shape (1.5M events x 2 refs, 480x640), edge cases
@@ -17,19 +18,25 @@ Phases, each failing loudly (any failure exits non-zero):
    at every grid the chain solves (1x1 to 16x16) and at 128x128, which is
    above the sizes their shared-memory designs take, with unaligned views,
    each timed beside its bound and its library call, the backward twice
-   for bitwise equal results;
+   for bitwise equal results; and both kernels of the splat backward (one
+   event per thread, and four in a row as float4s), the stream kernel
+   bitwise the gather kernel's and bitwise the same twice, each timed, with
+   the one the plan chooses at that shape in the row;
 3. the measurement kernels (fused warp+splat, fully fused warp+splat,
    dense-layout interp) against their plain versions at the MVSEC shape
    (staged window 0, GT theta, both refs) and the DSEC shape of the fused
-   bench (1.5M row-sorted events, theta N(0, 4)), timed the same way; then
-   their main path, the fused bench's paths A, B and C and the dense
+   bench (1.5M row-sorted events, theta N(0, 4)), timed the same way, the
+   fully fused kernel also with windows on every edge of its cluster's
+   tiles and with every event on one texel (its counters wrap); then their
+   main path, the fused bench's paths A, B and C and the dense
    interp's comparison with the production interp, with every kernel's
    launch counter read around it;
 4. the main path of the solve: a 6-window MVSEC-scale handover chain
    through `make_window_solver`, checked against the ground-truth flow,
    with the launch counters read around the chain;
 5. one DSEC-scale `solver_loss` value and gradient with the kernels (on
-   the card) against the plain versions (on CPU tensors).
+   the card, its splat backward through the stream kernel) against the
+   plain versions (on CPU tensors).
 
 Every kernel's time stands beside its bound: the least time the card could
 take for the same work, the longer of the bytes it must move (each input
@@ -185,6 +192,17 @@ def with_edges(xs, ys, H, W):
     return torch.cat([xs, t(ex)]), torch.cat([ys, t(ey)])
 
 
+def slab_edge_events(tile_rows, H, W, device, seed):
+    """(x, y) of events on and around every edge between slabs of
+    `tile_rows` rows: their windows straddle two blocks' shared memory."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    edges = torch.arange(tile_rows, H, tile_rows, dtype=torch.float32, device=device)
+    offs = torch.tensor([-2.0, -1.5, -1.0, -0.6, -0.5, 0.0, 0.4, 0.5, 1.0, 2.0], device=device)
+    y = (edges[:, None] + offs[None, :]).reshape(-1)
+    x = torch.rand(y.shape[0], generator=gen, device=device) * (W - 1)
+    return x, y
+
+
 def in_sensor(xs, ys, H, W):
     """Events whose rounded coordinates lie on the sensor."""
     rx, ry = torch.round(xs), torch.round(ys)
@@ -329,7 +347,7 @@ def check_kernels(tag, window, theta, sensor, rows):
         interp_theta_at_events_plain,
     )
     from eincm_tpu_torch.ops.splat_kernel import (
-        splat_bwd_cuda, splat_fwd_cuda, splat_plain,
+        plan_splat, plan_splat_bwd, splat_bwd_cuda, splat_fwd_cuda, splat_plain,
     )
     from eincm_tpu_torch.ops.warp import warp_events_multi_ref_coarse
 
@@ -382,7 +400,9 @@ def check_kernels(tag, window, theta, sensor, rows):
     # splat at the warped coordinates of the real window, edge cases appended
     wx, wy = warp_events_multi_ref_coarse(theta, xs, ys, ts, window.edge_ts, sensor)
     R = wx.shape[0]
-    ew = [with_edges(wx[r], wy[r], H, W) for r in range(R)]
+    p_bwd = plan_splat_bwd(R, E, H, W)
+    sx, sy = slab_edge_events(plan_splat(R, E, H, W).tile_rows, H, W, wx.device, 3)
+    ew = [with_edges(torch.cat([wx[r], sx]), torch.cat([wy[r], sy]), H, W) for r in range(R)]
     wxe = torch.stack([a for a, _ in ew]).contiguous()
     wye = torch.stack([b for _, b in ew]).contiguous()
     f_k = splat_fwd_cuda(wxe, wye, sensor)
@@ -409,13 +429,41 @@ def check_kernels(tag, window, theta, sensor, rows):
            8 * R * E + 4 * R * H * W, ops_splat(1) * R * E,
            cuda_ms(lambda: torch.bmm(U, V), reps))
     Ut = U.transpose(1, 2)
+    # both backward kernels, whichever the plan chooses at this shape: on the
+    # window's events (float4s) and with the edge cases and the slab-edge
+    # events appended (no multiple of 4 events: no float4s); the stream
+    # kernel bitwise the gather kernel's, and bitwise the same twice
+    by_kernel = {}
+    for what, (ax, ay) in (("window", (wx, wy)), ("edge cases", (wxe, wye))):
+        n = ax.shape[1]
+        plans = {k: plan_splat_bwd(R, n, H, W, k) for k in ("gather", "stream")}
+        out = {k: splat_bwd_cuda(ax, ay, G, sensor, p) for k, p in plans.items()}
+        again = splat_bwd_cuda(ax, ay, G, sensor, plans["stream"])
+        torch.cuda.synchronize()
+        for k in (0, 1):
+            if not torch.equal(out["stream"][k], out["gather"][k]):
+                raise AssertionError(f"splat_bwd {what}: the stream kernel is not bitwise "
+                                     f"the gather kernel's")
+            if not torch.equal(out["stream"][k], again[k]):
+                raise AssertionError(f"splat_bwd {what}: two runs of the stream kernel differ")
+        print(f"  splat_bwd {what}: {plans['stream']}: bitwise the gather kernel's, and the "
+              f"same twice")
+        if what == "window":
+            by_kernel = {k: cuda_ms(lambda: splat_bwd_cuda(wx, wy, G, sensor, p))
+                         for k, p in plans.items()}
+    print(f"  splat_bwd at {tag}: the plan chooses {p_bwd.kernel}; gather "
+          f"{by_kernel['gather']:.4f} ms, stream {by_kernel['stream']:.4f} ms")
     record(rows, "splat_bwd", tag,
            max(max_err(dx_k, dx_p, TOL_GATHER, "splat_bwd dwx"),
-               max_err(dy_k, dy_p, TOL_GATHER, "splat_bwd dwy")),
+               max_err(dy_k, dy_p, TOL_GATHER, "splat_bwd dwy"),
+               max_err(out["stream"][0], dx_p, TOL_GATHER, "splat_bwd stream dwx"),
+               max_err(out["stream"][1], dy_p, TOL_GATHER, "splat_bwd stream dwy")),
            cuda_ms(lambda: splat_bwd_cuda(wx, wy, G, sensor)),
            cuda_ms(lambda: torch.autograd.grad(f_main, (wxm, wym), G, retain_graph=True)),
            16 * R * E + 4 * R * H * W, OPS_SPLAT_BWD * R * E,
-           cuda_ms(lambda: (torch.bmm(Ut, G), torch.bmm(V, G.transpose(1, 2))), reps))
+           cuda_ms(lambda: (torch.bmm(Ut, G), torch.bmm(V, G.transpose(1, 2))), reps),
+           kernel=p_bwd.kernel, gather_ms=by_kernel["gather"],
+           stream_ms=by_kernel["stream"])
     return lib_interp_ms
 
 
@@ -434,8 +482,18 @@ def check_bench_kernels(tag, xs, ys, ts, t_refs, theta, sensor, rows, lib_interp
     print(f"[fused] {tag}: theta {tuple(theta.shape)}, {E} events, t_refs "
           f"{t_refs}, sensor {H}x{W}")
     xi, yi = torch.round(xs), torch.round(ys)
-    exi, eyi = with_edges(xi, yi, H, W)
-    ets = torch.cat([ts, torch.full((exi.shape[0] - E,), 0.5, device=ts.device)])
+    p8 = sf.card_plan(E, H, W, h, w)
+    print(f"[plan] fully fused warp+splat at {tag}: {p8}")
+    tiles = sf.plan_fused(E, H, W, h, w, "cluster")
+    # events on every edge between the cluster's tiles, once at each
+    # reference time, where they are not displaced
+    sx, sy = slab_edge_events(tiles.tile_rows, H, W, xs.device, 4)
+    n_slab = sx.shape[0]
+    exi, eyi = with_edges(torch.cat([xi] + [torch.round(sx)] * len(t_refs)),
+                          torch.cat([yi] + [torch.round(sy)] * len(t_refs)), H, W)
+    ets = torch.cat([ts] + [torch.full((n_slab,), t, device=ts.device) for t in t_refs]
+                    + [torch.full((exi.shape[0] - E - n_slab * len(t_refs),), 0.5,
+                                  device=ts.device)])
     th = interp_fwd_cuda(theta, exi, eyi, sensor)
     ethx, ethy = th[:, 0].contiguous(), th[:, 1].contiguous()
     thx, thy = ethx[:E], ethy[:E]
@@ -446,21 +504,52 @@ def check_bench_kernels(tag, xs, ys, ts, t_refs, theta, sensor, rows, lib_interp
             torch.cuda.synchronize()
             p = sf.fused_warp_splat_frame_plain(exi, eyi, ets, ethx, ethy, t, sensor, ws)
             e7.append(max_err(k, p, TOL_ATOMIC, f"fused_warp_splat t_ref {t} window {ws}"))
-            k = sf.fully_fused_warp_splat_cuda(exi, eyi, ets, theta, t, sensor, ws)
-            torch.cuda.synchronize()
             p = sf.fully_fused_warp_splat_frame_plain(exi, eyi, ets, theta, t, sensor, ws)
-            e8.append(max_err(k, p, TOL_ATOMIC,
-                              f"fully_fused_warp_splat t_ref {t} window {ws}"))
+            # both of kernel 8's kernels, whichever the plan chooses here
+            for kernel in ("scatter", "cluster"):
+                plan = sf.plan_fused(exi.shape[0], H, W, h, w, kernel)
+                k = sf.fully_fused_warp_splat_cuda(exi, eyi, ets, theta, t, sensor, ws, plan)
+                torch.cuda.synchronize()
+                e8.append(max_err(k, p, TOL_ATOMIC,
+                                  f"fully_fused_warp_splat {kernel} t_ref {t} window {ws}"))
     t0 = t_refs[0]
     record(rows, "fused_warp_splat", tag, max(e7),
            cuda_ms(lambda: sf.fused_warp_splat_cuda(xi, yi, ts, thx, thy, t0, sensor)),
            cuda_ms(lambda: sf.fused_warp_splat_frame_plain(xi, yi, ts, thx, thy, t0, sensor)),
            20 * E + 4 * H * W, (OPS_WARP + ops_splat(1)) * E, None)
+    by_kernel = {
+        kernel: cuda_ms(lambda: sf.fully_fused_warp_splat_cuda(
+            xi, yi, ts, theta, t0, sensor, 3, sf.plan_fused(E, H, W, h, w, kernel)))
+        for kernel in ("scatter", "cluster")}
+    print(f"  fully_fused_warp_splat at {tag}: the plan chooses {p8.kernel}; scatter "
+          f"{by_kernel['scatter']:.4f} ms, cluster {by_kernel['cluster']:.4f} ms")
     record(rows, "fully_fused_warp_splat", tag, max(e8),
            cuda_ms(lambda: sf.fully_fused_warp_splat_cuda(xi, yi, ts, theta, t0, sensor)),
            cuda_ms(lambda: sf.fully_fused_warp_splat_frame_plain(xi, yi, ts, theta, t0, sensor)),
            12 * E + 8 * h * w + 4 * H * W,
-           (OPS_INTERP_WEIGHTS + OPS_INTERP_CONTRACT + OPS_WARP + ops_splat(1)) * E, None)
+           (OPS_INTERP_WEIGHTS + OPS_INTERP_CONTRACT + OPS_WARP + ops_splat(1)) * E, None,
+           kernel=p8.kernel, scatter_ms=by_kernel["scatter"], cluster_ms=by_kernel["cluster"],
+           window5_ms=cuda_ms(lambda: sf.fully_fused_warp_splat_cuda(
+               xi, yi, ts, theta, t0, sensor, 5)))
+
+    # the worst contention, and the counters' wrap: 40k events inside one
+    # texel on a tile edge, kept there by a zero theta, through the cluster
+    # kernel; against the plain version in f64
+    gen = torch.Generator(device=xs.device).manual_seed(5)
+    ox = 300.2 + 0.2 * torch.rand(40_000, generator=gen, device=xs.device)
+    oy = tiles.tile_rows - 0.1 + 0.2 * torch.rand(40_000, generator=gen, device=xs.device)
+    ot = torch.rand(40_000, generator=gen, device=xs.device)
+    zero = torch.zeros_like(theta)
+    for ws in (3, 5):
+        k = sf.fully_fused_warp_splat_cuda(ox, oy, ot, zero, 0.0, sensor, ws,
+                                           sf.plan_fused(40_000, H, W, h, w, "cluster"))
+        torch.cuda.synchronize()
+        p = sf.fully_fused_warp_splat_frame_plain(
+            ox.double(), oy.double(), ot.double(), zero.double(), 0.0, sensor, ws)
+        if not float(p.max()) > 256.0:
+            raise AssertionError("the one-texel case does not wrap a counter")
+        max_err(k, p, TOL_ATOMIC,
+                f"fully_fused_warp_splat every event on one texel, window {ws}")
 
     ex, ey = with_edges(xs, ys, H, W)
     e9 = []
@@ -505,7 +594,7 @@ def main() -> int:
     )
     from eincm_tpu_torch.models.pyramid import make_window_solver
     from eincm_tpu_torch.ops import _build
-    from eincm_tpu_torch.ops.splat_kernel import plan_splat
+    from eincm_tpu_torch.ops.splat_kernel import plan_splat, plan_splat_bwd
     from eincm_tpu_torch.utils import workloads as wl
 
     # full-f32 matmuls (resize, BFGS); the port's filters use no convolution
@@ -519,10 +608,9 @@ def main() -> int:
     print(f"[setup] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, python {sys.version.split()[0]}")
     print("[setup] TF32 off for matmul and cuDNN")
-    build_s = _build.build_all(verbose=("interp", "splat", "interp_dense"))
+    build_s = _build.build_all(verbose=("interp", "splat", "fused", "interp_dense"))
     print(f"[setup] built {sorted(p.stem for p in _build.CSRC.glob('*.cu'))} "
-          f"with nvcc for sm_90a in {build_s:.2f} s (ptxas report above for the "
-          f"interp, the splat and the dense interp)")
+          f"with nvcc for sm_90a in {build_s:.2f} s (ptxas report above)")
 
     # ---- 2. the solve's kernels vs plain -------------------------------------
     t0 = time.perf_counter()
@@ -537,6 +625,7 @@ def main() -> int:
         R, E = win.edge_ts.shape[0], win.xs.shape[0]
         print(f"[plan] splat fwd at {tag}, {R} refs x {E} events: "
               f"{plan_splat(R, E, *sensor)}")
+        print(f"[plan] splat bwd at {tag}: {plan_splat_bwd(R, E, *sensor)}")
     mvsec_theta = gt_theta(vels[0], (16, 16), device)
     lib_ms = {"mvsec": check_kernels("mvsec", mvsec[0], mvsec_theta, mvsec_sensor, rows)}
     dsec_vel = (7.2 * math.cos(math.atan2(-4.0, 6.0)),
@@ -606,6 +695,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(1)
     theta = gt_theta(dsec_vel, (16, 16), "cpu") + 0.5 * torch.randn(16, 16, 2, generator=gen)
     out = []  # (loss, grad) with the kernels, then with the plain versions
+    _build.reset_launch_counts()
     for dev in (device, torch.device("cpu")):
         win = [t.to(dev) for t in dsec]
         wstat = compute_window_statics(win[0], win[1], win[3], dsec_sensor)
@@ -613,6 +703,9 @@ def main() -> int:
         loss = solver_loss(th, *win, params, 0, statics, wstat)
         (grad,) = torch.autograd.grad(loss, th)
         out.append((float(loss.detach()), grad.cpu()))
+    dsec_launches = _build.launch_counts()
+    print(f"[dsec loss] kernel launches: {dsec_launches}; its splat backward runs "
+          f"the {plan_splat_bwd(dsec.edge_ts.shape[0], dsec.xs.shape[0], *dsec_sensor).kernel} kernel")
     (lk, gk), (lp, gp) = out
     rel = abs(lk - lp) / abs(lp)
     grel = float((gk - gp).abs().max() / gp.abs().max())
@@ -635,6 +728,7 @@ def main() -> int:
         }
         if name in CHAIN_KERNELS:
             entry["launches_per_loss_eval"] = launches[name] / evals
+            entry["dsec_loss_launches"] = dsec_launches[name]
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
         kernels.append(entry)

@@ -27,9 +27,9 @@
 //     was the weights' normalization, four IEEE divisions per event: ~10
 //     instructions each, and a slow path that a whole warp takes when one
 //     lane divides an exact 0, which every tap outside the grid does (so
-//     the same bytes took 30% longer at 1x1 than at 16x16). taps_of below
-//     takes the quotients that are known (0 / s, a / 1, a / a) without
-//     dividing, bit for bit the same, for both kernels. Beyond that: four
+//     the same bytes took 30% longer at 1x1 than at 16x16). taps_of
+//     (common.cuh) takes the quotients that are known (0 / s, a / 1, a / a)
+//     without dividing, bit for bit the same, for both kernels. Beyond that: four
 //     events per thread (two float4 loads, the eight interleaved outputs as
 //     two float4 stores) from 2^17 events on, one event per thread below
 //     (at 30k events the launch is one wave and a thread's four events in a
@@ -79,9 +79,10 @@
 
 namespace {
 
-using eincm::axis_taps;
 using eincm::clamp_idx;
+using eincm::sample2;
 using eincm::Taps;
+using eincm::taps_of;
 
 constexpr int kMaxThreads = 1024;
 constexpr int kWideThreads = 512;  // kernels that may need > 64 registers
@@ -187,58 +188,7 @@ __device__ __forceinline__ void for_each_event(const Events& ev,
   }
 }
 
-// a / s in the same bits as __fdiv_rn(a, s) for a >= 0, s > 0, without the
-// division where the quotient is known: 0 / s = 0, a / 1 = a, a / a = 1.
-__device__ __forceinline__ float weight_over(float a, float s) {
-  if (a == 0.f) return 0.f;
-  if (s == 1.f) return a;
-  if (s == a) return 1.f;
-  return __fdiv_rn(a, s);
-}
-
-// common.cuh:axis_taps, bit for bit, with the two divisions of its
-// normalization taken by weight_over. An IEEE division is ~10 instructions,
-// and a warp takes its slow path as soon as one lane divides a zero, which
-// a tap outside the grid does (every event at 1x1). With both taps inside,
-// the triangle weights are 1 - d and d and their sum rounds to 1; with one
-// tap inside the sum is that tap's weight. So the division itself is left
-// to what neither case covers.
-__device__ __forceinline__ Taps taps_of(float coord, int n, float scale) {
-  Taps t = axis_taps(coord, n, scale, /*norm=*/false);
-  if (isnan(t.w0)) return t;  // a NaN coordinate: NaN weights
-  const float s = fmaxf(__fadd_rn(t.w0, t.w1), 1e-20f);
-  t.w0 = weight_over(t.w0, s);
-  t.w1 = weight_over(t.w1, s);
-  return t;
-}
-
 // ---- forward ---------------------------------------------------------------
-
-template <bool kStaged>
-__device__ __forceinline__ float2 cell(const float* th, int i) {
-  if (kStaged) return reinterpret_cast<const float2*>(th)[i];
-  return make_float2(__ldg(th + 2 * i), __ldg(th + 2 * i + 1));
-}
-
-// Both channels of the (h, w, 2) theta at the taps (ty, tx): rows first
-// (column x0, then x1), then columns, common.cuh:sample_theta's operations.
-template <bool kStaged>
-__device__ __forceinline__ void sample2(const float* th, const Taps& ty,
-                                        const Taps& tx, int h, int w,
-                                        float& o0, float& o1) {
-  const int y0 = clamp_idx(ty.k0, h), y1 = clamp_idx(ty.k0 + 1, h);
-  const int x0 = clamp_idx(tx.k0, w), x1 = clamp_idx(tx.k0 + 1, w);
-  const float2 t00 = cell<kStaged>(th, y0 * w + x0);
-  const float2 t10 = cell<kStaged>(th, y1 * w + x0);
-  const float2 t01 = cell<kStaged>(th, y0 * w + x1);
-  const float2 t11 = cell<kStaged>(th, y1 * w + x1);
-  const float a0 = __fadd_rn(__fmul_rn(ty.w0, t00.x), __fmul_rn(ty.w1, t10.x));
-  const float a1 = __fadd_rn(__fmul_rn(ty.w0, t01.x), __fmul_rn(ty.w1, t11.x));
-  const float b0 = __fadd_rn(__fmul_rn(ty.w0, t00.y), __fmul_rn(ty.w1, t10.y));
-  const float b1 = __fadd_rn(__fmul_rn(ty.w0, t01.y), __fmul_rn(ty.w1, t11.y));
-  o0 = __fadd_rn(__fmul_rn(a0, tx.w0), __fmul_rn(a1, tx.w1));
-  o1 = __fadd_rn(__fmul_rn(b0, tx.w0), __fmul_rn(b1, tx.w1));
-}
 
 template <bool kStaged>
 __global__ void __launch_bounds__(kWideThreads)

@@ -43,41 +43,64 @@
 // the time at 30k events), and the shared atomics.
 //
 // Backward: dwx = sum_j (sum_i u_i G[i, j]) v'_j and
-//           dwy = sum_i (sum_j v_j G[i, j]) u'_i, with v' = q g(q);
-// one thread per (ref, event) gathers its 9 texels of G. No atomics, so the
-// backward is deterministic; non-finite results become 0. It reads 8 bytes
-// per event plus 9 texels from L2 and writes 8 bytes: a memory-bound gather.
+//           dwy = sum_i (sum_j v_j G[i, j]) u'_i, with v' = q g(q),
+// over the event's 3x3 window of the cotangent frame G; off-sensor texels
+// count 0, non-finite results become 0. No atomics: every event is written
+// once, and a result is bitwise the same from run to run and from kernel to
+// kernel (one statement sequence per event, bwd_event).
+//
+// What bounds the backward on an H100, and the design (PERF.md has the
+// times and the runs). It moves 16 bytes per event and gathers 9 texels of
+// 4 bytes, and is bound by neither the bytes nor, alone, the gathers'
+// sectors: with the events sorted by texel, so that a warp's lanes read the
+// same few sectors, it is a quarter to a third faster (0.040 against 0.056
+// ms at 1.5M events x 2 refs), and the rest is its instruction stream (6
+// expf, the windows' bounds, a 64-bit division per event for the ref) and
+// the L1's rate of divergent 4-byte loads. Holding the frame in the shared
+// memory of a thread block cluster, a slab of rows per block, was built and
+// measured and is gone: a load from a sibling block's shared memory
+// (ld.shared::cluster) that is not coalesced costs as much as the L2
+// sector it replaces (~65G a second over the card; 0.44 ms on unsorted
+// events), and sorted events, which read their own block's slab, still
+// paid for loading the frame per cluster (0.059 against the gather's
+// 0.043 ms). So the gathers stay in L1 and L2, and the work around them is
+// cut. Two kernels, chosen by ops/splat_kernel.py:plan_splat_bwd by the
+// event count alone:
+//   - gather (few events, where the time is the launch's): one thread per
+//     (ref, event) over all refs, as before;
+//   - stream (from 2^19 events per ref): a grid of its own per ref (no
+//     division), four events in a row per thread as one float4 load per
+//     coordinate array and one float4 store per gradient array, and a
+//     row's three texels as the two aligned 8-byte pairs that hold them
+//     (six gathers per event instead of nine) where the frame's rows start
+//     on 8 bytes and the window's columns are on the sensor.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "common.cuh"
+#include "tile.cuh"
 
 namespace {
 
 using eincm::gauss;
+using eincm::kCarry;
+using eincm::kMaxSmem;
+using eincm::quantize;
 using eincm::window_hits;
+using eincm::write_back;
 
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;
 // events each thread loads at once: more spill at the 64 registers of
 // a 1024-thread block and run slower (PERF.md)
 constexpr int kUnroll = 2;
-// one block's shared memory on sm_90 (its opt-in limit), of which each warp
-// of a block of up to 1024 threads keeps a queue of kQueue events
-constexpr int kMaxSmem = 232448;
+// of one block's shared memory (tile.cuh: kMaxSmem) each warp of a block of
+// up to 1024 threads keeps a queue of kQueue events
 constexpr int kQueue = 64;
 constexpr int kQueueBytes = 32 * kQueue * 8;
-// a tile texel is a 32-bit fixed-point sum in units of 2^-24; a counter
-// that wraps carries 2^32 units = 256.0 into the frame in device memory
-constexpr float kUnit = 16777216.f;  // 2^24
-constexpr float kCarry = 256.f;
 // x + 1.5 * 2^23 holds rint(x) (half to even) in its low mantissa bits for
-// |x| < 2^22; x + 2^23 holds rint(x) for 0 <= x < 2^23
+// |x| < 2^22
 constexpr float kRound = 12582912.f;
 constexpr unsigned kRoundBits = 0x4B400000u;
-constexpr float kUint = 8388608.f;
-constexpr unsigned kUintBits = 0x4B000000u;
 
 struct SlabPlan {
   int tile_rows, tile_cols;  // rows and columns of one tile
@@ -134,44 +157,12 @@ __device__ __forceinline__ void deposit(unsigned* tile, float* frame, float x,
     for (int b = 0; b < 3; ++b) {
       const int col = c.ix + b - 1;
       if (col < c0 || col >= c1) continue;
-      const unsigned q =
-          __float_as_uint(__fadd_rn((gy[a] * gx[b]) * kUnit, kUint)) - kUintBits;
+      const unsigned q = quantize(gy[a] * gx[b]);
       const unsigned old = atomicAdd(tile + (row - r0) * tc + (col - c0), q);
       if (old + q < old)  // at most once per ~1600 taps of a texel
         atomicAdd(frame + (long long)row * W + col, kCarry);
     }
   }
-}
-
-__device__ __forceinline__ float texel(unsigned v) {
-  return __uint2float_rn(v) * (1.f / kUnit);
-}
-
-// n texels of the tile (shared, from src) added into dst (global): head
-// and tail one by one, the aligned body as float4 reductions (read as uint4
-// where src is aligned with dst); zeros skipped
-__device__ __forceinline__ void write_back(float* __restrict__ dst,
-                                           const unsigned* src, long long n) {
-  const int head = (int)((4 - ((size_t)dst / 4) % 4) % 4);
-  const long long lead = head < n ? head : n;
-  const long long n4 = (n - lead) / 4;
-  for (long long i = threadIdx.x; i < lead; i += blockDim.x)
-    if (src[i]) atomicAdd(dst + i, texel(src[i]));
-  float4* body = reinterpret_cast<float4*>(dst + lead);
-  const bool aligned = ((size_t)(src + lead) % 16) == 0;
-  for (long long v = threadIdx.x; v < n4; v += blockDim.x) {
-    uint4 t;
-    if (aligned) {
-      t = reinterpret_cast<const uint4*>(src + lead)[v];
-    } else {
-      const unsigned* s = src + lead + 4 * v;
-      t = make_uint4(s[0], s[1], s[2], s[3]);
-    }
-    if (t.x | t.y | t.z | t.w)
-      atomicAdd(body + v, make_float4(texel(t.x), texel(t.y), texel(t.z), texel(t.w)));
-  }
-  for (long long i = lead + 4 * n4 + threadIdx.x; i < n; i += blockDim.x)
-    if (src[i]) atomicAdd(dst + i, texel(src[i]));
 }
 
 __global__ void __launch_bounds__(1024)
@@ -252,6 +243,75 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
+// ---- backward ----------------------------------------------------------------
+
+// (dwx, dwy) of one event from its 3x3 window of the (H, W) cotangent frame
+// G: one statement sequence for both kernels, so that they give the same
+// bits. With kPairs (W even and G on 8 bytes) a row's three texels come as
+// the two aligned pairs that hold them, where the window's columns are all
+// on the sensor: two 8-byte gathers instead of three of 4 bytes.
+template <bool kPairs>
+__device__ __forceinline__ void bwd_event(const float* __restrict__ G, float x,
+                                          float y, int H, int W, float& dx,
+                                          float& dy) {
+  const float rx = rintf(x), ry = rintf(y);
+  float ox = 0.f, oy = 0.f;
+  if (window_hits(rx, ry, H, W, 1)) {
+    const int iy = (int)ry, ix = (int)rx;
+    float u[3], du[3], v[3], dv[3], t[3][3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const int row = iy + d - 1, col = ix + d - 1;
+      const bool rok = row >= 0 && row < H, cok = col >= 0 && col < W;
+      const float qy = (ry + (float)(d - 1)) - y;
+      const float qx = (rx + (float)(d - 1)) - x;
+      const float gy = gauss(qy), gx = gauss(qx);
+      u[d] = rok ? gy : 0.f;
+      du[d] = rok ? qy * gy : 0.f;
+      v[d] = cok ? gx : 0.f;
+      dv[d] = cok ? qx * gx : 0.f;
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int row = iy + a - 1;
+      const int left = (ix - 1) & ~1;  // the even column at or before ix - 1
+      if (kPairs && ix >= 1 && left + 3 < W) {
+        t[a][0] = t[a][1] = t[a][2] = 0.f;
+        if (row >= 0 && row < H) {
+          const float2* pair = reinterpret_cast<const float2*>(G + row * W + left);
+          const float2 lo = __ldg(pair), hi = __ldg(pair + 1);
+          const bool odd = (ix - 1) & 1;
+          t[a][0] = odd ? lo.y : lo.x;
+          t[a][1] = odd ? hi.x : lo.y;
+          t[a][2] = odd ? hi.y : hi.x;
+        }
+        continue;
+      }
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        const int col = ix + b - 1;
+        t[a][b] = (row >= 0 && row < H && col >= 0 && col < W)
+                      ? __ldg(G + row * W + col)
+                      : 0.f;
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      const float m = u[0] * t[0][b] + u[1] * t[1][b] + u[2] * t[2][b];
+      ox += m * dv[b];
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float m = v[0] * t[a][0] + v[1] * t[a][1] + v[2] * t[a][2];
+      oy += m * du[a];
+    }
+  }
+  dx = isfinite(ox) ? ox : 0.f;
+  dy = isfinite(oy) ? oy : 0.f;
+}
+
+// The gather kernel: one thread per (ref, event) in a grid-stride loop over
+// all refs' events.
 __global__ void splat_bwd_kernel(const float* __restrict__ wx,
                                  const float* __restrict__ wy,
                                  const float* __restrict__ grad,
@@ -261,56 +321,46 @@ __global__ void splat_bwd_kernel(const float* __restrict__ wx,
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const float x = wx[i], y = wy[i];
-    const float rx = rintf(x), ry = rintf(y);
-    float ox = 0.f, oy = 0.f;
-    if (window_hits(rx, ry, H, W, 1)) {
-      const int iy = (int)ry, ix = (int)rx;
-      const float* G = grad + (i / n_events) * (long long)H * W;
-      float u[3], du[3], v[3], dv[3], t[3][3];
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        const int row = iy + d - 1, col = ix + d - 1;
-        const bool rok = row >= 0 && row < H, cok = col >= 0 && col < W;
-        const float qy = (ry + (float)(d - 1)) - y;
-        const float qx = (rx + (float)(d - 1)) - x;
-        const float gy = gauss(qy), gx = gauss(qx);
-        u[d] = rok ? gy : 0.f;
-        du[d] = rok ? qy * gy : 0.f;
-        v[d] = cok ? gx : 0.f;
-        dv[d] = cok ? qx * gx : 0.f;
-      }
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const int row = iy + a - 1;
-#pragma unroll
-        for (int b = 0; b < 3; ++b) {
-          const int col = ix + b - 1;
-          t[a][b] = (row >= 0 && row < H && col >= 0 && col < W)
-                        ? __ldg(G + (long long)row * W + col)
-                        : 0.f;
-        }
-      }
-#pragma unroll
-      for (int b = 0; b < 3; ++b) {
-        const float m = u[0] * t[0][b] + u[1] * t[1][b] + u[2] * t[2][b];
-        ox += m * dv[b];
-      }
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const float m = v[0] * t[a][0] + v[1] * t[a][1] + v[2] * t[a][2];
-        oy += m * du[a];
-      }
-    }
-    dwx[i] = isfinite(ox) ? ox : 0.f;
-    dwy[i] = isfinite(oy) ? oy : 0.f;
+    const float* G = grad + (i / n_events) * (long long)H * W;
+    bwd_event<false>(G, wx[i], wy[i], H, W, dwx[i], dwy[i]);
   }
 }
 
-int grid_for(long long n) {
-  long long b = (n + kThreads - 1) / kThreads;
-  if (b > kMaxBlocks) b = kMaxBlocks;
-  return b < 1 ? 1 : (int)b;
+// The stream kernel: blockIdx.y is the ref, and a thread takes four events
+// in a row, as one float4 load per coordinate array and one float4 store
+// per gradient array where `vec` says they start on 16 bytes, so that the
+// gathers of four windows are in flight together.
+template <bool kPairs>
+__global__ void __launch_bounds__(512)
+    splat_bwd_stream_kernel(const float* __restrict__ wx,
+                            const float* __restrict__ wy,
+                            const float* __restrict__ grad,
+                            float* __restrict__ dwx, float* __restrict__ dwy,
+                            long long n_events, int H, int W, int vec) {
+  const long long ref = blockIdx.y;
+  const float* xs = wx + ref * n_events;
+  const float* ys = wy + ref * n_events;
+  float* ox = dwx + ref * n_events;
+  float* oy = dwy + ref * n_events;
+  const float* G = grad + ref * H * W;
+  const long long stride = 4LL * gridDim.x * blockDim.x;
+  for (long long e = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+       e < n_events; e += stride) {
+    if (vec && e + 3 < n_events) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(xs + e));
+      const float4 y = __ldg(reinterpret_cast<const float4*>(ys + e));
+      float4 dx, dy;
+      bwd_event<kPairs>(G, x.x, y.x, H, W, dx.x, dy.x);
+      bwd_event<kPairs>(G, x.y, y.y, H, W, dx.y, dy.y);
+      bwd_event<kPairs>(G, x.z, y.z, H, W, dx.z, dy.z);
+      bwd_event<kPairs>(G, x.w, y.w, H, W, dx.w, dy.w);
+      *reinterpret_cast<float4*>(ox + e) = dx;
+      *reinterpret_cast<float4*>(oy + e) = dy;
+    } else {
+      for (long long i = e; i < min(e + 4, n_events); ++i)
+        bwd_event<kPairs>(G, __ldg(xs + i), __ldg(ys + i), H, W, ox[i], oy[i]);
+    }
+  }
 }
 
 }  // namespace
@@ -339,12 +389,28 @@ extern "C" int eincm_splat_fwd(const float* wx, const float* wy,
   return (int)cudaGetLastError();
 }
 
+// the gather kernel: one thread per (ref, event) in a grid-stride loop of
+// `blocks` x `threads`; with `stream`, the stream kernel: a grid of `blocks`
+// x n_refs blocks, four events per thread (`vec`: as float4s)
 extern "C" int eincm_splat_bwd(const float* wx, const float* wy,
                                const float* grad, float* dwx, float* dwy,
                                int n_refs, long long n_events, int H, int W,
-                               cudaStream_t stream) {
+                               int stream_kernel, int blocks, int threads,
+                               int vec, cudaStream_t stream) {
   const long long n = (long long)n_refs * n_events;
-  splat_bwd_kernel<<<grid_for(n), kThreads, 0, stream>>>(
-      wx, wy, grad, dwx, dwy, n, n_events, H, W);
+  if (blocks < 1 || threads < 32 || threads % 32 || n_refs > 65535 ||
+      threads > (stream_kernel ? 512 : 1024) || (long long)H * W > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  // a row's texels in aligned pairs: every row of every ref on 8 bytes
+  const bool pairs = W % 2 == 0 && (size_t)grad % 8 == 0;
+  if (stream_kernel && pairs)
+    splat_bwd_stream_kernel<true><<<dim3(blocks, n_refs), threads, 0, stream>>>(
+        wx, wy, grad, dwx, dwy, n_events, H, W, vec);
+  else if (stream_kernel)
+    splat_bwd_stream_kernel<false><<<dim3(blocks, n_refs), threads, 0, stream>>>(
+        wx, wy, grad, dwx, dwy, n_events, H, W, vec);
+  else
+    splat_bwd_kernel<<<blocks, threads, 0, stream>>>(wx, wy, grad, dwx, dwy, n,
+                                                      n_events, H, W);
   return (int)cudaGetLastError();
 }

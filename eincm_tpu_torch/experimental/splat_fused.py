@@ -24,10 +24,14 @@ are used as given, not rounded: callers pass rounded coordinates.
 
 Both return `(frame (H, W), ok)`. On the TPU `ok` said whether the row
 bands of sorted events covered every event (a frame with `ok` False had
-lost mass). The port scatters with atomics and has no bands, so every
-frame is complete, in any event order, and `ok` is a 0-d True tensor on
-the frame's device. The TPU versions' `b` (band height) and `interpret`
-arguments only shaped that band tiling and are dropped.
+lost mass). The port scatters with atomics and has no bands of sorted
+events, so every frame is complete, in any event order, and `ok` is a 0-d
+True tensor on the frame's device. Kernel 7 adds each tap into the frame in
+device memory, and so does kernel 8 where events are few; where they are
+many it adds them in shared memory, where a thread block cluster holds the
+whole frame (`plan_fused` chooses and cuts). The TPU versions' `b` (band
+height) and `interpret` arguments only shaped that band tiling and are
+dropped.
 
 Forward only; nothing in the solver or the loss calls these. Dispatch: CPU
 tensors take the plain version; CUDA tensors launch the kernel, and
@@ -36,16 +40,33 @@ anything it does not take raises.
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
 import torch
 
-from eincm_tpu_torch.ops._build import KERNELS, check_cuda_f32
-from eincm_tpu_torch.ops.interp import _scales, interp_theta_at_events_plain
-from eincm_tpu_torch.ops.splat_kernel import splat_plain
+from eincm_tpu_torch.ops._build import KERNELS, active_clusters, check_cuda_f32
+from eincm_tpu_torch.ops.interp import (
+    FWD_STAGED_BYTES, _scales, interp_theta_at_events_plain,
+)
+from eincm_tpu_torch.ops.splat_kernel import N_SM, SMEM_BLOCK, SMEM_PER_SM, splat_plain
 
 WINDOW_SIZES = (3, 5)  # the kernels are built for these
+# Kernel 8's two kernels (csrc/fused.cu). The cluster kernel zeroes and
+# writes back a whole frame per cluster and passes two cluster barriers per
+# round, which events fewer than CLUSTER_EVENTS do not pay for: below it the
+# scatter kernel, whose global atomics are then few (PERF.md: both on an
+# H100 from 16k to 1M events).
+CLUSTER_EVENTS = 1 << 19
+MAX_CLUSTER = 8  # blocks in a thread block cluster: the portable limit
+SCATTER_THREADS = 256
+SCATTER_MAX_BLOCKS = N_SM * 16
+MAX_PER_THREAD = 8  # events a thread of kernel 8 warps in a round, at most
+MIN_QUEUE = 32  # events a block can queue for a sibling in a round, at least
+QUEUE_MARGIN = 1.5  # a queue's size over a sibling's even share of a round
+SMEM_RESERVE = 128  # a block's own words beside its tile, queues and theta
 
 
 def _half_window(window_size: int) -> int:
@@ -111,10 +132,146 @@ def fused_warp_splat_cuda(
     return frame
 
 
+@dataclass(frozen=True)
+class FusedPlan:
+    """Which of kernel 8's two kernels runs, and how it cuts the (H, W)
+    frame and the E events.
+
+    `scatter`: one thread per event in a grid-stride loop of `chunks` blocks
+    of `threads` threads, every tap a global atomic; the other fields are 0.
+
+    `cluster`: a thread block cluster of `cluster` blocks holds `cluster` x
+    `tile_rows` rows of the frame in shared memory as 32-bit fixed-point
+    texels, block r of it the rows [r tile_rows, (r + 1) tile_rows); `bands`
+    such bands cover the frame (one, where the whole frame fits a cluster).
+    The events are cut into `cluster` sections, one per block, and a
+    section into runs of `threads` x `per_thread` events, of which chunk c
+    takes runs c, c + chunks, ...; the grid has chunks x bands clusters, and
+    a cluster adds its tiles into the zeroed frame once. A run is a round:
+    every block warps its run's events, adds the taps that fall on its own
+    rows and sends each other event to the block that owns its rows, into
+    one of the `cluster` queues of `queue` events it has there; after a
+    cluster barrier every block adds the taps of the events it received. An
+    event that finds its queue full is added into the sibling's tile with
+    remote atomics, which is slow (PERF.md) and right. `staged`: theta is
+    read from a copy in shared memory beside the tile and the queues."""
+
+    kernel: str
+    chunks: int
+    threads: int
+    cluster: int = 0
+    tile_rows: int = 0
+    bands: int = 0
+    staged: bool = False
+    per_thread: int = 0
+    queue: int = 0
+    smem_bytes: int = 0
+
+    @property
+    def run_events(self) -> int:
+        return self.threads * self.per_thread
+
+
+@functools.lru_cache(maxsize=256)
+def plan_fused(
+    E: int, H: int, W: int, h: int, w: int, kernel: str = None, cluster: int = None,
+    chunks: int = None, threads: int = None, per_thread: int = None,
+    queue: int = None, active_clusters: int = None,
+) -> FusedPlan:
+    """Kernel 8's plan for E events on an H x W sensor and an (h, w, 2)
+    theta: by default the cluster kernel from CLUSTER_EVENTS events on, else
+    the scatter kernel, a choice by shape alone. `active_clusters` is the
+    number of clusters of the launch that the card runs at once (the
+    CUDA runtime's answer, `card_plan`; by default an H100's SMs over the
+    cluster)."""
+    if not (E >= 1 and H >= 1 and W >= 1 and h >= 1 and w >= 1):
+        raise ValueError(f"plan_fused: need E, H, W, h, w >= 1, got {(E, H, W, h, w)}")
+    if kernel is None:
+        kernel = "cluster" if E >= CLUSTER_EVENTS else "scatter"
+    if kernel not in ("scatter", "cluster"):
+        raise ValueError(f"plan_fused: kernel {kernel!r}")
+    limit = 1024
+    if kernel == "scatter":
+        threads = SCATTER_THREADS if threads is None else threads
+        if chunks is None:
+            chunks = max(1, min(-(-E // threads), SCATTER_MAX_BLOCKS))
+        if not (32 <= threads <= limit and threads % 32 == 0 and chunks >= 1):
+            raise ValueError(f"plan_fused: {chunks} blocks of {threads} threads")
+        return FusedPlan(kernel="scatter", chunks=chunks, threads=threads)
+    S = min(MAX_CLUSTER, H) if cluster is None else cluster
+    if not 1 <= S <= MAX_CLUSTER:
+        raise ValueError(f"plan_fused: cluster {S} not in [1, {MAX_CLUSTER}]")
+    staged = 8 * h * w <= FWD_STAGED_BYTES
+    theta_bytes = 8 * h * w if staged else 0
+    # beside the tile: theta, the block's own few words, and at least
+    # MIN_QUEUE events from each sibling
+    min_queues = 8 * S * MIN_QUEUE if S > 1 else 0
+    room = SMEM_BLOCK - SMEM_RESERVE - theta_bytes - min_queues
+    max_rows = room // 16 * 4 // W  # the tile is zeroed as uint4
+    if max_rows < 1 or H >= 65536:
+        raise ValueError(f"plan_fused: a row of {W} texels does not fit a tile of "
+                         f"{room} bytes, or {H} rows are too many")
+    bands = -(-H // (S * max_rows))
+    tile_rows = -(-H // (S * bands))
+    tile_bytes = 16 * -(-tile_rows * W // 4)
+    per_sm = SMEM_PER_SM // (tile_bytes + theta_bytes + min_queues + 1024)
+    if threads is None:
+        threads = 1024 if per_sm == 1 else 512
+    if not (32 <= threads <= limit and threads % 32 == 0):
+        raise ValueError(f"plan_fused: threads {threads}: a multiple of 32 up to {limit}")
+    if active_clusters is None:
+        active_clusters = (N_SM // S) * max(1, min(per_sm, 2048 // threads))
+    section = -(-E // S)
+    if chunks is None:
+        # enough clusters to fill the card, none without a run of events;
+        # each writes the whole frame back
+        chunks = max(1, min(active_clusters // bands, -(-section // threads)))
+    # events a sibling's queue can hold beside the tile
+    fit = (SMEM_BLOCK - SMEM_RESERVE - theta_bytes - tile_bytes) // (8 * S)
+    if per_thread is None:
+        # the fewest rounds (each costs two cluster barriers) whose queues
+        # hold QUEUE_MARGIN times a sibling's even share of a round, and
+        # the same number of events in each
+        each = -(-section // (chunks * threads))  # events a thread takes in all
+        cap = MAX_PER_THREAD if S == 1 else int(fit * S / (QUEUE_MARGIN * threads))
+        rounds = -(-each // max(1, min(MAX_PER_THREAD, cap)))
+        per_thread = -(-each // rounds)
+    if not (chunks >= 1 and per_thread >= 1):
+        raise ValueError(f"plan_fused: chunks {chunks}, per_thread {per_thread}")
+    if S == 1:
+        queue = 0
+    elif queue is None:
+        want = -(-2 * threads * per_thread // S // 32) * 32
+        queue = max(MIN_QUEUE, min(want, fit // 32 * 32))
+    elif not MIN_QUEUE <= queue <= fit:
+        raise ValueError(f"plan_fused: queue {queue} not in [{MIN_QUEUE}, {fit}]")
+    return FusedPlan(kernel="cluster", chunks=chunks, threads=threads, cluster=S,
+                     tile_rows=tile_rows, bands=bands, staged=staged,
+                     per_thread=per_thread, queue=queue,
+                     smem_bytes=tile_bytes + 8 * S * queue + theta_bytes)
+
+
+def card_plan(E: int, H: int, W: int, h: int, w: int, window_size: int = 3) -> FusedPlan:
+    """`plan_fused`'s plan; the cluster kernel's with as many chunks as the
+    current CUDA device runs clusters of that launch at once (the CUDA
+    runtime's answer)."""
+    p = plan_fused(E, H, W, h, w)
+    if p.kernel != "cluster":
+        return p
+    active = active_clusters(
+        "fused", "eincm_fused_active_clusters", H, W, _half_window(window_size), h, w,
+        p.cluster, p.tile_rows, p.threads, int(p.staged), p.queue,
+    )
+    return plan_fused(E, H, W, h, w, active_clusters=active)
+
+
 def fully_fused_warp_splat_cuda(
-    xi, yi, ts, theta, t_ref, sensor_size, window_size: int = 3
+    xi, yi, ts, theta, t_ref, sensor_size, window_size: int = 3,
+    plan: FusedPlan = None,
 ) -> torch.Tensor:
-    """Launch kernel 8: (E,) xi, yi, ts and (h, w, 2) theta -> (H, W)."""
+    """Launch kernel 8: (E,) xi, yi, ts and (h, w, 2) theta -> (H, W), cut
+    as `plan` (default: `plan_fused`'s, with the clusters the card runs at
+    once) says. A plan that does not fit the shapes raises."""
     hw = _half_window(window_size)
     e = xi.shape[0]
     h, w, _ = theta.shape
@@ -124,13 +281,23 @@ def fully_fused_warp_splat_cuda(
     sy, sx = _scales(h, w, sensor_size)
     H, W = sensor_size
     frame = torch.zeros((H, W), dtype=torch.float32, device=xi.device)
-    if e:
-        with torch.cuda.device(xi.device):
-            KERNELS["fully_fused_warp_splat"](
-                xi.data_ptr(), yi.data_ptr(), ts.data_ptr(), theta.data_ptr(),
-                frame.data_ptr(), e, _f32(t_ref), H, W, hw, h, w, sy, sx,
-                torch.cuda.current_stream().cuda_stream,
-            )
+    if not e:
+        return frame
+    with torch.cuda.device(xi.device):
+        if plan is None:
+            p = card_plan(e, H, W, h, w, window_size)
+        elif plan == plan_fused(e, H, W, h, w, plan.kernel, plan.cluster or None, plan.chunks,
+                                plan.threads, plan.per_thread or None, plan.queue or None):
+            p = plan
+        else:
+            raise ValueError(f"fully_fused_warp_splat: {plan} does not fit "
+                             f"{(e, H, W, h, w)}")
+        KERNELS["fully_fused_warp_splat"](
+            xi.data_ptr(), yi.data_ptr(), ts.data_ptr(), theta.data_ptr(),
+            frame.data_ptr(), e, _f32(t_ref), H, W, hw, h, w, sy, sx,
+            p.cluster, p.tile_rows, p.bands, p.chunks, p.threads, int(p.staged),
+            p.per_thread, p.queue, torch.cuda.current_stream().cuda_stream,
+        )
     return frame
 
 

@@ -231,7 +231,8 @@ def minimize_bounded_scalar(
     bounds: Tuple[float, float],
     maxiter: int = 30,
     n_grid_probes: int = 0,
-    device=None,
+    *,
+    device,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Bounded scalar minimization by golden-section search -> (x*, f*).
 

@@ -141,9 +141,9 @@ class SolverConfig:
         )
 
     def zero_pyramid(
-        self, dtype=torch.float32, device=None
+        self, dtype=torch.float32, *, device
     ) -> Tuple[torch.Tensor, ...]:
-        """All-zero theta pyramid, finest (level 0) first."""
+        """All-zero theta pyramid on `device`, finest (level 0) first."""
         return tuple(
             torch.zeros((*self.level_shape(l), 2), dtype=dtype, device=device)
             for l in range(self.n_pyr_lvls)

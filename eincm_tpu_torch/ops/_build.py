@@ -174,17 +174,21 @@ KERNELS: Dict[str, Kernel] = {
     "splat_fwd": Kernel(
         "splat", "eincm_splat_fwd", (P, P, P, I, LL, I, I, I, I, I, I, I, I, P)
     ),
-    # (wx, wy, grad_frames, dwx, dwy, n_refs, n_events, H, W, stream)
-    "splat_bwd": Kernel("splat", "eincm_splat_bwd", (P, P, P, P, P, I, LL, I, I, P)),
+    # (wx, wy, grad_frames, dwx, dwy, n_refs, n_events, H, W, stream_kernel,
+    #  blocks, threads, vec, stream)
+    "splat_bwd": Kernel(
+        "splat", "eincm_splat_bwd", (P, P, P, P, P, I, LL, I, I, I, I, I, I, P)
+    ),
     # (xi, yi, ts, thx, thy, frame, n_events, t_ref, H, W, hw, stream)
     "fused_warp_splat": Kernel(
         "fused", "eincm_fused_warp_splat", (P, P, P, P, P, P, LL, F, I, I, I, P)
     ),
     # (xi, yi, ts, theta, frame, n_events, t_ref, H, W, hw, h, w,
-    #  scale_y, scale_x, stream)
+    #  scale_y, scale_x, cluster, tile_rows, bands, chunks, threads, staged,
+    #  per_thread, queue, stream)
     "fully_fused_warp_splat": Kernel(
         "fused", "eincm_fully_fused_warp_splat",
-        (P, P, P, P, P, LL, F, I, I, I, I, I, F, F, P),
+        (P, P, P, P, P, LL, F, I, I, I, I, I, F, F, I, I, I, I, I, I, I, I, P),
     ),
     # (theta, xs, ys, out, n_events, h, w, hp, wp, scale_y, scale_x, mode,
     #  stream)
@@ -192,6 +196,28 @@ KERNELS: Dict[str, Kernel] = {
         "interp_dense", "eincm_interp_dense", (P, P, P, P, LL, I, I, I, I, F, F, I, P)
     ),
 }
+
+
+# The clusters of a kernel's launch that the card runs at once
+# (`cudaOccupancyMaxActiveClusters`), by (library, symbol, arguments): a
+# question to the CUDA runtime, not a launch.
+_ACTIVE_CLUSTERS: Dict[tuple, int] = {}
+
+
+def active_clusters(lib: str, symbol: str, *args: int) -> int:
+    key = (lib, symbol, torch.cuda.current_device(), args)
+    if key not in _ACTIVE_CLUSTERS:
+        fn = getattr(load(lib), symbol)
+        fn.argtypes = [I] * len(args)
+        fn.restype = ctypes.c_int
+        n = fn(*args)
+        if n < 1:
+            raise RuntimeError(
+                f"{symbol}{args}: no cluster of this launch fits the card"
+                + (f" (cudaError_t {-n})" if n < 0 else "")
+            )
+        _ACTIVE_CLUSTERS[key] = n
+    return _ACTIVE_CLUSTERS[key]
 
 
 def launch_counts() -> Dict[str, int]:

@@ -3,10 +3,12 @@
 
 Replaces the TPU kernels of eincm_tpu/ops/splat_pallas.py (`_splat_kernel`,
 `_bwd_kernel`) and eincm_tpu/ops/splat_banded.py (`_fwd_kernel`,
-`_bwd_kernel`) with the two CUDA kernels of `csrc/splat.cu`, and keeps
-their plain PyTorch version beside them. The forward adds every tap in
-shared memory, one tile per (ref, event chunk, slab of the frame);
-`plan_splat` cuts the frame and the events.
+`_bwd_kernel`) with the CUDA kernels of `csrc/splat.cu`, and keeps their
+plain PyTorch version beside them. The forward adds every tap in shared
+memory, one tile per (ref, event chunk, slab of the frame); `plan_splat`
+cuts the frame and the events. The backward gathers each event's 3x3 window
+of the cotangent through the caches, one event per thread where events are
+few, four in a row as float4s where they are many; `plan_splat_bwd` chooses.
 
 Each event deposits the 3x3 window of separable standard-normal pdf values
 `g(i - y) g(j - x)`, `g(q) = exp(-q^2 / 2) / sqrt(2 pi)`, around its
@@ -21,6 +23,7 @@ kernels, and anything they do not take raises.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Tuple
@@ -179,9 +182,78 @@ def splat_fwd_cuda(warped_xs, warped_ys, sensor_size, plan: SplatPlan = None) ->
     return frames
 
 
-def splat_bwd_cuda(warped_xs, warped_ys, grad_frames, sensor_size):
-    """Launch the backward kernel: (R, H, W) cotangent -> (dwx, dwy), each
-    (R, E)."""
+# The backward's two kernels (csrc/splat.cu). Both gather each event's 3x3
+# window of the cotangent through L1 and L2 and give the same bits. The
+# gather kernel is one thread per (ref, event); the stream kernel gives a
+# thread four events in a row, as float4 loads and stores, with a grid of
+# its own per ref. From BWD_STREAM_EVENTS events per ref on the stream
+# kernel, below it the gather kernel, whose time is then the launch's
+# (PERF.md: both on an H100 at 30k and at 1.5M events per ref, over threads
+# and blocks per SM).
+BWD_STREAM_EVENTS = 1 << 19
+BWD_EVENTS_PER_THREAD = 4  # one float4 of xs and of ys
+GATHER_THREADS = 256
+GATHER_MAX_BLOCKS = N_SM * 16
+STREAM_THREADS = 256
+STREAM_BLOCKS_PER_SM = 8  # over all refs
+
+
+@dataclass(frozen=True)
+class SplatBwdPlan:
+    """Which of the backward's two kernels runs, and its launch.
+
+    `gather`: one thread per (ref, event) in a grid-stride loop of `blocks`
+    x `threads` over all refs' events.
+
+    `stream`: a grid of `blocks` x R blocks of `threads` threads; a thread
+    takes BWD_EVENTS_PER_THREAD events in a row, grid-stride within its ref;
+    `vec`: as one float4 load per coordinate array and one float4 store per
+    gradient array (every ref's arrays start on 16 bytes)."""
+
+    kernel: str
+    blocks: int
+    threads: int
+    vec: bool = False
+
+
+@functools.lru_cache(maxsize=256)
+def plan_splat_bwd(
+    R: int, E: int, H: int, W: int, kernel: str = None, threads: int = None,
+    blocks: int = None, aligned: bool = True,
+) -> SplatBwdPlan:
+    """The backward's plan for R refs of E events on an H x W sensor: by
+    default the stream kernel from BWD_STREAM_EVENTS events per ref on, else
+    the gather kernel, a choice by shape alone. `aligned` says whether the
+    four (R, E) arrays start on 16 bytes."""
+    if not (R >= 1 and E >= 1 and H >= 1 and W >= 1):
+        raise ValueError(f"plan_splat_bwd: need R, E, H, W >= 1, got {(R, E, H, W)}")
+    if kernel is None:
+        kernel = "stream" if E >= BWD_STREAM_EVENTS else "gather"
+    if kernel == "gather":
+        threads = GATHER_THREADS if threads is None else threads
+        limit = 1024
+        if blocks is None:
+            blocks = max(1, min(-(-R * E // threads), GATHER_MAX_BLOCKS))
+        vec = False
+    elif kernel == "stream":
+        threads = STREAM_THREADS if threads is None else threads
+        limit = 512
+        if blocks is None:
+            full = -(-E // (threads * BWD_EVENTS_PER_THREAD))
+            blocks = max(1, min(full, -(-N_SM * STREAM_BLOCKS_PER_SM // R)))
+        vec = aligned and (E % 4 == 0 or R == 1)
+    else:
+        raise ValueError(f"plan_splat_bwd: kernel {kernel!r}")
+    if not (32 <= threads <= limit and threads % 32 == 0 and blocks >= 1):
+        raise ValueError(f"plan_splat_bwd: {blocks} blocks of {threads} threads: threads "
+                         f"a multiple of 32 up to {limit}")
+    return SplatBwdPlan(kernel=kernel, blocks=blocks, threads=threads, vec=vec)
+
+
+def splat_bwd_cuda(warped_xs, warped_ys, grad_frames, sensor_size, plan: SplatBwdPlan = None):
+    """Launch a backward kernel: (R, H, W) cotangent -> (dwx, dwy), each
+    (R, E), by `plan` (default: `plan_splat_bwd`'s). A plan with float4s
+    on arrays that do not start on 16 bytes raises."""
     R, E = warped_xs.shape
     H, W = sensor_size
     check_cuda_f32(
@@ -192,11 +264,17 @@ def splat_bwd_cuda(warped_xs, warped_ys, grad_frames, sensor_size):
     dwx = torch.empty_like(warped_xs)
     dwy = torch.empty_like(warped_ys)
     if R * E:
+        aligned = all(t.data_ptr() % 16 == 0 for t in (warped_xs, warped_ys, dwx, dwy))
+        p = plan_splat_bwd(R, E, H, W, aligned=aligned) if plan is None else plan
+        if p.vec and not (aligned and (E % 4 == 0 or R == 1)):
+            raise ValueError(f"splat_bwd: {p} takes float4s, but the arrays of "
+                             f"{(R, E)} do not start on 16 bytes in every ref")
         with torch.cuda.device(warped_xs.device):
             KERNELS["splat_bwd"](
                 warped_xs.data_ptr(), warped_ys.data_ptr(),
                 grad_frames.data_ptr(), dwx.data_ptr(), dwy.data_ptr(),
-                R, E, H, W, torch.cuda.current_stream().cuda_stream,
+                R, E, H, W, int(p.kernel == "stream"), p.blocks, p.threads,
+                int(p.vec), torch.cuda.current_stream().cuda_stream,
             )
     return dwx, dwy
 

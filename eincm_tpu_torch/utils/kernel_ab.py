@@ -1,26 +1,38 @@
-"""Time the splat forward, the dense-layout interp (kernel 9) and the
-coarse-theta interp (kernels 1 and 2) of one source tree, so that two
-commits can be timed in turns on one card.
+"""Time the splat forward and backward, the fused warp+splat kernels (7
+and 8), the dense-layout interp (kernel 9) and the coarse-theta interp
+(kernels 1 and 2) of one source tree, so that two commits can be timed in
+turns on one card.
 
     python3 eincm_tpu_torch/utils/kernel_ab.py --tree DIR --label NAME \
-        [--out FILE] [--sweep]
+        [--out FILE] [--sweep [interp] [splat_bwd] [fused]]
 
 Imports `eincm_tpu_torch` from DIR (a checkout or a `git archive` of any
 commit that has these entry points) and builds its kernels there. Inputs,
 the same in every tree: the splat at the MVSEC shape (staged window 0 at
 its ground-truth flow, 2 refs x 30k events, 256x336), the DSEC shape (the
 staged 1.5M-event window, 2 refs, 480x640) and the fused bench's uniform
-events (2 refs, 480x640); kernel 9 (`highest`, `dot3`, `bf16`) on
-window 0's events with its 16x16 GT theta and on the dense-interp bench's
-1.5M events, beside kernel 1 and `F.grid_sample`. Where the tree has the
-splat's slab plan, the splat is also timed at several tile budgets (and,
-at MVSEC, event chunks): time that grows with the number of slabs is time
-spent re-reading events. The interp forward and backward are timed at the
-chain's five grids (1x1 to 16x16) on both staged windows' events, beside
-`F.grid_sample` and `torch.einsum` at 16x16; with `--sweep`, where the
-tree has `plan_interp`, also over the plan's choices (events in groups of
-four or one by one, threads, blocks per SM, theta staged or gathered, the
-backward's modes up to 64x64).
+events (2 refs, 480x640), forward and, with a seeded cotangent, backward
+(`splat_bwd_*`); kernels 7 and 8 on window 0's events with its 16x16 GT
+theta and on the fused bench's 1.5M events, for window sizes 3 and 5
+(`fused_{7,8}_*`); kernel 9 (`highest`, `dot3`, `bf16`) on window 0's
+events and on the dense-interp bench's 1.5M events, beside kernel 1 and
+`F.grid_sample`. Where the tree has the splat's slab plan, the splat is
+also timed at several tile budgets (and, at MVSEC, event chunks): time
+that grows with the number of slabs is time spent re-reading events. The
+interp forward and backward are timed at the chain's five grids (1x1 to
+16x16) on both staged windows' events, beside `F.grid_sample` and
+`torch.einsum` at 16x16.
+
+`--sweep` names what else to time (no name: all three), each where the
+tree has the plan: `interp`, the interp kernels over `plan_interp`'s
+choices (events in groups of four or one by one, threads, blocks per SM,
+theta staged or gathered, the backward's modes up to 64x64); `splat_bwd`,
+the backward with its events as staged, sorted by texel and permuted (what
+the gather's locality is worth), both its kernels over threads and blocks
+per SM, and both on the first 2^14 to 2^20 events (where one overtakes
+the other); `fused`, kernel 8 over `plan_fused`'s choices (cluster size,
+threads, chunks, events per round, queues of the least size) on its events
+as they are and permuted, and both its kernels on the first 2^14 to 2^20.
 
 Times are device ms per call from CUDA events (the tree's
 `utils/profiling.cuda_ms`). Prints the card, one line per time and one
@@ -35,6 +47,9 @@ import json
 import math
 import sys
 from pathlib import Path
+
+
+SWEEPS = ("interp", "splat_bwd", "fused")
 
 
 def _grid_sample(theta, xs, ys, sensor):
@@ -52,14 +67,132 @@ def _grid_sample(theta, xs, ys, sensor):
                                  align_corners=False)
 
 
+def sweep_splat_bwd(sk, splat_in, cot, timed, res):
+    """The splat backward's gather of 9 cotangent texels per event, by the
+    order of the events: as staged, sorted by (round(y), round(x)) so that
+    neighbouring threads read neighbouring texels, and randomly permuted;
+    on the crowded (staged) and the uniform DSEC events and at MVSEC. Where
+    the tree has `plan_splat_bwd`, also over the plan's choices: both
+    kernels' threads and blocks per SM, the stream kernel with and without
+    its float4s."""
+    import dataclasses
+
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for tag in ("dsec", "dsec_uniform", "mvsec"):
+        wx, wy, sensor = splat_in[tag]
+        G = cot[tag]
+        R, E = wx.shape
+        orders = {
+            "sorted": torch.argsort(torch.round(wy) * 4096.0 + torch.round(wx), dim=1),
+            "permuted": torch.stack([torch.randperm(E, generator=gen, device=wx.device)
+                                     for _ in range(R)]),
+        }
+        inputs = {"staged": (wx, wy)}
+        for name, order in orders.items():
+            inputs[name] = (torch.gather(wx, 1, order).contiguous(),
+                            torch.gather(wy, 1, order).contiguous())
+        for name, (ox, oy) in inputs.items():
+            timed(f"sweep_splat_bwd_{tag}_{name}",
+                  lambda: sk.splat_bwd_cuda(ox, oy, G, sensor))
+        if not hasattr(sk, "plan_splat_bwd"):
+            continue
+        for name, (ox, oy) in inputs.items():
+            for kernel, sizes in (("gather", (128, 256, 512, 1024)),
+                                  ("stream", (64, 128, 256, 512))):
+                for threads in sizes:
+                    for per_sm in (1, 2, 4, 8, 16):
+                        if threads * per_sm > 2048:
+                            continue
+                        blocks = sk.N_SM * per_sm // (R if kernel == "stream" else 1)
+                        p = sk.plan_splat_bwd(R, E, *sensor, kernel, threads, blocks)
+                        key = f"sweep_splat_bwd_{tag}_{name}_{kernel}_{threads}t_{p.blocks}b"
+                        timed(key, lambda: sk.splat_bwd_cuda(ox, oy, G, sensor, p))
+            p = dataclasses.replace(sk.plan_splat_bwd(R, E, *sensor, "stream"), vec=False)
+            timed(f"sweep_splat_bwd_{tag}_{name}_stream_scalar",
+                  lambda: sk.splat_bwd_cuda(ox, oy, G, sensor, p))
+        if tag != "dsec":
+            continue
+        # where the stream kernel overtakes the gather kernel: the first n
+        # events of each ref
+        for n in (1 << 14, 1 << 15, 1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20):
+            ox, oy = wx[:, :n].contiguous(), wy[:, :n].contiguous()
+            for kernel in ("gather", "stream"):
+                p = sk.plan_splat_bwd(R, n, *sensor, kernel)
+                timed(f"sweep_splat_bwd_{tag}_first{n}_{kernel}",
+                      lambda: sk.splat_bwd_cuda(ox, oy, G, sensor, p))
+
+
+def sweep_fused(sf, fused_in, timed, res):
+    """Kernel 8 over its plan's choices (cluster size, threads, chunks,
+    events per thread and round), and with its events permuted: events
+    sorted by row add into their own block's tile, permuted events travel
+    to a sibling's queue seven times in eight. With queues of the least
+    size most permuted events find theirs full and go into the sibling's
+    tile by remote atomics, one by one."""
+    import dataclasses
+
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    plans = res.setdefault("plans", {})
+    for tag, (xi, yi, ts, theta, t_ref, sensor) in fused_in.items():
+        E = xi.shape[0]
+        h, w = theta.shape[:2]
+        order = torch.randperm(E, generator=gen, device=xi.device)
+        inputs = {"staged": (xi, yi, ts),
+                  "permuted": tuple(a[order].contiguous() for a in (xi, yi, ts))}
+
+        def run(key, ev, ws, n=E, **choices):
+            try:
+                p = sf.plan_fused(n, *sensor, h, w, **choices)
+            except ValueError:
+                return  # does not fit a block's shared memory
+            key = f"sweep_fused_8_{tag}_{key}_w{ws}_{p.kernel}_{p.threads}t_{p.chunks}chunks"
+            if p.kernel == "cluster":
+                key += (f"_cluster{p.cluster}_{p.per_thread}each_{p.queue}queue_"
+                        f"{p.bands}bands")
+            plans[key] = dataclasses.asdict(p)
+            timed(key, lambda: sf.fully_fused_warp_splat_cuda(*ev, theta, t_ref, sensor, ws, p))
+
+        for ws in (3, 5):
+            plans[f"fused_8_{tag}_w{ws}"] = dataclasses.asdict(sf.card_plan(E, *sensor, h, w, ws))
+        for name, ev in inputs.items():
+            base = sf.plan_fused(E, *sensor, h, w, "cluster")
+            for ws in (3, 5):
+                run(name, ev, ws, kernel="scatter")
+                for S in (1, 2, 4, 8):
+                    for threads in (256, 512, 1024):
+                        run(name, ev, ws, kernel="cluster", cluster=S, threads=threads)
+                for chunks in sorted({1, max(1, base.chunks // 4), max(1, base.chunks // 2),
+                                      base.chunks - 2, base.chunks - 1, base.chunks + 1,
+                                      2 * base.chunks, 4 * base.chunks} - {0, -1}):
+                    for threads in (256, 512, 1024):
+                        run(name, ev, ws, kernel="cluster", chunks=chunks, threads=threads)
+                for per_thread in (1, 2, 3, 4, 6, 8):
+                    run(name, ev, ws, kernel="cluster", per_thread=per_thread)
+                run(name + "_full_queues", ev, ws, kernel="cluster", queue=sf.MIN_QUEUE)
+        if tag != "dsec":
+            continue
+        # where the cluster kernel overtakes the scatter kernel: the first n
+        # of the permuted events (spread over the frame, in no order)
+        for n in (1 << 14, 1 << 15, 1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20):
+            ev = tuple(a[:n].contiguous() for a in inputs["permuted"])
+            for kernel in ("scatter", "cluster"):
+                run(f"first{n}", ev, 3, n=n, kernel=kernel)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", type=Path, required=True, help="source tree to time")
     ap.add_argument("--label", required=True, help="name of the run in the output")
     ap.add_argument("--out", type=Path, default=None, help="also write the JSON here")
-    ap.add_argument("--sweep", action="store_true",
-                    help="also time the interp kernels over their launch plan's choices")
+    ap.add_argument("--sweep", nargs="*", choices=SWEEPS, default=None,
+                    help="also time these kernels over their launch plans' choices "
+                         "(no name: all of them)")
     args = ap.parse_args(argv)
+    sweeps = set(SWEEPS if args.sweep == [] else args.sweep or ())
     sys.path.insert(0, str(args.tree.resolve()))
     import torch
 
@@ -69,6 +202,7 @@ def main(argv=None) -> int:
     import eincm_tpu_torch
     from eincm_tpu_torch.experimental import fused_splat_bench as fb
     from eincm_tpu_torch.experimental import interp_proto as ip
+    from eincm_tpu_torch.experimental import splat_fused as sf
     from eincm_tpu_torch.models.loss import _sanitize_events
     from eincm_tpu_torch.ops import _build
     from eincm_tpu_torch.ops import interp as ti
@@ -119,10 +253,10 @@ def main(argv=None) -> int:
         timed(f"splat_fwd_{tag}", lambda: sk.splat_fwd_cuda(wx, wy, sensor))
     if hasattr(sk, "plan_splat"):
         # tile budgets (KB) x event chunks (None: the plan's own)
-        sweeps = {"mvsec": ((227, 113, 56, 28), (None, 1, 16)),
-                  "dsec": ((227, 113, 56, 28), (None,))}
+        budgets_by_tag = {"mvsec": ((227, 113, 56, 28), (None, 1, 16)),
+                          "dsec": ((227, 113, 56, 28), (None,))}
         res["plans"] = {}
-        for tag, (budgets, chunk_counts) in sweeps.items():
+        for tag, (budgets, chunk_counts) in budgets_by_tag.items():
             wx, wy, sensor = splat_in[tag]
             R, E = wx.shape
             for kb in budgets:
@@ -132,6 +266,38 @@ def main(argv=None) -> int:
                     key = f"splat_fwd_{tag}_{kb}k_{p.row_slabs}slabs_{p.chunks}chunks"
                     res["plans"][key] = dataclasses.asdict(p)
                     timed(key, lambda: sk.splat_fwd_cuda(wx, wy, sensor, p))
+    # the splat backward (kernels 4 and 6) on the same inputs, with a seeded
+    # cotangent, and the fused warp+splat kernels (7 and 8) at both shapes
+    # and both window sizes
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cot = {}
+    for tag, (wx, wy, sensor) in splat_in.items():
+        cot[tag] = torch.randn(wx.shape[0], *sensor, generator=gen, device=device)
+        G = cot[tag]
+        timed(f"splat_bwd_{tag}", lambda: sk.splat_bwd_cuda(wx, wy, G, sensor))
+    w0 = mvsec[0]
+    xs, ys, ts = _sanitize_events(w0.xs, w0.ys, w0.ts)
+    bench = fb.make_inputs(device)
+    fused_in = {
+        "mvsec": (torch.round(xs), torch.round(ys), ts.contiguous(),
+                  interp_in["mvsec"][0], float(w0.edge_ts[0]), shapes["mvsec"][2]),
+        "dsec": (bench["xi"], bench["yi"], bench["ts"], bench["theta"],
+                 bench["t_ref_values"][0], fb.SENSOR),
+    }
+    del bench
+    for tag, (xi, yi, ts, theta, t_ref, sensor) in fused_in.items():
+        th = ti.interp_fwd_cuda(theta, xi, yi, sensor)
+        thx, thy = th[:, 0].contiguous(), th[:, 1].contiguous()
+        for ws in (3, 5):
+            timed(f"fused_7_{tag}_w{ws}",
+                  lambda: sf.fused_warp_splat_cuda(xi, yi, ts, thx, thy, t_ref, sensor, ws))
+            timed(f"fused_8_{tag}_w{ws}",
+                  lambda: sf.fully_fused_warp_splat_cuda(xi, yi, ts, theta, t_ref, sensor, ws))
+    if "splat_bwd" in sweeps:
+        sweep_splat_bwd(sk, splat_in, cot, timed, res)
+    if "fused" in sweeps and hasattr(sf, "plan_fused"):
+        sweep_fused(sf, fused_in, timed, res)
+    del cot, fused_in
     for tag, (theta, xs, ys, sensor) in interp_in.items():
         for mode in ("highest", "dot3", "bf16"):
             timed(f"interp_dense_{mode}_{tag}",
@@ -157,7 +323,7 @@ def main(argv=None) -> int:
         vx = ti._axis_weights(xs, 16, 16, 16.0 / sensor[1], True)
         timed(f"einsum_{tag}_16x16", lambda: torch.einsum("eh,ew,ec->hwc", uy, vx, g))
         del uy, vx
-        if not (args.sweep and hasattr(ti, "plan_interp")):
+        if not ("interp" in sweeps and hasattr(ti, "plan_interp")):
             continue
         # the launch plan's choices: events one by one or in groups of four,
         # threads per block, blocks per SM (0: one trip per thread), and the

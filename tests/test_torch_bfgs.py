@@ -211,7 +211,7 @@ def _two_basins(w, lib):
 
 def _scalar_both(f, bounds, **kw):
     jx, jf = jb.minimize_bounded_scalar(lambda w: f(w, jnp), bounds, **kw)
-    tx, tf = tb.minimize_bounded_scalar(lambda w: f(w, torch), bounds, **kw)
+    tx, tf = tb.minimize_bounded_scalar(lambda w: f(w, torch), bounds, device="cpu", **kw)
     np.testing.assert_allclose(float(tx), float(jx), atol=1e-6)
     np.testing.assert_allclose(float(tf), float(jf), atol=1e-6)
     return float(tx), float(tf)

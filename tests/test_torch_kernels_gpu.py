@@ -15,6 +15,7 @@ exact or short.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -370,3 +371,164 @@ def test_splat_fwd_every_event_on_one_texel(cuda):
     wy = t(rng.uniform(row - 0.1, row + 0.1, (2, 20_000)))
     ref = tk.splat_plain(wx.double(), wy.double(), sensor)
     _close(ref, tk.splat_fwd_cuda(wx, wy, sensor), 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [1, 3])
+@pytest.mark.parametrize("sensor", [(48, 64), (47, 63), (5, 64), (256, 336), (480, 640)])
+def test_splat_bwd_stream_is_the_gather_kernel_bitwise(cuda, R, sensor):
+    """The stream kernel (four events per thread) against the gather kernel
+    (bitwise: one statement sequence per event) and the plain version
+    (1e-6): event counts that are and are not multiples of 4, with and
+    without the float4s, several launches, views that start 4 bytes into a
+    16-byte line; twice for the same bits."""
+    rng = np.random.default_rng(15)
+    Hs, Ws = sensor
+    G = torch.as_tensor(rng.normal(size=(R, Hs, Ws)).astype(np.float32), device=cuda)
+    for n in (30_001, 30_004):
+        wx, wy = _slab_window(rng, R, n, sensor, 7, cuda)
+        E = wx.shape[1]
+        wxr, wyr = wx.clone().requires_grad_(True), wy.clone().requires_grad_(True)
+        rx, ry = torch.autograd.grad(tk.splat_plain(wxr, wyr, sensor), (wxr, wyr), G)
+        gx, gy = tk.splat_bwd_cuda(wx, wy, G, sensor, tk.plan_splat_bwd(R, E, Hs, Ws, "gather"))
+        _close(rx, gx, 1e-6)
+        _close(ry, gy, 1e-6)
+        plan = tk.plan_splat_bwd(R, E, Hs, Ws, "stream")
+        assert plan.vec == (E % 4 == 0 or R == 1)
+        for p in (plan, dataclasses.replace(plan, vec=False),
+                  tk.plan_splat_bwd(R, E, Hs, Ws, "stream", threads=512, blocks=3),
+                  tk.plan_splat_bwd(R, E, Hs, Ws, "stream", threads=32, blocks=5000)):
+            kx, ky = tk.splat_bwd_cuda(wx, wy, G, sensor, p)
+            assert torch.equal(kx, gx) and torch.equal(ky, gy)
+            again = tk.splat_bwd_cuda(wx, wy, G, sensor, p)
+            assert torch.equal(again[0], kx) and torch.equal(again[1], ky)
+    # one ref, as views that start 4 bytes into a 16-byte line
+    flat_x, flat_y = torch.zeros(E + 1, device=cuda), torch.zeros(E + 1, device=cuda)
+    flat_x[1:], flat_y[1:] = wx[0], wy[0]
+    ux, uy = flat_x[1:][None], flat_y[1:][None]
+    with pytest.raises(ValueError):  # float4s on arrays off a 16-byte line
+        tk.splat_bwd_cuda(ux, uy, G[:1], sensor, tk.plan_splat_bwd(1, E, Hs, Ws, "stream"))
+    kx, ky = tk.splat_bwd_cuda(ux, uy, G[:1], sensor,
+                               tk.plan_splat_bwd(1, E, Hs, Ws, "stream", aligned=False))
+    assert torch.equal(kx[0], gx[0]) and torch.equal(ky[0], gy[0])
+
+
+@pytest.mark.gpu
+def test_splat_bwd_plan_chooses_by_shape(cuda):
+    """Below BWD_STREAM_EVENTS events per ref the gather kernel, from there
+    on the stream kernel; an unaligned view loses the float4s, not the
+    kernel; the two kernels agree bitwise."""
+    rng = np.random.default_rng(16)
+    sensor = (96, 128)
+    G = torch.as_tensor(rng.normal(size=(2, *sensor)).astype(np.float32), device=cuda)
+    assert tk.plan_splat_bwd(2, tk.BWD_STREAM_EVENTS - 4, *sensor).kernel == "gather"
+    assert tk.plan_splat_bwd(2, tk.BWD_STREAM_EVENTS, *sensor).kernel == "stream"
+    E = tk.BWD_STREAM_EVENTS
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=cuda)
+    wx = t(rng.uniform(-3, sensor[1] + 2, (2, E)))
+    wy = t(rng.uniform(-3, sensor[0] + 2, (2, E)))
+    _build.reset_launch_counts()
+    kx, ky = tk.splat_bwd_cuda(wx, wy, G, sensor)
+    assert _build.launch_counts()["splat_bwd"] == 1
+    ox, oy = tk.splat_bwd_cuda(wx, wy, G, sensor, tk.plan_splat_bwd(2, E, *sensor, "gather"))
+    assert torch.equal(kx, ox) and torch.equal(ky, oy)
+    vx, vy = wx[:, 1:].contiguous(), wy[:, 1:].contiguous()  # E - 1 events a ref: no float4s
+    kx, ky = tk.splat_bwd_cuda(vx, vy, G, sensor)
+    assert torch.equal(kx, ox[:, 1:]) and torch.equal(ky, oy[:, 1:])
+
+
+@pytest.mark.gpu
+def test_splat_bwd_refuses_a_plan_that_does_not_fit(cuda):
+    w = torch.zeros(2, 1001, device=cuda)
+    G = torch.zeros(2, H, W, device=cuda)
+    fits = tk.plan_splat_bwd(2, 1001, H, W, "stream")
+    assert not fits.vec
+    with pytest.raises(ValueError):  # float4s where a ref starts off a 16-byte line
+        tk.splat_bwd_cuda(w, w, G, SENSOR, dataclasses.replace(fits, vec=True))
+    with pytest.raises(RuntimeError):  # the C side refuses a block of 48 threads
+        tk.splat_bwd_cuda(w, w, G, SENSOR, dataclasses.replace(fits, threads=48))
+    with pytest.raises(RuntimeError):  # and 1024 threads for the stream kernel
+        tk.splat_bwd_cuda(w, w, G, SENSOR, dataclasses.replace(fits, threads=1024))
+
+
+def _fused_events(rng, n, sensor, tile_rows, device):
+    """n uniform events, the edge cases and events on and around every slab
+    edge, unsorted, with timestamps; velocities stay small enough that the
+    warped windows still straddle the edges."""
+    x, y = _slab_window(rng, 1, n, sensor, tile_rows, device)
+    ts = torch.as_tensor(rng.uniform(0, 1, x.shape[1]).astype(np.float32), device=device)
+    return torch.round(x[0]).contiguous(), torch.round(y[0]).contiguous(), ts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window_size", [3, 5])
+@pytest.mark.parametrize("gh,gw", [(1, 1), (4, 2), (16, 16)])
+@pytest.mark.parametrize(
+    "sensor,S", [((48, 64), None), ((48, 64), 1), ((47, 63), 4), ((256, 336), 8),
+                 ((480, 640), 8), ((1080, 1440), 8)],
+)
+def test_fully_fused_cluster_scatter_matches_plain(cuda, sensor, S, gh, gw, window_size):
+    """Kernel 8 through the cluster's tiles: unsorted events, the sentinel,
+    NaN and +-inf coordinates, windows on every slab edge; several cluster
+    sizes, a sensor whose rows are no multiple of 4 texels, one that needs
+    four bands of rows; the plan's chunks and three, several rounds, and
+    queues so short that most events go straight into a sibling's tile."""
+    rng = np.random.default_rng(17)
+    Hs, Ws = sensor
+    plan = tf.plan_fused(30_000, Hs, Ws, gh, gw, "cluster", cluster=S)
+    x, y, ts = _fused_events(rng, 30_000, sensor, plan.tile_rows, cuda)
+    E = x.shape[0]
+    plan = tf.plan_fused(E, Hs, Ws, gh, gw, "cluster", cluster=S)
+    theta = torch.as_tensor(rng.normal(0, 1, (gh, gw, 2)).astype(np.float32), device=cuda)
+    for t_ref in (0.0, 1.0):
+        ref = tf.fully_fused_warp_splat_frame_plain(x, y, ts, theta, t_ref, sensor, window_size)
+        cut = functools.partial(tf.plan_fused, E, Hs, Ws, gh, gw, "cluster", S)
+        plans = (plan, cut(chunks=3),
+                 # three rounds of events per cluster
+                 cut(chunks=1, threads=128, per_thread=-(-E // (plan.cluster * 128 * 3))),
+                 # queues of 32 events: most events find theirs full
+                 cut(chunks=2, per_thread=4, queue=32),
+                 # the scatter kernel, which the plan chooses for so few events
+                 None, tf.plan_fused(E, Hs, Ws, gh, gw, "scatter", threads=128, chunks=7))
+        for p in plans:
+            got = tf.fully_fused_warp_splat_cuda(x, y, ts, theta, t_ref, sensor, window_size, p)
+            _close(ref, got, 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window_size", [3, 5])
+def test_fully_fused_every_event_on_one_texel(cuda, window_size):
+    """The worst contention, and the counters' wrap: 40k events inside one
+    texel on a slab edge (a texel's sum passes 256.0 several times), with a
+    zero theta so that the warp keeps them there. Compared with the plain
+    version in f64."""
+    rng = np.random.default_rng(18)
+    sensor = (480, 640)
+    plan = tf.plan_fused(40_000, *sensor, 16, 16, "cluster")
+    row = float(plan.tile_rows)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=cuda)
+    x = t(rng.uniform(300.2, 300.4, 40_000))
+    y = t(rng.uniform(row - 0.1, row + 0.1, 40_000))
+    ts = t(rng.uniform(0, 1, 40_000))
+    theta = torch.zeros(16, 16, 2, device=cuda)
+    ref = tf.fully_fused_warp_splat_frame_plain(
+        x.double(), y.double(), ts.double(), theta.double(), 0.0, sensor, window_size)
+    assert float(ref.max()) > 4 * 256.0
+    for p in (plan, tf.plan_fused(40_000, *sensor, 16, 16, "cluster", chunks=1), None):
+        _close(ref, tf.fully_fused_warp_splat_cuda(x, y, ts, theta, 0.0, sensor, window_size, p),
+               1e-5)
+
+
+@pytest.mark.gpu
+def test_fully_fused_refuses_a_plan_that_does_not_fit(cuda):
+    xs = torch.zeros(100, device=cuda)
+    theta = torch.zeros(16, 16, 2, device=cuda)
+    other = tf.plan_fused(100, 96, 128, 16, 16, "cluster")  # another sensor's tiles
+    with pytest.raises(ValueError):
+        tf.fully_fused_warp_splat_cuda(xs, xs, xs, theta, 0.5, SENSOR, 3, other)
+    fits = tf.plan_fused(100, H, W, 16, 16, "cluster")
+    with pytest.raises(ValueError):
+        tf.fully_fused_warp_splat_cuda(
+            xs, xs, xs, theta, 0.5, SENSOR, 3, dataclasses.replace(fits, tile_rows=2))
+    with pytest.raises(ValueError):
+        tf.plan_fused(100, 3, 70_000, 16, 16, "cluster")  # a row wider than a tile

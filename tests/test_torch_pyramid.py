@@ -97,7 +97,7 @@ def test_first_window_f64_identical_iterations(theta_ftol):
     tcfg = compat.solver_config_from_dict(dataclasses.asdict(jcfg))
     tres = tp.make_window_solver(tcfg, "cpu")(
         compat.window_sample_from_numpy(*arrays, device="cpu"),
-        tcfg.zero_pyramid(torch.float64),
+        tcfg.zero_pyramid(torch.float64, device="cpu"),
         True,
     )
     assert _stats(tres) == jstats
@@ -238,4 +238,4 @@ def test_solver_refuses_a_sample_on_another_device():
     solve = tp.make_window_solver(cfg, "meta")
     with pytest.raises(ValueError):
         solve(compat.window_sample_from_numpy(*arrays, device="cpu"),
-              cfg.zero_pyramid(), True)
+              cfg.zero_pyramid(device="cpu"), True)

@@ -199,3 +199,296 @@ def test_slab_emulation_every_event_on_one_texel():
     p = tk.plan_splat(2, 5000, H, W, smem_budget=8 * W * 4)
     assert p.row_slabs == 6
     _close(tk.splat_plain(wx, wy, (H, W)), slab_emulation(wx, wy, (H, W), p), TOL_ATOMIC)
+
+
+# ---- the splat backward's two kernels -------------------------------------------
+
+
+@pytest.mark.parametrize("R,E", [(1, 30_000), (2, 30_000), (2, 1_500_000), (3, 17),
+                                 (2, 1 << 19), (2, (1 << 19) + 1), (1, (1 << 19) + 1)])
+@pytest.mark.parametrize("sensor", [(256, 336), (480, 640), (47, 63)],
+                         ids=["mvsec", "dsec", "odd"])
+def test_bwd_plan_invariants(sensor, R, E):
+    H, W = sensor
+    p = tk.plan_splat_bwd(R, E, H, W)
+    # by shape alone: the stream kernel from BWD_STREAM_EVENTS events per ref
+    assert p.kernel == ("stream" if E >= tk.BWD_STREAM_EVENTS else "gather")
+    g = tk.plan_splat_bwd(R, E, H, W, "gather")
+    assert g.threads % 32 == 0 and 1 <= g.blocks <= tk.GATHER_MAX_BLOCKS and not g.vec
+    assert g.blocks * g.threads >= min(R * E, tk.GATHER_MAX_BLOCKS * g.threads)
+    st = tk.plan_splat_bwd(R, E, H, W, "stream")
+    assert st.threads % 32 == 0 and st.threads <= 512 and st.blocks >= 1
+    # float4s only where every ref's arrays start on 16 bytes
+    assert st.vec == (E % 4 == 0 or R == 1)
+    assert not tk.plan_splat_bwd(R, E, H, W, "stream", aligned=False).vec
+    # enough blocks for the card, none without events
+    per_block = st.threads * tk.BWD_EVENTS_PER_THREAD
+    assert st.blocks <= -(-E // per_block)
+    assert st.blocks == -(-E // per_block) or st.blocks * R >= tk.N_SM
+    if E <= 30_000:  # the threads of a ref's blocks take every event once
+        first = torch.arange(0, E, 4)  # a thread's four events start here
+        owner = (first // 4) % (st.blocks * st.threads)
+        assert owner.max() < st.blocks * st.threads
+        assert int(first[-1]) + 4 >= E
+
+
+def test_bwd_plan_at_the_two_shapes():
+    p = tk.plan_splat_bwd(2, 1_500_000, 480, 640)
+    assert (p.kernel, p.vec) == ("stream", True)
+    assert tk.plan_splat_bwd(2, 30_000, 256, 336).kernel == "gather"
+    assert not tk.plan_splat_bwd(2, 1_500_001, 480, 640).vec
+    assert tk.plan_splat_bwd(1, 1_500_001, 480, 640).vec
+    with pytest.raises(ValueError):
+        tk.plan_splat_bwd(2, 100, 48, 64, "cluster")
+    with pytest.raises(ValueError):
+        tk.plan_splat_bwd(2, 100, 48, 64, "gather", threads=48)
+    with pytest.raises(ValueError):
+        tk.plan_splat_bwd(2, 100, 48, 64, "stream", threads=1024)
+    with pytest.raises(ValueError):
+        tk.plan_splat_bwd(2, 0, 48, 64)
+
+
+# ---- the fully fused warp+splat (kernel 8) on a cluster's tiles ----------------
+#
+# A thread block cluster of S blocks holds a frame in shared memory, block r
+# the rows [r tile_rows, (r + 1) tile_rows); the events are cut into S
+# sections, one per block, and a section into runs of which chunk (cluster) c
+# takes runs c, c + chunks, ... A run is a round: a block adds the taps on
+# its own rows and sends the warped event to the owners of its window's
+# other rows, which add theirs after a barrier. The plan is pure Python; the
+# emulation below routes every event and every tap with torch ops, as
+# csrc/fused.cu and csrc/tile.cuh's `Slabs` do.
+
+from eincm_tpu_torch.experimental import splat_fused as tf  # noqa: E402
+from eincm_tpu_torch.ops.interp import interp_theta_at_events_plain  # noqa: E402
+
+
+def _round_events(E, S, run, rank, base):
+    """The events block `rank` warps in the round that starts `base` events
+    into every section."""
+    section = -(-E // S)
+    s0 = min(rank * section, E)
+    s1 = min(s0 + section, E)
+    return torch.arange(min(s0 + base, s1), min(s0 + base + run, s1))
+
+
+def _owner(local_row, tile_rows):
+    """csrc/tile.cuh: the owner block of a row by a multiplication,
+    `__umulhi(row, ceil(2^32 / tile_rows))`."""
+    if tile_rows == 1:
+        return local_row
+    magic = -(-(1 << 32) // tile_rows)
+    assert magic < 1 << 32
+    return (local_row * magic) >> 32
+
+
+def test_owner_by_multiplication_is_the_quotient():
+    rows = torch.arange(1 << 16)
+    for d in [1, 2, 3, 5, 6, 7, 12, 32, 34, 60, 61, 80, 127, 128, 255, 641, 1000,
+              4095, 4097, 32767, 32768, 65535]:
+        assert torch.equal(_owner(rows, d), rows // d), d
+
+
+@pytest.mark.parametrize("E", [30_000, 1_500_000, 17])
+@pytest.mark.parametrize("theta", [(1, 1), (16, 16), (128, 128)], ids=["1x1", "16x16", "128x128"])
+@pytest.mark.parametrize("sensor", [(256, 336), (480, 640), (47, 63), (5, 64), (1080, 1440)],
+                         ids=["mvsec", "dsec", "odd", "five_rows", "tall_wide"])
+@pytest.mark.parametrize("cluster", [None, 1, 2, 8])
+def test_fused_plan_invariants(sensor, theta, E, cluster):
+    H, W = sensor
+    h, w = theta
+    p = tf.plan_fused(E, H, W, h, w)
+    # by shape alone: the cluster kernel from CLUSTER_EVENTS events on
+    assert p.kernel == ("cluster" if E >= tf.CLUSTER_EVENTS else "scatter")
+    sc = tf.plan_fused(E, H, W, h, w, "scatter")
+    assert sc.threads % 32 == 0 and 1 <= sc.chunks <= tf.SCATTER_MAX_BLOCKS
+    assert sc.chunks * sc.threads >= min(E, tf.SCATTER_MAX_BLOCKS * sc.threads)
+    p = tf.plan_fused(E, H, W, h, w, "cluster", cluster=cluster)
+    S = p.cluster
+    assert 1 <= S <= tf.MAX_CLUSTER
+    # the tiles of the bands' clusters cover every row once
+    spans = [(i * p.tile_rows, min((i + 1) * p.tile_rows, H)) for i in range(p.bands * S)]
+    assert spans[0][0] == 0 and max(b for _, b in spans) == H
+    assert all(spans[i][1] == spans[i + 1][0] or spans[i + 1][0] >= H
+               for i in range(len(spans) - 1))
+    assert (p.bands - 1) * S * p.tile_rows < H  # no band without a row
+    # a tile, the queues and the staged theta fit a block's shared memory
+    assert p.staged == (8 * h * w <= 32 * 1024)
+    assert p.smem_bytes == (16 * -(-p.tile_rows * W // 4) + 8 * S * p.queue
+                            + (8 * h * w if p.staged else 0))
+    assert p.smem_bytes <= tk.SMEM_BLOCK - tf.SMEM_RESERVE
+    assert (p.queue == 0) == (S == 1) and p.queue % 32 == 0
+    assert p.threads % 32 == 0 and p.threads <= 1024
+    assert p.chunks >= 1 and 1 <= p.per_thread <= tf.MAX_PER_THREAD
+    # the rounds' queues hold a sibling's even share with a margin, or
+    # there is one event a thread
+    if S > 1:
+        assert p.per_thread == 1 or tf.QUEUE_MARGIN * p.run_events / S <= p.queue + 32
+    if E <= 30_000:  # the blocks of the chunks' clusters take every event once
+        section = -(-E // S)
+        seen = torch.cat([_round_events(E, S, p.run_events, r, base)
+                          for c in range(p.chunks) for r in range(S)
+                          for base in range(c * p.run_events, section, p.run_events * p.chunks)])
+        assert torch.equal(torch.sort(seen).values, torch.arange(E))
+
+
+def test_fused_plan_at_the_two_shapes():
+    """DSEC: the whole frame in one cluster of 8 tiles of 60 rows beside the
+    queues and the 2 KB theta, 16 clusters on 132 SMs, rounds of 4 events a
+    thread; MVSEC: 8 tiles of 32 rows; a sensor too large for one cluster in
+    bands."""
+    p = tf.plan_fused(1_500_000, 480, 640, 16, 16)
+    assert (p.kernel, p.cluster, p.tile_rows, p.bands) == ("cluster", 8, 60, 1)
+    assert (p.chunks, p.threads, p.per_thread, p.queue) == (16, 1024, 6, 1184)
+    assert p.smem_bytes == 153_600 + 8 * 8 * 1184 + 2048
+    # 187,500 events a section: two rounds of 6 events a thread in 16
+    # clusters, three of 5 in 15
+    p = tf.plan_fused(1_500_000, 480, 640, 16, 16, active_clusters=15)
+    assert (p.chunks, p.per_thread) == (15, 5)
+    assert tf.plan_fused(30_000, 256, 336, 16, 16).kernel == "scatter"
+    p = tf.plan_fused(30_000, 256, 336, 16, 16, "cluster")
+    assert (p.cluster, p.tile_rows, p.bands, p.per_thread) == (8, 32, 1, 1)
+    assert tf.plan_fused(30_000, 1080, 1440, 16, 16, "cluster").bands == 4
+    with pytest.raises(ValueError):
+        tf.plan_fused(100, 3, 70_000, 16, 16, "cluster")  # a row wider than a tile
+    with pytest.raises(ValueError):
+        tf.plan_fused(100, 48, 64, 16, 16, "cluster", cluster=16)
+    with pytest.raises(ValueError):
+        tf.plan_fused(100, 48, 64, 16, 16, "cluster", queue=8)
+    with pytest.raises(ValueError):
+        tf.plan_fused(1_500_000, 480, 640, 16, 16, queue=2048)  # no room beside the tile
+    with pytest.raises(ValueError):
+        tf.plan_fused(0, 48, 64, 16, 16)
+    with pytest.raises(ValueError):
+        tf.plan_fused(100, 48, 64, 16, 16, "slabs")
+
+
+def _add_taps(tiles, cx, cy, H, W, hw, row0, c0, c1, tile_rows):
+    """`cluster_taps`: the taps of warped events (cx, cy) on rows [c0, c1),
+    in units of 2^-24, into the tiles (S, tile_rows * W) of the cluster that
+    holds the frame's rows from row0 on."""
+    rx, ry = torch.round(cx), torch.round(cy)
+    hit = (ry >= -hw) & (ry <= H - 1 + hw) & (rx >= -hw) & (rx <= W - 1 + hw)
+    x, y, rx, ry = cx[hit], cy[hit], rx[hit], ry[hit]
+    for a in range(-hw, hw + 1):
+        row = ry + a
+        gy = torch.exp(-0.5 * (row - y) * (row - y)) * tk._INV_SQRT_2PI
+        for b in range(-hw, hw + 1):
+            col = rx + b
+            gx = torch.exp(-0.5 * (col - x) * (col - x)) * tk._INV_SQRT_2PI
+            ok = (row >= c0) & (row < c1) & (col >= 0) & (col < W)
+            local = (row[ok] - row0).long()
+            owner = _owner(local, tile_rows)
+            offset = (local - owner * tile_rows) * W + col[ok].long()
+            q = torch.round((gy[ok] * gx[ok]) * UNIT).long()
+            tiles.index_put_((owner, offset), q, accumulate=True)
+
+
+def cluster_fused_emulation(xi, yi, ts, theta, t_ref, sensor, window_size, plan):
+    """Kernel 8 in torch ops. Per (chunk, band) cluster and round, each
+    block warps its events, adds the taps on its own rows, and queues each
+    event for every other block that owns rows of its window (straight into
+    that block's tile once the queue is full); then each block adds the taps
+    of its inbox on its own rows. A 32-bit counter that wraps carries 256.0;
+    at the end every tile is added into the frame. Returns (frame, events
+    queued, events that found a queue full)."""
+    H, W = sensor
+    S, tr, hw = plan.cluster, plan.tile_rows, window_size // 2
+    E = xi.shape[0]
+    th = interp_theta_at_events_plain(theta, xi, yi, sensor, round_coords=False)
+    dt = ts - np.float32(t_ref)
+    wx, wy = xi - th[:, 0] * dt, yi - th[:, 1] * dt
+    frame = torch.zeros(H, W, dtype=torch.float64)
+    queued = full = 0
+    section = -(-E // S)
+    for c in range(plan.chunks):
+        for band in range(plan.bands):
+            row0 = min(band * S * tr, H)
+            row1 = min(row0 + S * tr, H)
+            own = [(min(row0 + r * tr, row1), min(row0 + (r + 1) * tr, row1)) for r in range(S)]
+            tiles = torch.zeros(S, tr * W, dtype=torch.long)
+            for base in range(c * plan.run_events, section, plan.run_events * plan.chunks):
+                inbox = [[] for _ in range(S)]
+                for rank in range(S):
+                    e = _round_events(E, S, plan.run_events, rank, base)
+                    cx, cy = wx[e], wy[e]
+                    rx, ry = torch.round(cx), torch.round(cy)
+                    hit = (ry >= -hw) & (ry <= H - 1 + hw) & (rx >= -hw) & (rx <= W - 1 + hw)
+                    lo = torch.clamp(torch.where(hit, ry, 0.0).long() - hw, min=row0)
+                    hi = torch.clamp(torch.where(hit, ry, 0.0).long() + hw, max=row1 - 1)
+                    valid = hit & (lo <= hi)
+                    o_lo = _owner(torch.where(valid, lo - row0, 0), tr)
+                    o_hi = _owner(torch.where(valid, hi - row0, 0), tr)
+                    for o in range(S):
+                        to = valid & (o_lo <= o) & (o <= o_hi)
+                        if o == rank:
+                            _add_taps(tiles, cx[to], cy[to], H, W, hw, row0, *own[rank], tr)
+                            continue
+                        sx, sy = cx[to], cy[to]
+                        queued += min(sx.numel(), plan.queue)
+                        full += max(sx.numel() - plan.queue, 0)
+                        inbox[o].append((sx[:plan.queue], sy[:plan.queue]))
+                        _add_taps(tiles, sx[plan.queue:], sy[plan.queue:], H, W, hw, row0,
+                                  *own[o], tr)
+                for rank in range(S):
+                    for sx, sy in inbox[rank]:
+                        _add_taps(tiles, sx, sy, H, W, hw, row0, *own[rank], tr)
+            carries, counters = tiles >> 32, tiles & 0xFFFFFFFF
+            total = (carries * 256.0 + counters / UNIT).reshape(S * tr, W)
+            frame[row0:row1] += total[: row1 - row0]
+    return frame.float(), queued, full
+
+
+def _fused_window(rng, n, H, W, tile_rows):
+    x, y = _window(rng, 1, n, H, W, tile_rows)
+    ts = torch.as_tensor(rng.uniform(0, 1, x.shape[1]).astype(np.float32))
+    return torch.round(x[0]), torch.round(y[0]), ts
+
+
+@pytest.mark.parametrize("window_size", [3, 5])
+@pytest.mark.parametrize(
+    "sensor,S,chunks,rows,queue",
+    [((48, 64), 8, 2, None, None), ((47, 63), 4, 3, None, None), ((48, 64), 1, 1, None, None),
+     ((48, 64), 2, 2, 7, None), ((48, 64), 8, 1, None, 32), ((48, 64), 8, 1, 2, None)],
+    ids=["eight_tiles", "odd_sensor", "one_tile", "four_bands", "full_queues", "two_row_tiles"],
+)
+def test_cluster_fused_emulation_matches_plain(sensor, S, chunks, rows, queue, window_size):
+    H, W = sensor
+    rng = np.random.default_rng(41)
+    theta = torch.as_tensor(rng.normal(0, 1, (4, 4, 2)).astype(np.float32))
+    p = tf.plan_fused(600, H, W, 4, 4, "cluster", cluster=S, chunks=chunks, threads=32,
+                      queue=queue)
+    if rows is not None:  # as if a block's shared memory held only so many rows
+        p = dataclasses.replace(p, tile_rows=rows, bands=-(-H // (S * rows)))
+    # two rounds; with short queues one, of enough events to fill them
+    xi, yi, ts = _fused_window(rng, 600 if queue is None else 4000, H, W, p.tile_rows)
+    rounds = 2 if queue is None else 1
+    p = dataclasses.replace(p, per_thread=-(-xi.shape[0] // (p.cluster * p.chunks * 32 * rounds)))
+    for t_ref in (0.0, 1.0):
+        ref = tf.fully_fused_warp_splat_frame_plain(xi, yi, ts, theta, t_ref, sensor, window_size)
+        got, queued, full = cluster_fused_emulation(xi, yi, ts, theta, t_ref, sensor,
+                                                    window_size, p)
+        _close(ref, got, TOL_ATOMIC)
+        assert (queued > 0) == (S > 1)  # windows straddle every edge between tiles
+        assert (full > 0) == (queue is not None)
+
+
+@pytest.mark.parametrize("window_size", [3, 5])
+def test_cluster_fused_emulation_every_event_on_one_texel(window_size):
+    """Every event's window on the same texels, on a tile edge, often enough
+    that a texel's 32-bit counter wraps: the carries keep the sum."""
+    H, W = 48, 64
+    rng = np.random.default_rng(5)
+    n = 3000
+    xi = torch.as_tensor(rng.uniform(20.2, 20.4, n).astype(np.float32))
+    yi = torch.as_tensor(rng.uniform(23.9, 24.1, n).astype(np.float32))  # 6-row tiles
+    ts = torch.as_tensor(rng.uniform(0, 1, n).astype(np.float32))
+    theta = torch.zeros(4, 4, 2)
+    p = tf.plan_fused(n, H, W, 4, 4, "cluster", chunks=1, threads=32)
+    assert p.tile_rows == 6
+    ref = tf.fully_fused_warp_splat_frame_plain(
+        xi.double(), yi.double(), ts.double(), theta.double(), 0.0, (H, W), window_size)
+    assert float(ref.max()) > 256.0  # the counter wrapped
+    got, _, full = cluster_fused_emulation(xi, yi, ts, theta, 0.0, (H, W), window_size, p)
+    _close(ref, got, TOL_ATOMIC)
+    assert full > 0  # every event goes to the same two blocks
