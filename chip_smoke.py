@@ -14,20 +14,23 @@ Phases, each failing loudly (any failure exits non-zero):
    card, at the MVSEC shape (16x16 theta, 30k events x 2 refs, 256x336)
    and the DSEC shape (1.5M events x 2 refs, 480x640), edge cases
    included, with the time of both and of one PyTorch library call that
-   computes the same function, from CUDA events; and both interp kernels
-   at every grid the chain solves (1x1 to 16x16) and at 128x128, which is
-   above the sizes their shared-memory designs take, with unaligned views,
-   each timed beside its bound and its library call, the backward twice
-   for bitwise equal results; and both kernels of the splat backward (one
+   computes the same function, from CUDA events; the splat forward and
+   both backward kernels also with a 5x5 window, with events up to 2.5
+   rows off every slab edge; and both interp kernels at every grid the
+   chain solves (1x1 to 16x16) and at 128x128, which is above the sizes
+   their shared-memory designs take, with unaligned views, each timed
+   beside its bound and its library call, the backward twice for bitwise
+   equal results; and both kernels of the splat backward (one
    event per thread, and four in a row as float4s), the stream kernel
    bitwise the gather kernel's and bitwise the same twice, each timed, with
    the one the plan chooses at that shape in the row;
 3. the measurement kernels (fused warp+splat, fully fused warp+splat,
    dense-layout interp) against their plain versions at the MVSEC shape
    (staged window 0, GT theta, both refs) and the DSEC shape of the fused
-   bench (1.5M row-sorted events, theta N(0, 4)), timed the same way, the
-   fully fused kernel also with windows on every edge of its cluster's
-   tiles and with every event on one texel (its counters wrap); then their
+   bench (1.5M row-sorted events, theta N(0, 4)), timed the same way; both
+   kernels of kernels 7 and 8 (scatter and cluster) at window sizes 3 and
+   5, with windows on every edge of the cluster's tiles, and each cluster
+   kernel with every event on one texel (its counters wrap); then their
    main path, the fused bench's paths A, B and C and the dense
    interp's comparison with the production interp, with every kernel's
    launch counter read around it;
@@ -36,7 +39,9 @@ Phases, each failing loudly (any failure exits non-zero):
    with the launch counters read around the chain;
 5. one DSEC-scale `solver_loss` value and gradient with the kernels (on
    the card, its splat backward through the stream kernel) against the
-   plain versions (on CPU tensors).
+   plain versions (on CPU tensors), and in float64 on the card (the plain
+   versions, no kernel launch) against float64 on the CPU, printed beside
+   the float32 kernel loss with their relative gap.
 
 Every kernel's time stands beside its bound: the least time the card could
 take for the same work, the longer of the bytes it must move (each input
@@ -76,6 +81,7 @@ TOL_GATHER = 1e-6
 # fixed order. The float-atomic kernel of the large grids keeps TOL_ATOMIC.
 TOL_INTERP_BWD = 1e-6
 TOL_DSEC_LOSS = 1e-4  # relative loss difference, card kernels vs CPU plain
+TOL_F64 = 1e-12  # float64 on the card vs on the CPU: the same plain versions
 # px, mean over MVSEC chain windows 1..5 (|V| = 5 px): the JAX package's
 # own reading on this chain (0.30 px in float32 on CPU,
 # tests/test_torch_mvsec_chain.py) plus the 0.05 px band the CPU tests
@@ -121,18 +127,23 @@ F32_OPS_PER_S = 67e12
 # - the warp: ts - t_ref, 2 products, 2 differences;
 # - the splat: 2 roundings, 5 per Gaussian tap (2 per row and column) and a
 #   product and a sum per texel;
-# - the splat backward: 6 taps (30), 6 q g(q), and two 3x3 contractions of
-#   3 x (3 products + 2 sums) + 3 products + 2 sums (20 each).
+# - the splat backward: 2n taps (5 each), 2n q g(q), and two n x n
+#   contractions of n x (n products + n - 1 sums) + n products + n - 1 sums,
+#   n = 2 hw + 1 (3: 30 + 6 + 40).
 OPS_INTERP_WEIGHTS = 30
 OPS_INTERP_CONTRACT = 14
 OPS_INTERP_BWD = 30 + 24
 OPS_WARP = 5
-OPS_SPLAT_BWD = 30 + 6 + 40
 
 
 def ops_splat(hw: int) -> int:
     n = 2 * hw + 1
     return 2 + 2 * n * 5 + 2 * n * n
+
+
+def ops_splat_bwd(hw: int) -> int:
+    n = 2 * hw + 1
+    return 2 * n * 5 + 2 * n + 2 * (n * (2 * n - 1) + 2 * n - 1)
 
 
 def ops_dense(h: int, w: int) -> int:
@@ -194,10 +205,12 @@ def with_edges(xs, ys, H, W):
 
 def slab_edge_events(tile_rows, H, W, device, seed):
     """(x, y) of events on and around every edge between slabs of
-    `tile_rows` rows: their windows straddle two blocks' shared memory."""
+    `tile_rows` rows: their windows straddle two blocks' shared memory (a
+    5x5 window's up to 2.5 rows off the edge)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     edges = torch.arange(tile_rows, H, tile_rows, dtype=torch.float32, device=device)
-    offs = torch.tensor([-2.0, -1.5, -1.0, -0.6, -0.5, 0.0, 0.4, 0.5, 1.0, 2.0], device=device)
+    offs = torch.tensor([-2.5, -2.0, -1.5, -1.0, -0.6, -0.5, 0.0, 0.4, 0.5, 1.0, 1.5,
+                         2.0, 2.4], device=device)
     y = (edges[:, None] + offs[None, :]).reshape(-1)
     x = torch.rand(y.shape[0], generator=gen, device=device) * (W - 1)
     return x, y
@@ -437,8 +450,8 @@ def check_kernels(tag, window, theta, sensor, rows):
     for what, (ax, ay) in (("window", (wx, wy)), ("edge cases", (wxe, wye))):
         n = ax.shape[1]
         plans = {k: plan_splat_bwd(R, n, H, W, k) for k in ("gather", "stream")}
-        out = {k: splat_bwd_cuda(ax, ay, G, sensor, p) for k, p in plans.items()}
-        again = splat_bwd_cuda(ax, ay, G, sensor, plans["stream"])
+        out = {k: splat_bwd_cuda(ax, ay, G, sensor, plan=p) for k, p in plans.items()}
+        again = splat_bwd_cuda(ax, ay, G, sensor, plan=plans["stream"])
         torch.cuda.synchronize()
         for k in (0, 1):
             if not torch.equal(out["stream"][k], out["gather"][k]):
@@ -449,7 +462,7 @@ def check_kernels(tag, window, theta, sensor, rows):
         print(f"  splat_bwd {what}: {plans['stream']}: bitwise the gather kernel's, and the "
               f"same twice")
         if what == "window":
-            by_kernel = {k: cuda_ms(lambda: splat_bwd_cuda(wx, wy, G, sensor, p))
+            by_kernel = {k: cuda_ms(lambda: splat_bwd_cuda(wx, wy, G, sensor, plan=p))
                          for k, p in plans.items()}
     print(f"  splat_bwd at {tag}: the plan chooses {p_bwd.kernel}; gather "
           f"{by_kernel['gather']:.4f} ms, stream {by_kernel['stream']:.4f} ms")
@@ -460,11 +473,55 @@ def check_kernels(tag, window, theta, sensor, rows):
                max_err(out["stream"][1], dy_p, TOL_GATHER, "splat_bwd stream dwy")),
            cuda_ms(lambda: splat_bwd_cuda(wx, wy, G, sensor)),
            cuda_ms(lambda: torch.autograd.grad(f_main, (wxm, wym), G, retain_graph=True)),
-           16 * R * E + 4 * R * H * W, OPS_SPLAT_BWD * R * E,
+           16 * R * E + 4 * R * H * W, ops_splat_bwd(1) * R * E,
            cuda_ms(lambda: (torch.bmm(Ut, G), torch.bmm(V, G.transpose(1, 2))), reps),
            kernel=p_bwd.kernel, gather_ms=by_kernel["gather"],
            stream_ms=by_kernel["stream"])
+    check_splat_window5(tag, wx, wy, wxe, wye, G, sensor, rows)
     return lib_interp_ms
+
+
+def check_splat_window5(tag, wx, wy, wxe, wye, G, sensor, rows):
+    """The splat forward and both backward kernels with a 5x5 window, on
+    the window's events with the edge cases and the slab-edge events
+    appended: the forward within TOL_ATOMIC of the plain version, both
+    backward kernels within TOL_GATHER and bitwise equal to each other; the
+    times at window 5 beside their bounds, under `window5_*` in the rows
+    of window 3."""
+    from eincm_tpu_torch.ops.splat_kernel import (
+        plan_splat_bwd, splat_bwd_cuda, splat_fwd_cuda, splat_plain,
+    )
+
+    H, W = sensor
+    R, E = wx.shape
+    f_k = splat_fwd_cuda(wxe, wye, sensor, 5)
+    torch.cuda.synchronize()
+    wxr, wyr = wxe.clone().requires_grad_(True), wye.clone().requires_grad_(True)
+    f_p = splat_plain(wxr, wyr, sensor, 5)
+    err_f = max_err(f_k, f_p, TOL_ATOMIC, "splat_fwd window 5")
+    dx_p, dy_p = torch.autograd.grad(f_p, (wxr, wyr), G)
+    n = wxe.shape[1]
+    out = {k: splat_bwd_cuda(wxe, wye, G, sensor, 5, plan_splat_bwd(R, n, H, W, k))
+           for k in ("gather", "stream")}
+    torch.cuda.synchronize()
+    for k in (0, 1):
+        if not torch.equal(out["stream"][k], out["gather"][k]):
+            raise AssertionError("splat_bwd window 5: the stream kernel is not bitwise the "
+                                 "gather kernel's")
+    print("  splat_bwd window 5: the stream kernel is bitwise the gather kernel's")
+    err_b = max(max_err(out[k][i], ref, TOL_GATHER, f"splat_bwd window 5 {k} {what}")
+                for k in out for i, (what, ref) in enumerate((("dwx", dx_p), ("dwy", dy_p))))
+    fwd_ms = cuda_ms(lambda: splat_fwd_cuda(wx, wy, sensor, 5))
+    bwd_ms = cuda_ms(lambda: splat_bwd_cuda(wx, wy, G, sensor, 5))
+    for name, err, ms, n_bytes, ops in (
+        ("splat_fwd", err_f, fwd_ms, 8 * R * E + 4 * R * H * W, ops_splat(2) * R * E),
+        ("splat_bwd", err_b, bwd_ms, 16 * R * E + 4 * R * H * W, ops_splat_bwd(2) * R * E),
+    ):
+        bound_ms, bound_by = bound(n_bytes, ops)
+        row = rows[name][tag]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row.update(window5_ms=ms, window5_bound_ms=bound_ms, window5_bound_by=bound_by)
+        print(f"  {name} window 5: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
 
 
 # ---- phase 3 ----------------------------------------------------------------
@@ -497,13 +554,19 @@ def check_bench_kernels(tag, xs, ys, ts, t_refs, theta, sensor, rows, lib_interp
     th = interp_fwd_cuda(theta, exi, eyi, sensor)
     ethx, ethy = th[:, 0].contiguous(), th[:, 1].contiguous()
     thx, thy = ethx[:E], ethy[:E]
+    p7 = sf.card_plan(E, H, W, 0, 0)
+    print(f"[plan] fused warp+splat (kernel 7) at {tag}: {p7}")
     e7, e8 = [], []
     for t in t_refs:
         for ws in (3, 5):
-            k = sf.fused_warp_splat_cuda(exi, eyi, ets, ethx, ethy, t, sensor, ws)
-            torch.cuda.synchronize()
             p = sf.fused_warp_splat_frame_plain(exi, eyi, ets, ethx, ethy, t, sensor, ws)
-            e7.append(max_err(k, p, TOL_ATOMIC, f"fused_warp_splat t_ref {t} window {ws}"))
+            # both of kernel 7's kernels, whichever the plan chooses here
+            for kernel in ("scatter", "cluster"):
+                plan = sf.plan_fused(exi.shape[0], H, W, 0, 0, kernel)
+                k = sf.fused_warp_splat_cuda(exi, eyi, ets, ethx, ethy, t, sensor, ws, plan)
+                torch.cuda.synchronize()
+                e7.append(max_err(k, p, TOL_ATOMIC,
+                                  f"fused_warp_splat {kernel} t_ref {t} window {ws}"))
             p = sf.fully_fused_warp_splat_frame_plain(exi, eyi, ets, theta, t, sensor, ws)
             # both of kernel 8's kernels, whichever the plan chooses here
             for kernel in ("scatter", "cluster"):
@@ -513,10 +576,19 @@ def check_bench_kernels(tag, xs, ys, ts, t_refs, theta, sensor, rows, lib_interp
                 e8.append(max_err(k, p, TOL_ATOMIC,
                                   f"fully_fused_warp_splat {kernel} t_ref {t} window {ws}"))
     t0 = t_refs[0]
+    by_kernel = {
+        kernel: cuda_ms(lambda: sf.fused_warp_splat_cuda(
+            xi, yi, ts, thx, thy, t0, sensor, 3, sf.plan_fused(E, H, W, 0, 0, kernel)))
+        for kernel in ("scatter", "cluster")}
+    print(f"  fused_warp_splat at {tag}: the plan chooses {p7.kernel}; scatter "
+          f"{by_kernel['scatter']:.4f} ms, cluster {by_kernel['cluster']:.4f} ms")
     record(rows, "fused_warp_splat", tag, max(e7),
            cuda_ms(lambda: sf.fused_warp_splat_cuda(xi, yi, ts, thx, thy, t0, sensor)),
            cuda_ms(lambda: sf.fused_warp_splat_frame_plain(xi, yi, ts, thx, thy, t0, sensor)),
-           20 * E + 4 * H * W, (OPS_WARP + ops_splat(1)) * E, None)
+           20 * E + 4 * H * W, (OPS_WARP + ops_splat(1)) * E, None,
+           kernel=p7.kernel, scatter_ms=by_kernel["scatter"], cluster_ms=by_kernel["cluster"],
+           window5_ms=cuda_ms(lambda: sf.fused_warp_splat_cuda(
+               xi, yi, ts, thx, thy, t0, sensor, 5)))
     by_kernel = {
         kernel: cuda_ms(lambda: sf.fully_fused_warp_splat_cuda(
             xi, yi, ts, theta, t0, sensor, 3, sf.plan_fused(E, H, W, h, w, kernel)))
@@ -533,23 +605,29 @@ def check_bench_kernels(tag, xs, ys, ts, t_refs, theta, sensor, rows, lib_interp
                xi, yi, ts, theta, t0, sensor, 5)))
 
     # the worst contention, and the counters' wrap: 40k events inside one
-    # texel on a tile edge, kept there by a zero theta, through the cluster
-    # kernel; against the plain version in f64
+    # texel on a tile edge, kept there by a zero theta (kernel 8) or zero
+    # velocities (kernel 7), through both cluster kernels; against the
+    # plain version in f64
     gen = torch.Generator(device=xs.device).manual_seed(5)
     ox = 300.2 + 0.2 * torch.rand(40_000, generator=gen, device=xs.device)
     oy = tiles.tile_rows - 0.1 + 0.2 * torch.rand(40_000, generator=gen, device=xs.device)
     ot = torch.rand(40_000, generator=gen, device=xs.device)
     zero = torch.zeros_like(theta)
+    zv = torch.zeros_like(ox)
     for ws in (3, 5):
-        k = sf.fully_fused_warp_splat_cuda(ox, oy, ot, zero, 0.0, sensor, ws,
-                                           sf.plan_fused(40_000, H, W, h, w, "cluster"))
-        torch.cuda.synchronize()
         p = sf.fully_fused_warp_splat_frame_plain(
             ox.double(), oy.double(), ot.double(), zero.double(), 0.0, sensor, ws)
         if not float(p.max()) > 256.0:
             raise AssertionError("the one-texel case does not wrap a counter")
+        k = sf.fully_fused_warp_splat_cuda(ox, oy, ot, zero, 0.0, sensor, ws,
+                                           sf.plan_fused(40_000, H, W, h, w, "cluster"))
+        torch.cuda.synchronize()
         max_err(k, p, TOL_ATOMIC,
                 f"fully_fused_warp_splat every event on one texel, window {ws}")
+        k = sf.fused_warp_splat_cuda(ox, oy, ot, zv, zv, 0.0, sensor, ws,
+                                     sf.plan_fused(40_000, H, W, 0, 0, "cluster"))
+        torch.cuda.synchronize()
+        max_err(k, p, TOL_ATOMIC, f"fused_warp_splat every event on one texel, window {ws}")
 
     ex, ey = with_edges(xs, ys, H, W)
     e9 = []
@@ -713,6 +791,31 @@ def main() -> int:
           f"(limit {TOL_DSEC_LOSS:.0e})  grad max rel {grel:.3e}")
     if not rel <= TOL_DSEC_LOSS:
         raise AssertionError("DSEC-scale loss: kernels disagree with plain")
+    # float64: the plain versions on the card (routed by dtype: no kernel
+    # launches) against the same on the CPU
+    out64 = []
+    _build.reset_launch_counts()
+    for dev in (device, torch.device("cpu")):
+        win = [t.to(dev, torch.float64) for t in dsec]
+        wstat = compute_window_statics(win[0], win[1], win[3], dsec_sensor)
+        th = theta.to(dev, torch.float64).requires_grad_(True)
+        loss = solver_loss(th, *win, params, 0, statics, wstat)
+        (grad,) = torch.autograd.grad(loss, th)
+        if loss.dtype != torch.float64:
+            raise AssertionError(f"float64 loss came out {loss.dtype}")
+        out64.append((float(loss.detach()), grad.cpu()))
+    f64_launches = _build.launch_counts()
+    (l64, g64), (l64c, g64c) = out64
+    rel64 = abs(l64 - l64c) / abs(l64c)
+    grel64 = float((g64 - g64c).abs().max() / g64c.abs().max())
+    print(f"[dsec loss] float64 on the card {l64:.15f}  on the CPU {l64c:.15f}  rel "
+          f"{rel64:.3e}, grad max rel {grel64:.3e} (limit {TOL_F64:.0e}); float32 kernels "
+          f"vs float64: rel {abs(lk - l64) / abs(l64):.3e}, grad max rel "
+          f"{float((gk - g64).abs().max() / g64.abs().max()):.3e}; launches {f64_launches}")
+    if any(f64_launches.values()):
+        raise AssertionError("a float64 loss launched a float32 kernel")
+    if not (rel64 <= TOL_F64 and grel64 <= TOL_F64):
+        raise AssertionError("float64 DSEC-scale loss: the card disagrees with the CPU")
 
     launches = {**{k: chain_launches[k] for k in CHAIN_KERNELS},
                 **{k: bench_launches[k] for k in BENCH_KERNELS}}

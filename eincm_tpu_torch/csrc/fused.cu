@@ -29,16 +29,20 @@
 // the runs). The scatter kernel (fused_kernel: one thread per event,
 // grid-stride) adds every tap with a global float atomicAdd, which runs at
 // 65-85G a second in L2: nothing at 30k events (270k taps), 0.16-0.21 ms at
-// 1.5M. Kernel 7 is that kernel; kernel 8 is, below 2^19 events
-// (experimental/splat_fused.py:plan_fused chooses by the event count
-// alone), and above it the cluster kernel (fused_cluster_kernel):
+// 1.5M. Both kernels 7 and 8 take it where events are few, and the cluster
+// kernel (fused_cluster_kernel) where they are many; each has its own
+// crossover (experimental/splat_fused.py:plan_fused chooses by the event
+// count alone). The two kernels are templates on where (vx, vy) comes from
+// (kInterp): kernel 7 loads it, kernel 8 samples theta; everything after
+// the velocity is one body.
 //   - A thread block cluster of S blocks holds the whole (H, W) frame in
 //     its distributed shared memory as 32-bit fixed-point texels (tile.cuh:
 //     units of 2^-24, native integer atomics), block r the rows [r
 //     tile_rows, (r + 1) tile_rows). The events are cut into S sections,
 //     one per block, and a section into runs of which cluster c takes runs
-//     c, c + chunks, ... Each event is read, sampled (theta staged in
-//     shared memory, no division whose quotient is known) and warped once.
+//     c, c + chunks, ... Each event is read, given its velocity (kernel 7:
+//     two loads; kernel 8: theta staged in shared memory, no division whose
+//     quotient is known) and warped once.
 //   - Adding each tap straight into the owner's tile with a remote atomic
 //     (atom.shared::cluster) was built first and measured: a remote atomic
 //     costs what a global one does (0.23 ms at 1.5M unsorted events, the
@@ -65,10 +69,11 @@
 //     adds its tile into the zeroed frame once, as float4 reductions that
 //     skip zeros. A frame too large for one cluster is cut into bands of
 //     rows, and a cluster of each band walks every event of its chunk.
-// What is left at 1.5M events: the shared-memory atomics (0.065-0.076 ms
-// with row-sorted events, which send nothing), and the sends (0.09-0.10 ms
-// with unsorted ones); per cluster the tile's zeroing and write-back and
-// two barriers a round, which is why few events stay on the scatter kernel.
+// What is left at 1.5M events: the shared-memory atomics (kernel 8
+// 0.065-0.076 ms, kernel 7 0.056-0.065, with row-sorted events, which send
+// nothing), and the sends (0.09-0.10 and 0.08-0.09 ms with unsorted ones);
+// per cluster the tile's zeroing and write-back and two barriers a round,
+// which is why few events stay on the scatter kernel.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -96,8 +101,6 @@ using eincm::taps_of_at;
 using eincm::window_hits;
 using eincm::write_back;
 
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;
 constexpr int kMaxCluster = 8;  // the portable limit of blocks in a cluster
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -128,8 +131,8 @@ __device__ __forceinline__ void splat_taps(float* __restrict__ frame, float cx,
 }
 
 // The scatter kernel: one thread per event, grid-stride, every tap a global
-// atomicAdd. kInterp false (kernel 7): velocities from (thx, thy); true
-// (kernel 8 where events are few): sampled from theta.
+// atomicAdd. kInterp false (kernel 7 where events are few): velocities from
+// (thx, thy); true (kernel 8 where events are few): sampled from theta.
 template <int HW, bool kInterp>
 __global__ void fused_kernel(const float* __restrict__ xi,
                              const float* __restrict__ yi,
@@ -209,22 +212,27 @@ struct FusedPlan {
   int tile_rows;   // rows of the frame in each block's tile
   int bands;       // bands of cluster x tile_rows rows that cover the frame
   int chunks;      // clusters per band: chunks of the events
-  int staged;      // theta read from a copy in shared memory
+  int staged;      // theta read from a copy in shared memory (kernel 8)
   int per_thread;  // events each thread warps in a round
   int queue;       // entries of each (sender, owner) queue
 };
 
-// kernel 8: velocities sampled from theta; see the head of the file
-template <int HW, bool kStaged>
+// Kernels 7 (kInterp false: velocities loaded from thx, thy) and 8 (kInterp
+// true: sampled from theta, staged in shared memory with kStaged); see the
+// head of the file. Nothing but the velocity differs.
+template <int HW, bool kInterp, bool kStaged>
 __global__ void __launch_bounds__(1024)
     fused_cluster_kernel(const float* __restrict__ xi,
                          const float* __restrict__ yi,
                          const float* __restrict__ ts,
+                         const float* __restrict__ thx,
+                         const float* __restrict__ thy,
                          const float* __restrict__ theta,
                          float* __restrict__ frame, long long n_events,
                          float t_ref, int H, int W, int h, int w, float sy,
                          float sx, FusedPlan p, unsigned magic) {
-  // the tile, the inbox (a queue per sender), then the staged theta
+  static_assert(kInterp || !kStaged, "kernel 7 stages no theta");
+  // the tile, the inbox (a queue per sender), then kernel 8's staged theta
   extern __shared__ __align__(16) unsigned tile[];
   __shared__ unsigned sent[kMaxCluster];  // events queued for each sibling
   __shared__ unsigned received[kMaxCluster];  // events in this block's inbox, by sender
@@ -272,8 +280,13 @@ __global__ void __launch_bounds__(1024)
       if (e < s1) {
         const float x = __ldg(xi + e), y = __ldg(yi + e);
         float vx, vy;
-        sample2<kStaged>(th, taps_of_at(y, h, sy), taps_of_at(x, w, sx), h, w,
-                         vx, vy);
+        if constexpr (kInterp) {
+          sample2<kStaged>(th, taps_of_at(y, h, sy), taps_of_at(x, w, sx), h, w,
+                           vx, vy);
+        } else {
+          vx = __ldg(thx + e);
+          vy = __ldg(thy + e);
+        }
         const float dt = __fsub_rn(__ldg(ts + e), t_ref);
         cx = __fsub_rn(x, __fmul_rn(vx, dt));
         cy = __fsub_rn(y, __fmul_rn(vy, dt));
@@ -338,28 +351,27 @@ __global__ void __launch_bounds__(1024)
   if (texels > 0) write_back(frame + (long long)r0 * W, tile, texels);
 }
 
-int grid_for(long long n) {
-  long long b = (n + kThreads - 1) / kThreads;
-  if (b > kMaxBlocks) b = kMaxBlocks;
-  return b < 1 ? 1 : (int)b;
-}
-
 using ClusterKernel = void (*)(const float*, const float*, const float*,
-                               const float*, float*, long long, float, int,
-                               int, int, int, float, float, FusedPlan,
-                               unsigned);
+                               const float*, const float*, const float*,
+                               float*, long long, float, int, int, int, int,
+                               float, float, FusedPlan, unsigned);
 
-ClusterKernel cluster_kernel(int hw, int staged) {
-  if (hw == 1)
-    return staged ? fused_cluster_kernel<1, true> : fused_cluster_kernel<1, false>;
-  if (hw == 2)
-    return staged ? fused_cluster_kernel<2, true> : fused_cluster_kernel<2, false>;
-  return nullptr;  // window sizes 3 and 5, the only ones called
+// window sizes 3 and 5, the only ones called; kernel 7 stages nothing
+ClusterKernel cluster_kernel(int hw, bool interp, int staged) {
+  if (hw == 1) {
+    if (!interp) return staged ? nullptr : fused_cluster_kernel<1, false, false>;
+    return staged ? fused_cluster_kernel<1, true, true> : fused_cluster_kernel<1, true, false>;
+  }
+  if (hw == 2) {
+    if (!interp) return staged ? nullptr : fused_cluster_kernel<2, false, false>;
+    return staged ? fused_cluster_kernel<2, true, true> : fused_cluster_kernel<2, true, false>;
+  }
+  return nullptr;
 }
 
 // the kernel and its shared memory for a plan that fits, else nullptr
-ClusterKernel fitted(int H, int W, int hw, int h, int w, const FusedPlan& p,
-                     int threads, long long* smem) {
+ClusterKernel fitted(int H, int W, int hw, bool interp, int h, int w,
+                     const FusedPlan& p, int threads, long long* smem) {
   const long long tile = ((long long)p.tile_rows * W + 3) / 4 * 16;
   *smem = tile + 8LL * p.cluster * p.queue + (p.staged ? (long long)h * w * 8 : 0);
   const bool ok =
@@ -369,7 +381,7 @@ ClusterKernel fitted(int H, int W, int hw, int h, int w, const FusedPlan& p,
       p.queue >= 0 && *smem <= kMaxSmem - 128 && threads >= 32 &&
       threads <= 1024 && threads % 32 == 0;
   if (!ok) return nullptr;
-  ClusterKernel kernel = cluster_kernel(hw, p.staged);
+  ClusterKernel kernel = cluster_kernel(hw, interp, p.staged);
   if (kernel != nullptr &&
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)*smem) != cudaSuccess)
@@ -396,17 +408,51 @@ int scatter(const float* xi, const float* yi, const float* ts, const float* thx,
   return (int)cudaGetLastError();
 }
 
+// Either kernel of either source, from a plan of experimental/splat_fused.py:
+// plan_fused: with `cluster` 0 the scatter kernel in `chunks` blocks of
+// `threads`; else a grid of chunks x bands clusters of `cluster` blocks.
+// theta == nullptr: kernel 7, the velocities from (thx, thy).
+int launch(const float* xi, const float* yi, const float* ts, const float* thx,
+           const float* thy, const float* theta, float* frame,
+           long long n_events, float t_ref, int H, int W, int hw, int h, int w,
+           float sy, float sx, int cluster, int tile_rows, int bands,
+           int chunks, int threads, int staged, int per_thread, int queue,
+           cudaStream_t stream) {
+  const bool interp = theta != nullptr;
+  if (cluster == 0)
+    return interp ? scatter<true>(xi, yi, ts, thx, thy, theta, frame, n_events,
+                                  t_ref, H, W, hw, h, w, sy, sx, chunks, threads,
+                                  stream)
+                  : scatter<false>(xi, yi, ts, thx, thy, theta, frame, n_events,
+                                   t_ref, H, W, hw, h, w, sy, sx, chunks, threads,
+                                   stream);
+  const FusedPlan p{cluster, tile_rows, bands, chunks, staged, per_thread, queue};
+  long long smem;
+  ClusterKernel kernel = fitted(H, W, hw, interp, h, w, p, threads, &smem);
+  const long long blocks = (long long)chunks * bands * cluster;
+  if (kernel == nullptr || blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  eincm::ClusterLaunch config(blocks, threads, (size_t)smem, cluster, stream);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config.config, kernel, xi, yi, ts, thx, thy, theta, frame, n_events, t_ref,
+      H, W, h, w, sy, sx, p, eincm::div_magic(tile_rows));
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
 }  // namespace
 
-// kernel 7: (xi, yi, ts, thx, thy) (E,) -> frame (H, W), zeroed by the caller
-extern "C" int eincm_fused_warp_splat(const float* xi, const float* yi,
-                                      const float* ts, const float* thx,
-                                      const float* thy, float* frame,
-                                      long long n_events, float t_ref, int H,
-                                      int W, int hw, cudaStream_t stream) {
-  return scatter<false>(xi, yi, ts, thx, thy, nullptr, frame, n_events, t_ref,
-                        H, W, hw, 1, 1, 0.f, 0.f, grid_for(n_events), kThreads,
-                        stream);
+// kernel 7: (xi, yi, ts, thx, thy) (E,) -> frame (H, W), zeroed by the
+// caller, from a plan of experimental/splat_fused.py:plan_fused (no theta,
+// nothing staged): the cluster kernel, or with `cluster` 0 the scatter
+// kernel in `chunks` blocks
+extern "C" int eincm_fused_warp_splat(
+    const float* xi, const float* yi, const float* ts, const float* thx,
+    const float* thy, float* frame, long long n_events, float t_ref, int H,
+    int W, int hw, int cluster, int tile_rows, int bands, int chunks,
+    int threads, int per_thread, int queue, cudaStream_t stream) {
+  return launch(xi, yi, ts, thx, thy, nullptr, frame, n_events, t_ref, H, W, hw,
+                0, 0, 0.f, 0.f, cluster, tile_rows, bands, chunks, threads, 0,
+                per_thread, queue, stream);
 }
 
 // kernel 8: (xi, yi, ts) (E,), theta (h, w, 2) -> frame (H, W), zeroed by
@@ -419,34 +465,26 @@ extern "C" int eincm_fully_fused_warp_splat(
     int w, float sy, float sx, int cluster, int tile_rows, int bands,
     int chunks, int threads, int staged, int per_thread, int queue,
     cudaStream_t stream) {
-  if (cluster == 0)  // the scatter kernel, in `chunks` blocks
-    return scatter<true>(xi, yi, ts, nullptr, nullptr, theta, frame, n_events,
-                         t_ref, H, W, hw, h, w, sy, sx, chunks, threads, stream);
-  const FusedPlan p{cluster, tile_rows, bands, chunks, staged, per_thread, queue};
-  long long smem;
-  ClusterKernel kernel = fitted(H, W, hw, h, w, p, threads, &smem);
-  const long long blocks = (long long)chunks * bands * cluster;
-  if (kernel == nullptr || blocks > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  eincm::ClusterLaunch launch(blocks, threads, (size_t)smem, cluster, stream);
-  const cudaError_t err = cudaLaunchKernelEx(
-      &launch.config, kernel, xi, yi, ts, theta, frame, n_events, t_ref, H, W,
-      h, w, sy, sx, p, eincm::div_magic(tile_rows));
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+  if (theta == nullptr) return (int)cudaErrorInvalidValue;
+  return launch(xi, yi, ts, nullptr, nullptr, theta, frame, n_events, t_ref, H,
+                W, hw, h, w, sy, sx, cluster, tile_rows, bands, chunks, threads,
+                staged, per_thread, queue, stream);
 }
 
-// the clusters of that launch that the card runs at once, or -cudaError_t
-extern "C" int eincm_fused_active_clusters(int H, int W, int hw, int h, int w,
-                                           int cluster, int tile_rows,
-                                           int threads, int staged, int queue) {
+// the clusters of that launch (kernel 8 with `interp`, else kernel 7) that
+// the card runs at once, or -cudaError_t
+extern "C" int eincm_fused_active_clusters(int H, int W, int hw, int interp,
+                                           int h, int w, int cluster,
+                                           int tile_rows, int threads,
+                                           int staged, int queue) {
   const int bands = (H + cluster * tile_rows - 1) / (cluster * tile_rows);
   const FusedPlan p{cluster, tile_rows, bands, 1, staged, 1, queue};
   long long smem;
-  ClusterKernel kernel = fitted(H, W, hw, h, w, p, threads, &smem);
+  ClusterKernel kernel = fitted(H, W, hw, interp != 0, h, w, p, threads, &smem);
   if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
-  eincm::ClusterLaunch launch(cluster, threads, (size_t)smem, cluster, nullptr);
+  eincm::ClusterLaunch config(cluster, threads, (size_t)smem, cluster, nullptr);
   int clusters = 0;
   const cudaError_t err =
-      cudaOccupancyMaxActiveClusters(&clusters, kernel, &launch.config);
+      cudaOccupancyMaxActiveClusters(&clusters, kernel, &config.config);
   return err != cudaSuccess ? -(int)err : clusters;
 }

@@ -7,11 +7,13 @@
 //   - eincm_tpu/ops/splat_banded.py: _fwd_kernel (_banded_fwd_call) and
 //     _bwd_kernel (_banded_bwd_call), the row/column-banded splat.
 //
-// Forward: frames[r, i, j] += g(i - y) g(j - x) for the 3x3 texels with
-// |i - round(y)| <= 1 and |j - round(x)| <= 1 inside the sensor, where
-// g(q) = exp(-q^2 / 2) / sqrt(2 pi). An event whose coordinate is not
-// finite, or whose rounded window misses the sensor, adds nothing; the range
-// is tested in float before any conversion to int.
+// Forward: frames[r, i, j] += g(i - y) g(j - x) for the (2 HW + 1)^2 texels
+// with |i - round(y)| <= HW and |j - round(x)| <= HW inside the sensor,
+// where g(q) = exp(-q^2 / 2) / sqrt(2 pi) and HW = window_size // 2 (1 or 2:
+// windows 3 and 5, the only ones built; every kernel is a template on HW).
+// An event whose coordinate is not finite, or whose rounded window misses
+// the sensor, adds nothing; the range is tested in float before any
+// conversion to int.
 //
 // What bounds the forward on an H100, and the design. One global
 // atomicAdd per tap (27M at 1.5M events x 2 refs) ran at ~70G per second
@@ -44,14 +46,14 @@
 //
 // Backward: dwx = sum_j (sum_i u_i G[i, j]) v'_j and
 //           dwy = sum_i (sum_j v_j G[i, j]) u'_i, with v' = q g(q),
-// over the event's 3x3 window of the cotangent frame G; off-sensor texels
+// over the event's window of the cotangent frame G; off-sensor texels
 // count 0, non-finite results become 0. No atomics: every event is written
 // once, and a result is bitwise the same from run to run and from kernel to
 // kernel (one statement sequence per event, bwd_event).
 //
 // What bounds the backward on an H100, and the design (PERF.md has the
 // times and the runs). It moves 16 bytes per event and gathers 9 texels of
-// 4 bytes, and is bound by neither the bytes nor, alone, the gathers'
+// 4 bytes (25 with a 5x5 window), and is bound by neither the bytes nor, alone, the gathers'
 // sectors: with the events sorted by texel, so that a warp's lanes read the
 // same few sectors, it is a quarter to a third faster (0.040 against 0.056
 // ms at 1.5M events x 2 refs), and the rest is its instruction stream (6
@@ -71,9 +73,10 @@
 //   - stream (from 2^19 events per ref): a grid of its own per ref (no
 //     division), four events in a row per thread as one float4 load per
 //     coordinate array and one float4 store per gradient array, and a
-//     row's three texels as the two aligned 8-byte pairs that hold them
-//     (six gathers per event instead of nine) where the frame's rows start
-//     on 8 bytes and the window's columns are on the sensor.
+//     row's 2 HW + 1 texels as the HW + 1 aligned 8-byte pairs that hold
+//     them (six gathers per event instead of nine, fifteen instead of 25)
+//     where the frame's rows start on 8 bytes and the window's columns are
+//     on the sensor.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -114,7 +117,9 @@ struct Center {
 };
 
 // the rounded coordinates of an event, by the magic number, after a float
-// range test that NaN, +-inf and far coordinates fail (so |x| < 2^22)
+// range test that NaN, +-inf and far coordinates fail (so |x| < 2^22); true
+// when its window of radius HW touches the sensor
+template <int HW>
 __device__ __forceinline__ bool center(float x, float y, int H, int W,
                                        Center& c) {
   if (!(x > -4.f && x < (float)W + 4.f && y > -4.f && y < (float)H + 4.f))
@@ -124,38 +129,45 @@ __device__ __forceinline__ bool center(float x, float y, int H, int W,
   c.ry = __fsub_rn(sy, kRound);
   c.ix = (int)(__float_as_uint(sx) - kRoundBits);
   c.iy = (int)(__float_as_uint(sy) - kRoundBits);
-  return window_hits(c.rx, c.ry, H, W, 1);
+  return window_hits(c.rx, c.ry, H, W, HW);
 }
 
-// true when a tap of the event falls in the tile [r0, r1) x [c0, c1)
+// true when a tap of the event falls in the tile [r0, r1) x [c0, c1): its
+// window reaches HW rows and columns past its center, so an event up to HW
+// rows outside a slab still has taps in it. This halo and deposit's own row
+// and column test are all that the radius changes in the slab partition;
+// ops/splat_kernel.py:plan_splat cuts whole slabs and needs no halo.
+template <int HW>
 __device__ __forceinline__ bool in_tile(float x, float y, int H, int W, int r0,
                                         int r1, int c0, int c1) {
   Center c;
-  return center(x, y, H, W, c) && c.iy + 1 >= r0 && c.iy - 1 < r1 &&
-         c.ix + 1 >= c0 && c.ix - 1 < c1;
+  return center<HW>(x, y, H, W, c) && c.iy + HW >= r0 && c.iy - HW < r1 &&
+         c.ix + HW >= c0 && c.ix - HW < c1;
 }
 
 // the taps of one event that fall in the tile, added into it with integer
 // shared-memory atomics (a float atomicAdd on shared memory is a
 // compare-and-swap loop), each g(i - y) g(j - x) rounded to 2^-24
+template <int HW>
 __device__ __forceinline__ void deposit(unsigned* tile, float* frame, float x,
                                         float y, int H, int W, int r0, int r1,
                                         int c0, int c1, int tc) {
   Center c;
-  if (!center(x, y, H, W, c)) return;
-  float gy[3], gx[3];
+  if (!center<HW>(x, y, H, W, c)) return;
+  constexpr int kTaps = 2 * HW + 1;
+  float gy[kTaps], gx[kTaps];
 #pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    gy[d] = gauss((c.ry + (float)(d - 1)) - y);
-    gx[d] = gauss((c.rx + (float)(d - 1)) - x);
+  for (int d = 0; d < kTaps; ++d) {
+    gy[d] = gauss((c.ry + (float)(d - HW)) - y);
+    gx[d] = gauss((c.rx + (float)(d - HW)) - x);
   }
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const int row = c.iy + a - 1;
+  for (int a = 0; a < kTaps; ++a) {
+    const int row = c.iy + a - HW;
     if (row < r0 || row >= r1) continue;
 #pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      const int col = c.ix + b - 1;
+    for (int b = 0; b < kTaps; ++b) {
+      const int col = c.ix + b - HW;
       if (col < c0 || col >= c1) continue;
       const unsigned q = quantize(gy[a] * gx[b]);
       const unsigned old = atomicAdd(tile + (row - r0) * tc + (col - c0), q);
@@ -165,6 +177,7 @@ __device__ __forceinline__ void deposit(unsigned* tile, float* frame, float x,
   }
 }
 
+template <int HW>
 __global__ void __launch_bounds__(1024)
     splat_fwd_slab_kernel(const float* __restrict__ wx,
                           const float* __restrict__ wy,
@@ -213,7 +226,7 @@ __global__ void __launch_bounds__(1024)
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const bool hit = in_tile(x[u], y[u], H, W, r0, r1, c0, c1);
+      const bool hit = in_tile<HW>(x[u], y[u], H, W, r0, r1, c0, c1);
       const unsigned m = __ballot_sync(0xffffffffu, hit);
       if (hit) queue[queued + __popc(m & ((1u << lane) - 1u))] = make_float2(x[u], y[u]);
       queued += __popc(m);
@@ -224,14 +237,14 @@ __global__ void __launch_bounds__(1024)
         if (lane < queued - 32) queue[lane] = queue[32 + lane];
         __syncwarp();
         queued -= 32;
-        deposit(tile, frame, e.x, e.y, H, W, r0, r1, c0, c1, tc);
+        deposit<HW>(tile, frame, e.x, e.y, H, W, r0, r1, c0, c1, tc);
       }
     }
   }
   __syncwarp();
   if (lane < queued) {
     const float2 e = queue[lane];
-    deposit(tile, frame, e.x, e.y, H, W, r0, r1, c0, c1, tc);
+    deposit<HW>(tile, frame, e.x, e.y, H, W, r0, r1, c0, c1, tc);
   }
   __syncthreads();
 
@@ -245,26 +258,28 @@ __global__ void __launch_bounds__(1024)
 
 // ---- backward ----------------------------------------------------------------
 
-// (dwx, dwy) of one event from its 3x3 window of the (H, W) cotangent frame
-// G: one statement sequence for both kernels, so that they give the same
-// bits. With kPairs (W even and G on 8 bytes) a row's three texels come as
-// the two aligned pairs that hold them, where the window's columns are all
-// on the sensor: two 8-byte gathers instead of three of 4 bytes.
-template <bool kPairs>
+// (dwx, dwy) of one event from its (2 HW + 1)^2 window of the (H, W)
+// cotangent frame G: one statement sequence for both kernels, so that they
+// give the same bits. With kPairs (W even and G on 8 bytes) a row's 2 HW + 1
+// texels come as the HW + 1 aligned pairs that hold them, where the window's
+// columns are all on the sensor: 8-byte gathers instead of 4-byte ones, the
+// same values.
+template <bool kPairs, int HW>
 __device__ __forceinline__ void bwd_event(const float* __restrict__ G, float x,
                                           float y, int H, int W, float& dx,
                                           float& dy) {
+  constexpr int kTaps = 2 * HW + 1;
   const float rx = rintf(x), ry = rintf(y);
   float ox = 0.f, oy = 0.f;
-  if (window_hits(rx, ry, H, W, 1)) {
+  if (window_hits(rx, ry, H, W, HW)) {
     const int iy = (int)ry, ix = (int)rx;
-    float u[3], du[3], v[3], dv[3], t[3][3];
+    float u[kTaps], du[kTaps], v[kTaps], dv[kTaps], t[kTaps][kTaps];
 #pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      const int row = iy + d - 1, col = ix + d - 1;
+    for (int d = 0; d < kTaps; ++d) {
+      const int row = iy + d - HW, col = ix + d - HW;
       const bool rok = row >= 0 && row < H, cok = col >= 0 && col < W;
-      const float qy = (ry + (float)(d - 1)) - y;
-      const float qx = (rx + (float)(d - 1)) - x;
+      const float qy = (ry + (float)(d - HW)) - y;
+      const float qx = (rx + (float)(d - HW)) - x;
       const float gy = gauss(qy), gx = gauss(qx);
       u[d] = rok ? gy : 0.f;
       du[d] = rok ? qy * gy : 0.f;
@@ -272,37 +287,47 @@ __device__ __forceinline__ void bwd_event(const float* __restrict__ G, float x,
       dv[d] = cok ? qx * gx : 0.f;
     }
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const int row = iy + a - 1;
-      const int left = (ix - 1) & ~1;  // the even column at or before ix - 1
-      if (kPairs && ix >= 1 && left + 3 < W) {
-        t[a][0] = t[a][1] = t[a][2] = 0.f;
+    for (int a = 0; a < kTaps; ++a) {
+      const int row = iy + a - HW;
+      const int left = (ix - HW) & ~1;  // the even column at or before ix - HW
+      if (kPairs && ix >= HW && left + kTaps < W) {
+#pragma unroll
+        for (int b = 0; b < kTaps; ++b) t[a][b] = 0.f;
         if (row >= 0 && row < H) {
           const float2* pair = reinterpret_cast<const float2*>(G + row * W + left);
-          const float2 lo = __ldg(pair), hi = __ldg(pair + 1);
-          const bool odd = (ix - 1) & 1;
-          t[a][0] = odd ? lo.y : lo.x;
-          t[a][1] = odd ? hi.x : lo.y;
-          t[a][2] = odd ? hi.y : hi.x;
+          float p[kTaps + 1];
+#pragma unroll
+          for (int k = 0; k <= HW; ++k) {
+            const float2 q = __ldg(pair + k);
+            p[2 * k] = q.x;
+            p[2 * k + 1] = q.y;
+          }
+          const bool odd = (ix - HW) & 1;
+#pragma unroll
+          for (int b = 0; b < kTaps; ++b) t[a][b] = odd ? p[b + 1] : p[b];
         }
         continue;
       }
 #pragma unroll
-      for (int b = 0; b < 3; ++b) {
-        const int col = ix + b - 1;
+      for (int b = 0; b < kTaps; ++b) {
+        const int col = ix + b - HW;
         t[a][b] = (row >= 0 && row < H && col >= 0 && col < W)
                       ? __ldg(G + row * W + col)
                       : 0.f;
       }
     }
 #pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      const float m = u[0] * t[0][b] + u[1] * t[1][b] + u[2] * t[2][b];
+    for (int b = 0; b < kTaps; ++b) {
+      float m = u[0] * t[0][b];
+#pragma unroll
+      for (int a = 1; a < kTaps; ++a) m += u[a] * t[a][b];
       ox += m * dv[b];
     }
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float m = v[0] * t[a][0] + v[1] * t[a][1] + v[2] * t[a][2];
+    for (int a = 0; a < kTaps; ++a) {
+      float m = v[0] * t[a][0];
+#pragma unroll
+      for (int b = 1; b < kTaps; ++b) m += v[b] * t[a][b];
       oy += m * du[a];
     }
   }
@@ -312,6 +337,7 @@ __device__ __forceinline__ void bwd_event(const float* __restrict__ G, float x,
 
 // The gather kernel: one thread per (ref, event) in a grid-stride loop over
 // all refs' events.
+template <int HW>
 __global__ void splat_bwd_kernel(const float* __restrict__ wx,
                                  const float* __restrict__ wy,
                                  const float* __restrict__ grad,
@@ -322,7 +348,7 @@ __global__ void splat_bwd_kernel(const float* __restrict__ wx,
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
     const float* G = grad + (i / n_events) * (long long)H * W;
-    bwd_event<false>(G, wx[i], wy[i], H, W, dwx[i], dwy[i]);
+    bwd_event<false, HW>(G, wx[i], wy[i], H, W, dwx[i], dwy[i]);
   }
 }
 
@@ -330,7 +356,7 @@ __global__ void splat_bwd_kernel(const float* __restrict__ wx,
 // in a row, as one float4 load per coordinate array and one float4 store
 // per gradient array where `vec` says they start on 16 bytes, so that the
 // gathers of four windows are in flight together.
-template <bool kPairs>
+template <bool kPairs, int HW>
 __global__ void __launch_bounds__(512)
     splat_bwd_stream_kernel(const float* __restrict__ wx,
                             const float* __restrict__ wy,
@@ -350,17 +376,49 @@ __global__ void __launch_bounds__(512)
       const float4 x = __ldg(reinterpret_cast<const float4*>(xs + e));
       const float4 y = __ldg(reinterpret_cast<const float4*>(ys + e));
       float4 dx, dy;
-      bwd_event<kPairs>(G, x.x, y.x, H, W, dx.x, dy.x);
-      bwd_event<kPairs>(G, x.y, y.y, H, W, dx.y, dy.y);
-      bwd_event<kPairs>(G, x.z, y.z, H, W, dx.z, dy.z);
-      bwd_event<kPairs>(G, x.w, y.w, H, W, dx.w, dy.w);
+      bwd_event<kPairs, HW>(G, x.x, y.x, H, W, dx.x, dy.x);
+      bwd_event<kPairs, HW>(G, x.y, y.y, H, W, dx.y, dy.y);
+      bwd_event<kPairs, HW>(G, x.z, y.z, H, W, dx.z, dy.z);
+      bwd_event<kPairs, HW>(G, x.w, y.w, H, W, dx.w, dy.w);
       *reinterpret_cast<float4*>(ox + e) = dx;
       *reinterpret_cast<float4*>(oy + e) = dy;
     } else {
       for (long long i = e; i < min(e + 4, n_events); ++i)
-        bwd_event<kPairs>(G, __ldg(xs + i), __ldg(ys + i), H, W, ox[i], oy[i]);
+        bwd_event<kPairs, HW>(G, __ldg(xs + i), __ldg(ys + i), H, W, ox[i], oy[i]);
     }
   }
+}
+
+template <int HW>
+int splat_fwd(const float* wx, const float* wy, float* frames, long long n_events,
+              int H, int W, const SlabPlan& p, long long blocks, long long smem,
+              int threads, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      splat_fwd_slab_kernel<HW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMaxSmem - kQueueBytes);
+  if (err != cudaSuccess) return (int)err;
+  splat_fwd_slab_kernel<HW><<<(int)blocks, threads, (size_t)smem, stream>>>(
+      wx, wy, frames, n_events, H, W, p);
+  return (int)cudaGetLastError();
+}
+
+template <int HW>
+int splat_bwd(const float* wx, const float* wy, const float* grad, float* dwx,
+              float* dwy, int n_refs, long long n_events, int H, int W,
+              int stream_kernel, int blocks, int threads, int vec,
+              cudaStream_t stream) {
+  // a row's texels in aligned pairs: every row of every ref on 8 bytes
+  const bool pairs = W % 2 == 0 && (size_t)grad % 8 == 0;
+  if (stream_kernel && pairs)
+    splat_bwd_stream_kernel<true, HW><<<dim3(blocks, n_refs), threads, 0, stream>>>(
+        wx, wy, grad, dwx, dwy, n_events, H, W, vec);
+  else if (stream_kernel)
+    splat_bwd_stream_kernel<false, HW><<<dim3(blocks, n_refs), threads, 0, stream>>>(
+        wx, wy, grad, dwx, dwy, n_events, H, W, vec);
+  else
+    splat_bwd_kernel<HW><<<blocks, threads, 0, stream>>>(
+        wx, wy, grad, dwx, dwy, (long long)n_refs * n_events, n_events, H, W);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -368,49 +426,42 @@ __global__ void __launch_bounds__(512)
 // the frames of all refs, added into the zeroed `frames`, from the slab
 // plan of ops/splat_kernel.py: a grid of n_refs x chunks x row_slabs x
 // col_slabs blocks of `threads` threads, each with a tile of tile_rows x
-// tile_cols texels
+// tile_cols texels; windows of 2 hw + 1 texels a side (hw 1 or 2)
 extern "C" int eincm_splat_fwd(const float* wx, const float* wy,
                                float* frames, int n_refs, long long n_events,
-                               int H, int W, int tile_rows, int tile_cols,
-                               int row_slabs, int col_slabs, int chunks,
-                               int threads, cudaStream_t stream) {
+                               int H, int W, int hw, int tile_rows,
+                               int tile_cols, int row_slabs, int col_slabs,
+                               int chunks, int threads, cudaStream_t stream) {
   const long long smem = ((long long)tile_rows * tile_cols + 3) / 4 * 16;
   const long long blocks = (long long)n_refs * chunks * row_slabs * col_slabs;
   if (smem > kMaxSmem - kQueueBytes || blocks < 1 || blocks > 0x7fffffffLL ||
       threads < 32 || threads > 1024 || threads % 32)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      splat_fwd_slab_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMaxSmem - kQueueBytes);
-  if (err != cudaSuccess) return (int)err;
   const SlabPlan p{tile_rows, tile_cols, row_slabs, col_slabs, chunks};
-  splat_fwd_slab_kernel<<<(int)blocks, threads, (size_t)smem, stream>>>(
-      wx, wy, frames, n_events, H, W, p);
-  return (int)cudaGetLastError();
+  if (hw == 1)
+    return splat_fwd<1>(wx, wy, frames, n_events, H, W, p, blocks, smem, threads, stream);
+  if (hw == 2)
+    return splat_fwd<2>(wx, wy, frames, n_events, H, W, p, blocks, smem, threads, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // the gather kernel: one thread per (ref, event) in a grid-stride loop of
 // `blocks` x `threads`; with `stream`, the stream kernel: a grid of `blocks`
-// x n_refs blocks, four events per thread (`vec`: as float4s)
+// x n_refs blocks, four events per thread (`vec`: as float4s); windows of
+// 2 hw + 1 texels a side (hw 1 or 2)
 extern "C" int eincm_splat_bwd(const float* wx, const float* wy,
                                const float* grad, float* dwx, float* dwy,
                                int n_refs, long long n_events, int H, int W,
-                               int stream_kernel, int blocks, int threads,
-                               int vec, cudaStream_t stream) {
-  const long long n = (long long)n_refs * n_events;
+                               int hw, int stream_kernel, int blocks,
+                               int threads, int vec, cudaStream_t stream) {
   if (blocks < 1 || threads < 32 || threads % 32 || n_refs > 65535 ||
       threads > (stream_kernel ? 512 : 1024) || (long long)H * W > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  // a row's texels in aligned pairs: every row of every ref on 8 bytes
-  const bool pairs = W % 2 == 0 && (size_t)grad % 8 == 0;
-  if (stream_kernel && pairs)
-    splat_bwd_stream_kernel<true><<<dim3(blocks, n_refs), threads, 0, stream>>>(
-        wx, wy, grad, dwx, dwy, n_events, H, W, vec);
-  else if (stream_kernel)
-    splat_bwd_stream_kernel<false><<<dim3(blocks, n_refs), threads, 0, stream>>>(
-        wx, wy, grad, dwx, dwy, n_events, H, W, vec);
-  else
-    splat_bwd_kernel<<<blocks, threads, 0, stream>>>(wx, wy, grad, dwx, dwy, n,
-                                                      n_events, H, W);
-  return (int)cudaGetLastError();
+  if (hw == 1)
+    return splat_bwd<1>(wx, wy, grad, dwx, dwy, n_refs, n_events, H, W,
+                        stream_kernel, blocks, threads, vec, stream);
+  if (hw == 2)
+    return splat_bwd<2>(wx, wy, grad, dwx, dwy, n_refs, n_events, H, W,
+                        stream_kernel, blocks, threads, vec, stream);
+  return (int)cudaErrorInvalidValue;
 }

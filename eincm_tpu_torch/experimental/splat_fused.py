@@ -26,12 +26,13 @@ Both return `(frame (H, W), ok)`. On the TPU `ok` said whether the row
 bands of sorted events covered every event (a frame with `ok` False had
 lost mass). The port scatters with atomics and has no bands of sorted
 events, so every frame is complete, in any event order, and `ok` is a 0-d
-True tensor on the frame's device. Kernel 7 adds each tap into the frame in
-device memory, and so does kernel 8 where events are few; where they are
-many it adds them in shared memory, where a thread block cluster holds the
-whole frame (`plan_fused` chooses and cuts). The TPU versions' `b` (band
-height) and `interpret` arguments only shaped that band tiling and are
-dropped.
+True tensor on the frame's device. Where events are few, both kernels add
+each tap into the frame in device memory; where they are many, in shared
+memory, where a thread block cluster holds the whole frame (`plan_fused`
+chooses and cuts, with a crossover of its own for each kernel). The two
+cluster kernels are one body (csrc/fused.cu): kernel 7 loads the velocity
+where kernel 8 samples theta. The TPU versions' `b` (band height) and
+`interpret` arguments only shaped that band tiling and are dropped.
 
 Forward only; nothing in the solver or the loss calls these. Dispatch: CPU
 tensors take the plain version; CUDA tensors launch the kernel, and
@@ -51,28 +52,28 @@ from eincm_tpu_torch.ops._build import KERNELS, active_clusters, check_cuda_f32
 from eincm_tpu_torch.ops.interp import (
     FWD_STAGED_BYTES, _scales, interp_theta_at_events_plain,
 )
-from eincm_tpu_torch.ops.splat_kernel import N_SM, SMEM_BLOCK, SMEM_PER_SM, splat_plain
+from eincm_tpu_torch.ops.splat_kernel import (
+    N_SM, SMEM_BLOCK, SMEM_PER_SM, half_window, splat_plain,
+)
 
-WINDOW_SIZES = (3, 5)  # the kernels are built for these
-# Kernel 8's two kernels (csrc/fused.cu). The cluster kernel zeroes and
-# writes back a whole frame per cluster and passes two cluster barriers per
-# round, which events fewer than CLUSTER_EVENTS do not pay for: below it the
-# scatter kernel, whose global atomics are then few (PERF.md: both on an
-# H100 from 16k to 1M events).
+# The two kernels of kernels 7 and 8 (csrc/fused.cu). The cluster kernel
+# zeroes and writes back a whole frame per cluster and passes two cluster
+# barriers per round, which few events do not pay for: below the crossover
+# the scatter kernel, whose global atomics are then few. Each kernel has its
+# own crossover, measured on an H100 over the first 2^14 to 2^20 permuted
+# events (PERF.md): kernel 8's scatter kernel led at 2^18 and was even at
+# 2^19; kernel 7's led at 2^18 (0.0313 against 0.0371 ms) and trailed at
+# 2^19 (0.0588 against 0.0540). Kernel 7 samples nothing, but neither does
+# its scatter kernel, so the two crossovers fall together.
 CLUSTER_EVENTS = 1 << 19
+CLUSTER_EVENTS_7 = 1 << 19
 MAX_CLUSTER = 8  # blocks in a thread block cluster: the portable limit
 SCATTER_THREADS = 256
 SCATTER_MAX_BLOCKS = N_SM * 16
-MAX_PER_THREAD = 8  # events a thread of kernel 8 warps in a round, at most
+MAX_PER_THREAD = 8  # events a thread of kernels 7 and 8 warps in a round, at most
 MIN_QUEUE = 32  # events a block can queue for a sibling in a round, at least
 QUEUE_MARGIN = 1.5  # a queue's size over a sibling's even share of a round
 SMEM_RESERVE = 128  # a block's own words beside its tile, queues and theta
-
-
-def _half_window(window_size: int) -> int:
-    if int(window_size) not in WINDOW_SIZES:
-        raise ValueError(f"window_size {window_size}: must be one of {WINDOW_SIZES}")
-    return int(window_size) // 2
 
 
 def _f32(t_ref) -> float:
@@ -95,7 +96,7 @@ def fused_warp_splat_frame_plain(
 ) -> torch.Tensor:
     """The plain version of kernel 7: the displacement as two torch ops,
     then the (2 hw + 1)-tap plain splat. Returns the (H, W) frame."""
-    _half_window(window_size)
+    half_window(window_size)
     return _warp_splat_plain(
         xi, yi, ts, thx, thy, _f32(t_ref), sensor_size, window_size
     )
@@ -106,36 +107,17 @@ def fully_fused_warp_splat_frame_plain(
 ) -> torch.Tensor:
     """The plain version of kernel 8: the production interp's plain version
     at (xi, yi) as given, then kernel 7's plain version."""
-    _half_window(window_size)
+    half_window(window_size)
     th = interp_theta_at_events_plain(theta, xi, yi, sensor_size, round_coords=False)
     return _warp_splat_plain(
         xi, yi, ts, th[:, 0], th[:, 1], _f32(t_ref), sensor_size, window_size
     )
 
 
-def fused_warp_splat_cuda(
-    xi, yi, ts, thx, thy, t_ref, sensor_size, window_size: int = 3
-) -> torch.Tensor:
-    """Launch kernel 7: (E,) xi, yi, ts, thx, thy -> (H, W) frame."""
-    hw = _half_window(window_size)
-    e = xi.shape[0]
-    check_cuda_f32("fused_warp_splat", (xi, yi, ts, thx, thy), [(e,)] * 5)
-    H, W = sensor_size
-    frame = torch.zeros((H, W), dtype=torch.float32, device=xi.device)
-    if e:
-        with torch.cuda.device(xi.device):
-            KERNELS["fused_warp_splat"](
-                xi.data_ptr(), yi.data_ptr(), ts.data_ptr(), thx.data_ptr(),
-                thy.data_ptr(), frame.data_ptr(), e, _f32(t_ref), H, W, hw,
-                torch.cuda.current_stream().cuda_stream,
-            )
-    return frame
-
-
 @dataclass(frozen=True)
 class FusedPlan:
-    """Which of kernel 8's two kernels runs, and how it cuts the (H, W)
-    frame and the E events.
+    """Which kernel runs for kernel 7 or 8, and how it cuts the (H, W) frame
+    and the E events.
 
     `scatter`: one thread per event in a grid-stride loop of `chunks` blocks
     of `threads` threads, every tap a global atomic; the other fields are 0.
@@ -153,8 +135,9 @@ class FusedPlan:
     one of the `cluster` queues of `queue` events it has there; after a
     cluster barrier every block adds the taps of the events it received. An
     event that finds its queue full is added into the sibling's tile with
-    remote atomics, which is slow (PERF.md) and right. `staged`: theta is
-    read from a copy in shared memory beside the tile and the queues."""
+    remote atomics, which is slow (PERF.md) and right. `staged` (kernel 8
+    only): theta is read from a copy in shared memory beside the tile and
+    the queues."""
 
     kernel: str
     chunks: int
@@ -178,16 +161,19 @@ def plan_fused(
     chunks: int = None, threads: int = None, per_thread: int = None,
     queue: int = None, active_clusters: int = None,
 ) -> FusedPlan:
-    """Kernel 8's plan for E events on an H x W sensor and an (h, w, 2)
-    theta: by default the cluster kernel from CLUSTER_EVENTS events on, else
-    the scatter kernel, a choice by shape alone. `active_clusters` is the
-    number of clusters of the launch that the card runs at once (the
-    CUDA runtime's answer, `card_plan`; by default an H100's SMs over the
-    cluster)."""
-    if not (E >= 1 and H >= 1 and W >= 1 and h >= 1 and w >= 1):
-        raise ValueError(f"plan_fused: need E, H, W, h, w >= 1, got {(E, H, W, h, w)}")
+    """The plan of kernel 8 for E events on an H x W sensor and an (h, w, 2)
+    theta, or of kernel 7 with h = w = 0 (the velocities are inputs: no
+    theta is staged): by default the cluster kernel from CLUSTER_EVENTS
+    (kernel 7: CLUSTER_EVENTS_7) events on, else the scatter kernel, a
+    choice by shape alone. `active_clusters` is the number of clusters of
+    the launch that the card runs at once (the CUDA runtime's answer,
+    `card_plan`; by default an H100's SMs over the cluster)."""
+    if not (E >= 1 and H >= 1 and W >= 1 and ((h, w) == (0, 0) or (h >= 1 and w >= 1))):
+        raise ValueError(f"plan_fused: need E, H, W >= 1 and h, w >= 1 or both 0, "
+                         f"got {(E, H, W, h, w)}")
     if kernel is None:
-        kernel = "cluster" if E >= CLUSTER_EVENTS else "scatter"
+        crossover = CLUSTER_EVENTS if h else CLUSTER_EVENTS_7
+        kernel = "cluster" if E >= crossover else "scatter"
     if kernel not in ("scatter", "cluster"):
         raise ValueError(f"plan_fused: kernel {kernel!r}")
     limit = 1024
@@ -201,7 +187,7 @@ def plan_fused(
     S = min(MAX_CLUSTER, H) if cluster is None else cluster
     if not 1 <= S <= MAX_CLUSTER:
         raise ValueError(f"plan_fused: cluster {S} not in [1, {MAX_CLUSTER}]")
-    staged = 8 * h * w <= FWD_STAGED_BYTES
+    staged = h > 0 and 8 * h * w <= FWD_STAGED_BYTES
     theta_bytes = 8 * h * w if staged else 0
     # beside the tile: theta, the block's own few words, and at least
     # MIN_QUEUE events from each sibling
@@ -252,17 +238,53 @@ def plan_fused(
 
 
 def card_plan(E: int, H: int, W: int, h: int, w: int, window_size: int = 3) -> FusedPlan:
-    """`plan_fused`'s plan; the cluster kernel's with as many chunks as the
-    current CUDA device runs clusters of that launch at once (the CUDA
-    runtime's answer)."""
+    """`plan_fused`'s plan (kernel 7's with h = w = 0); the cluster kernel's
+    with as many chunks as the current CUDA device runs clusters of that
+    launch at once (the CUDA runtime's answer)."""
     p = plan_fused(E, H, W, h, w)
     if p.kernel != "cluster":
         return p
     active = active_clusters(
-        "fused", "eincm_fused_active_clusters", H, W, _half_window(window_size), h, w,
-        p.cluster, p.tile_rows, p.threads, int(p.staged), p.queue,
+        "fused", "eincm_fused_active_clusters", H, W, half_window(window_size),
+        int(h > 0), h, w, p.cluster, p.tile_rows, p.threads, int(p.staged), p.queue,
     )
     return plan_fused(E, H, W, h, w, active_clusters=active)
+
+
+def _fitted(name, plan, E, H, W, h, w, window_size) -> FusedPlan:
+    """`plan`, if it is one that `plan_fused` makes for these shapes, else
+    raise; None: the card's plan."""
+    if plan is None:
+        return card_plan(E, H, W, h, w, window_size)
+    if plan != plan_fused(E, H, W, h, w, plan.kernel, plan.cluster or None, plan.chunks,
+                          plan.threads, plan.per_thread or None, plan.queue or None):
+        raise ValueError(f"{name}: {plan} does not fit {(E, H, W, h, w)}")
+    return plan
+
+
+def fused_warp_splat_cuda(
+    xi, yi, ts, thx, thy, t_ref, sensor_size, window_size: int = 3,
+    plan: FusedPlan = None,
+) -> torch.Tensor:
+    """Launch kernel 7: (E,) xi, yi, ts, thx, thy -> (H, W) frame, cut as
+    `plan` (default: `plan_fused`'s with h = w = 0, with the clusters the
+    card runs at once) says. A plan that does not fit the shapes raises."""
+    hw = half_window(window_size)
+    e = xi.shape[0]
+    check_cuda_f32("fused_warp_splat", (xi, yi, ts, thx, thy), [(e,)] * 5)
+    H, W = sensor_size
+    frame = torch.zeros((H, W), dtype=torch.float32, device=xi.device)
+    if not e:
+        return frame
+    with torch.cuda.device(xi.device):
+        p = _fitted("fused_warp_splat", plan, e, H, W, 0, 0, window_size)
+        KERNELS["fused_warp_splat"](
+            xi.data_ptr(), yi.data_ptr(), ts.data_ptr(), thx.data_ptr(),
+            thy.data_ptr(), frame.data_ptr(), e, _f32(t_ref), H, W, hw,
+            p.cluster, p.tile_rows, p.bands, p.chunks, p.threads, p.per_thread,
+            p.queue, torch.cuda.current_stream().cuda_stream,
+        )
+    return frame
 
 
 def fully_fused_warp_splat_cuda(
@@ -272,7 +294,7 @@ def fully_fused_warp_splat_cuda(
     """Launch kernel 8: (E,) xi, yi, ts and (h, w, 2) theta -> (H, W), cut
     as `plan` (default: `plan_fused`'s, with the clusters the card runs at
     once) says. A plan that does not fit the shapes raises."""
-    hw = _half_window(window_size)
+    hw = half_window(window_size)
     e = xi.shape[0]
     h, w, _ = theta.shape
     check_cuda_f32(
@@ -284,14 +306,7 @@ def fully_fused_warp_splat_cuda(
     if not e:
         return frame
     with torch.cuda.device(xi.device):
-        if plan is None:
-            p = card_plan(e, H, W, h, w, window_size)
-        elif plan == plan_fused(e, H, W, h, w, plan.kernel, plan.cluster or None, plan.chunks,
-                                plan.threads, plan.per_thread or None, plan.queue or None):
-            p = plan
-        else:
-            raise ValueError(f"fully_fused_warp_splat: {plan} does not fit "
-                             f"{(e, H, W, h, w)}")
+        p = _fitted("fully_fused_warp_splat", plan, e, H, W, h, w, window_size)
         KERNELS["fully_fused_warp_splat"](
             xi.data_ptr(), yi.data_ptr(), ts.data_ptr(), theta.data_ptr(),
             frame.data_ptr(), e, _f32(t_ref), H, W, hw, h, w, sy, sx,

@@ -169,19 +169,21 @@ KERNELS: Dict[str, Kernel] = {
         "interp", "eincm_interp_bwd",
         (P, P, P, P, P, P, LL, LL, LL, I, I, I, F, F, I, I, I, I, P),
     ),
-    # (wx, wy, frames, n_refs, n_events, H, W, tile_rows, tile_cols,
+    # (wx, wy, frames, n_refs, n_events, H, W, hw, tile_rows, tile_cols,
     #  row_slabs, col_slabs, chunks, threads, stream)
     "splat_fwd": Kernel(
-        "splat", "eincm_splat_fwd", (P, P, P, I, LL, I, I, I, I, I, I, I, I, P)
+        "splat", "eincm_splat_fwd", (P, P, P, I, LL, I, I, I, I, I, I, I, I, I, P)
     ),
-    # (wx, wy, grad_frames, dwx, dwy, n_refs, n_events, H, W, stream_kernel,
-    #  blocks, threads, vec, stream)
+    # (wx, wy, grad_frames, dwx, dwy, n_refs, n_events, H, W, hw,
+    #  stream_kernel, blocks, threads, vec, stream)
     "splat_bwd": Kernel(
-        "splat", "eincm_splat_bwd", (P, P, P, P, P, I, LL, I, I, I, I, I, I, P)
+        "splat", "eincm_splat_bwd", (P, P, P, P, P, I, LL, I, I, I, I, I, I, I, P)
     ),
-    # (xi, yi, ts, thx, thy, frame, n_events, t_ref, H, W, hw, stream)
+    # (xi, yi, ts, thx, thy, frame, n_events, t_ref, H, W, hw, cluster,
+    #  tile_rows, bands, chunks, threads, per_thread, queue, stream)
     "fused_warp_splat": Kernel(
-        "fused", "eincm_fused_warp_splat", (P, P, P, P, P, P, LL, F, I, I, I, P)
+        "fused", "eincm_fused_warp_splat",
+        (P, P, P, P, P, P, LL, F, I, I, I, I, I, I, I, I, I, I, P),
     ),
     # (xi, yi, ts, theta, frame, n_events, t_ref, H, W, hw, h, w,
     #  scale_y, scale_x, cluster, tile_rows, bands, chunks, threads, staged,

@@ -14,8 +14,11 @@ sensor (the -1e4 padding sentinel) therefore samples exactly 0. Gradients
 flow to theta only; the coordinates enter through round() and get no
 cotangent.
 
-Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel, and anything the kernel does not take raises.
+Dispatch (`interp_theta_at_events`): CPU tensors, and float64 ones on any
+device, take the plain version on their own device (the kernels compute in
+float32; the JAX package keeps float64 on its XLA path the same way,
+eincm_tpu/ops/warp.py:199-209). Every other CUDA tensor launches the
+kernels, and anything they do not take raises.
 """
 
 from __future__ import annotations
@@ -358,7 +361,15 @@ def interp_theta_at_events(
 
     Equal to gathering `scale_theta_to_sensor_size(theta, S, 'bilinear')`
     at the rounded event coordinates, without the full-sensor field.
+
+    The plain version runs where all three tensors lie on the CPU, or where
+    any of them is float64 (on the tensors' device): the condition is the
+    dtype, not the grid. Every other call launches the kernels, which take
+    float32 grids up to MAX_GRID cells a side and raise on anything else.
     """
-    if all(t.device.type == "cpu" for t in (theta, xs, ys)):
+    tensors = (theta, xs, ys)
+    if all(t.device.type == "cpu" for t in tensors) or any(
+        t.dtype == torch.float64 for t in tensors
+    ):
         return interp_theta_at_events_plain(theta, xs, ys, sensor_size)
     return _InterpCuda.apply(theta, xs, ys, tuple(sensor_size))

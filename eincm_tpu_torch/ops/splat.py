@@ -3,6 +3,13 @@
 Reference: src/utils/event_utils.py:13-77. The splat itself lives in
 `ops/splat_kernel.py` (the CUDA kernels and their plain version); this
 module is the router the loss calls, plus the plain event counts.
+
+Routing: the plain version takes CPU tensors, float64 coordinates on any
+device (the kernels sum in float32; the JAX package keeps an x64 caller on
+its XLA path the same way, eincm_tpu/ops/splat.py:174-177, :347) and
+everything while the wrap-compat switch is on (JAX routes it to XLA).
+Every other CUDA tensor launches the kernels, which take windows 3 and 5
+and raise on anything else.
 """
 
 from __future__ import annotations
@@ -13,38 +20,71 @@ import torch
 
 from eincm_tpu_torch.ops.splat_kernel import _SplatCuda, splat_plain
 
+# Opt-in reproduction of the reference's negative-index wrap (splat mass at
+# coordinate -k lands on the opposite sensor edge; src/utils/event_utils.py:
+# 59): eincm_tpu/ops/splat.py:set_splat_wrap_compat. For parity studies
+# only; dropping out-of-sensor texels is the physical behaviour.
+_SPLAT_WRAP_COMPAT = False
+
+
+def set_splat_wrap_compat(enable: bool) -> None:
+    """Toggle the wrap-compat splat (read at every call)."""
+    global _SPLAT_WRAP_COMPAT
+    _SPLAT_WRAP_COMPAT = bool(enable)
+
+
+def _plain(*tensors: torch.Tensor) -> bool:
+    """True where the plain version runs: CPU tensors, float64 ones on any
+    device, or the wrap-compat switch on."""
+    return (
+        _SPLAT_WRAP_COMPAT
+        or all(t.device.type == "cpu" for t in tensors)
+        or any(t.dtype == torch.float64 for t in tensors)
+    )
+
 
 def splat_multi_ref(
     warped_xs: torch.Tensor,
     warped_ys: torch.Tensor,
     sensor_size: Tuple[int, int],
+    window_size: int = 3,
 ) -> torch.Tensor:
     """(n_refs, E) warped coordinates -> (n_refs, H, W) IWEs, every ref in
-    one launch. CPU tensors take the plain version; CUDA tensors the
-    kernels."""
-    if warped_xs.device.type == "cpu" and warped_ys.device.type == "cpu":
-        return splat_plain(warped_xs, warped_ys, sensor_size)
-    return _SplatCuda.apply(warped_xs, warped_ys, tuple(sensor_size))
+    one launch. CPU tensors, float64 ones on any device and the wrap-compat
+    switch take the plain version (on the tensors' device); other CUDA
+    tensors the kernels."""
+    if _plain(warped_xs, warped_ys):
+        return splat_plain(
+            warped_xs, warped_ys, sensor_size, window_size, wrap=_SPLAT_WRAP_COMPAT
+        )
+    return _SplatCuda.apply(warped_xs, warped_ys, tuple(sensor_size), window_size)
 
 
 def events_to_pdf_frame(
     xs: torch.Tensor,
     ys: torch.Tensor,
     sensor_size: Tuple[int, int] = (260, 346),
+    window_size: int = 3,
+    chunk_size: int | None = None,
 ) -> torch.Tensor:
-    """(E,) warped coordinates (x = column, y = row) -> (H, W) IWE: a 3x3
-    window of 2-D standard normal pdf values around each rounded
-    coordinate, out-of-sensor texels dropped on every side."""
-    return splat_multi_ref(xs[None], ys[None], sensor_size)[0]
+    """(E,) warped coordinates (x = column, y = row) -> (H, W) IWE: a
+    `window_size` x `window_size` window of 2-D standard normal pdf values
+    around each rounded coordinate, out-of-sensor texels dropped on every
+    side. `chunk_size` is the JAX signature's (its matrix products' events
+    per step); the port does not chunk and ignores it."""
+    return splat_multi_ref(xs[None], ys[None], sensor_size, window_size)[0]
 
 
 def events_to_pdf_frame_scatter(
     xs: torch.Tensor,
     ys: torch.Tensor,
     sensor_size: Tuple[int, int] = (260, 346),
+    window_size: int = 3,
 ) -> torch.Tensor:
-    """IWE by scatter-add on any device: the numerical oracle."""
-    return splat_plain(xs[None], ys[None], sensor_size)[0]
+    """IWE by scatter-add on any device: the numerical oracle. It drops
+    out-of-sensor texels on every side, wrap-compat or not, as JAX's
+    oracle does."""
+    return splat_plain(xs[None], ys[None], sensor_size, window_size)[0]
 
 
 def event_counts(

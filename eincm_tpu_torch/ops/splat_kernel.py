@@ -6,19 +6,21 @@ Replaces the TPU kernels of eincm_tpu/ops/splat_pallas.py (`_splat_kernel`,
 `_bwd_kernel`) with the CUDA kernels of `csrc/splat.cu`, and keeps their
 plain PyTorch version beside them. The forward adds every tap in shared
 memory, one tile per (ref, event chunk, slab of the frame); `plan_splat`
-cuts the frame and the events. The backward gathers each event's 3x3 window
-of the cotangent through the caches, one event per thread where events are
+cuts the frame and the events. The backward gathers each event's window of
+the cotangent through the caches, one event per thread where events are
 few, four in a row as float4s where they are many; `plan_splat_bwd` chooses.
 
-Each event deposits the 3x3 window of separable standard-normal pdf values
-`g(i - y) g(j - x)`, `g(q) = exp(-q^2 / 2) / sqrt(2 pi)`, around its
-rounded (half to even) coordinate. Texels outside the sensor are dropped on
-every side; an event whose coordinate is NaN or infinite, or whose window
-misses the sensor (the -1e4 padding sentinel, a far line-search probe),
-deposits nothing and gets a zero gradient.
+Each event deposits the `window_size` x `window_size` window (3 by default)
+of separable standard-normal pdf values `g(i - y) g(j - x)`,
+`g(q) = exp(-q^2 / 2) / sqrt(2 pi)`, around its rounded (half to even)
+coordinate. Texels outside the sensor are dropped on every side; an event
+whose coordinate is NaN or infinite, or whose window misses the sensor (the
+-1e4 padding sentinel, a far line-search probe), deposits nothing and gets
+a zero gradient. The kernels are built for windows 3 and 5 (WINDOW_SIZES)
+and refuse any other size; the plain version takes any.
 
-Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernels, and anything they do not take raises.
+Dispatch (`ops/splat.py`): a CPU tensor takes the plain version; a CUDA
+tensor launches the kernels, and anything they do not take raises.
 """
 
 from __future__ import annotations
@@ -39,15 +41,32 @@ def _gauss1d(q: torch.Tensor) -> torch.Tensor:
     return torch.exp(-0.5 * q * q) * _INV_SQRT_2PI
 
 
+WINDOW_SIZES = (3, 5)  # the kernels are built for these
+
+
+def half_window(window_size: int) -> int:
+    """The kernels' radius for `window_size`; raises for a size not built."""
+    if int(window_size) not in WINDOW_SIZES:
+        raise ValueError(f"window_size {window_size}: must be one of {WINDOW_SIZES}")
+    return int(window_size) // 2
+
+
 def splat_plain(
     warped_xs: torch.Tensor,
     warped_ys: torch.Tensor,
     sensor_size: Tuple[int, int],
     window_size: int = 3,
+    wrap: bool = False,
 ) -> torch.Tensor:
-    """The plain version: a 9-tap `index_put(accumulate=True)` into the
-    flattened frames, differentiated by autograd. Also the scatter oracle.
-    `window_size` w deposits the (2 (w // 2) + 1)^2 taps instead."""
+    """The plain version: an `index_put(accumulate=True)` of the
+    (2 (w // 2) + 1)^2 taps of `window_size` w into the flattened frames, on
+    the coordinates' device, differentiated by autograd. Also the scatter
+    oracle.
+
+    `wrap` reproduces the reference's negative-index wrap (eincm_tpu/ops/
+    splat.py:set_splat_wrap_compat): a tap at row (column) s in [-H, -1]
+    lands at H + s with the unwrapped pdf value; taps past the far edge are
+    still dropped."""
     R, E = warped_xs.shape
     H, W = sensor_size
     dtype = torch.promote_types(warped_xs.dtype, torch.float32)
@@ -58,8 +77,8 @@ def splat_plain(
     rows = torch.round(wy)[..., None] + d  # (R, E, 2 hw + 1)
     cols = torch.round(wx)[..., None] + d
     # NaN and +-inf fail these comparisons: such taps are dropped
-    vr = (rows >= 0) & (rows <= H - 1)
-    vc = (cols >= 0) & (cols <= W - 1)
+    vr = (rows >= (-H if wrap else 0)) & (rows <= H - 1)
+    vc = (cols >= (-W if wrap else 0)) & (cols <= W - 1)
     zero = torch.zeros((), dtype=dtype, device=dev)
     # substitute before the pdf so dropped taps have finite zero gradients
     qy = torch.where(vr, rows - wy[..., None], zero)
@@ -69,6 +88,9 @@ def splat_plain(
     vals = gy[..., :, None] * gx[..., None, :]  # (R, E, taps, taps)
     ri = torch.where(vr, rows, zero).long()
     ci = torch.where(vc, cols, zero).long()
+    if wrap:
+        ri = torch.where(ri < 0, ri + H, ri)
+        ci = torch.where(ci < 0, ci + W, ci)
     ref = torch.arange(R, device=dev)[:, None, None, None]
     flat = (ref * H + ri[..., :, None]) * W + ci[..., None, :]
     frames = torch.zeros(R * H * W, dtype=dtype, device=dev)
@@ -91,7 +113,8 @@ N_SM = 132  # streaming multiprocessors of an H100 SXM
 LARGE_EVENTS = 1 << 18
 SMALL_BUDGET = 113 * 1024
 # the texels the blocks write back (chunks x the frames) stay at most this
-# many times the taps (9 per event and ref): each block scans its tile in
+# many times the taps (9 per event and ref, counted for a 3x3 window: a 5x5
+# window's 25 only make the cap looser): each block scans its tile in
 # shared memory and adds only its nonzero float4s into the frame, so a
 # chunk costs far less than its taps (PERF.md: at 30k events per
 # ref, 16 chunks beat 9 and 9 beat 1)
@@ -134,7 +157,10 @@ class SplatPlan:
 def plan_splat(R: int, E: int, H: int, W: int, smem_budget: int = None) -> SplatPlan:
     """The slab plan of the forward kernel for R refs of E events on an
     H x W sensor, with tiles of at most `smem_budget` bytes (default: the
-    largest for LARGE_EVENTS or more events per ref, else SMALL_BUDGET)."""
+    largest for LARGE_EVENTS or more events per ref, else SMALL_BUDGET).
+    The same plan serves every window size: a block takes each event whose
+    window reaches its slab, up to two rows (a 5x5 window) past its edge
+    (csrc/splat.cu: `in_tile`), and adds only the taps on its own rows."""
     if smem_budget is None:
         smem_budget = SMEM_MAX if E >= LARGE_EVENTS else SMALL_BUDGET
     if not (R >= 1 and E >= 1 and H >= 1 and W >= 1):
@@ -164,11 +190,14 @@ def plan_splat(R: int, E: int, H: int, W: int, smem_budget: int = None) -> Splat
     )
 
 
-def splat_fwd_cuda(warped_xs, warped_ys, sensor_size, plan: SplatPlan = None) -> torch.Tensor:
+def splat_fwd_cuda(
+    warped_xs, warped_ys, sensor_size, window_size: int = 3, plan: SplatPlan = None
+) -> torch.Tensor:
     """Launch the forward kernel: (R, E) coordinates -> (R, H, W) frames,
     cut as `plan` (default: `plan_splat`'s) says."""
     R, E = warped_xs.shape
     H, W = sensor_size
+    hw = half_window(window_size)
     check_cuda_f32("splat_fwd", (warped_xs, warped_ys), ((R, E), (R, E)))
     frames = torch.zeros((R, H, W), dtype=torch.float32, device=warped_xs.device)
     if R * E:
@@ -176,13 +205,13 @@ def splat_fwd_cuda(warped_xs, warped_ys, sensor_size, plan: SplatPlan = None) ->
         with torch.cuda.device(warped_xs.device):
             KERNELS["splat_fwd"](
                 warped_xs.data_ptr(), warped_ys.data_ptr(), frames.data_ptr(),
-                R, E, H, W, p.tile_rows, p.tile_cols, p.row_slabs, p.col_slabs,
+                R, E, H, W, hw, p.tile_rows, p.tile_cols, p.row_slabs, p.col_slabs,
                 p.chunks, p.threads, torch.cuda.current_stream().cuda_stream,
             )
     return frames
 
 
-# The backward's two kernels (csrc/splat.cu). Both gather each event's 3x3
+# The backward's two kernels (csrc/splat.cu). Both gather each event's
 # window of the cotangent through L1 and L2 and give the same bits. The
 # gather kernel is one thread per (ref, event); the stream kernel gives a
 # thread four events in a row, as float4 loads and stores, with a grid of
@@ -250,12 +279,16 @@ def plan_splat_bwd(
     return SplatBwdPlan(kernel=kernel, blocks=blocks, threads=threads, vec=vec)
 
 
-def splat_bwd_cuda(warped_xs, warped_ys, grad_frames, sensor_size, plan: SplatBwdPlan = None):
+def splat_bwd_cuda(
+    warped_xs, warped_ys, grad_frames, sensor_size, window_size: int = 3,
+    plan: SplatBwdPlan = None,
+):
     """Launch a backward kernel: (R, H, W) cotangent -> (dwx, dwy), each
     (R, E), by `plan` (default: `plan_splat_bwd`'s). A plan with float4s
     on arrays that do not start on 16 bytes raises."""
     R, E = warped_xs.shape
     H, W = sensor_size
+    hw = half_window(window_size)
     check_cuda_f32(
         "splat_bwd",
         (warped_xs, warped_ys, grad_frames),
@@ -273,7 +306,7 @@ def splat_bwd_cuda(warped_xs, warped_ys, grad_frames, sensor_size, plan: SplatBw
             KERNELS["splat_bwd"](
                 warped_xs.data_ptr(), warped_ys.data_ptr(),
                 grad_frames.data_ptr(), dwx.data_ptr(), dwy.data_ptr(),
-                R, E, H, W, int(p.kernel == "stream"), p.blocks, p.threads,
+                R, E, H, W, hw, int(p.kernel == "stream"), p.blocks, p.threads,
                 int(p.vec), torch.cuda.current_stream().cuda_stream,
             )
     return dwx, dwy
@@ -281,14 +314,17 @@ def splat_bwd_cuda(warped_xs, warped_ys, grad_frames, sensor_size, plan: SplatBw
 
 class _SplatCuda(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, warped_xs, warped_ys, sensor_size):
+    def forward(ctx, warped_xs, warped_ys, sensor_size, window_size=3):
         ctx.save_for_backward(warped_xs, warped_ys)
         ctx.sensor_size = sensor_size
-        return splat_fwd_cuda(warped_xs, warped_ys, sensor_size)
+        ctx.window_size = window_size
+        return splat_fwd_cuda(warped_xs, warped_ys, sensor_size, window_size)
 
     @staticmethod
     def backward(ctx, grad_frames):
         wx, wy = ctx.saved_tensors
-        dwx, dwy = splat_bwd_cuda(wx, wy, grad_frames.contiguous(), ctx.sensor_size)
-        return dwx, dwy, None
+        dwx, dwy = splat_bwd_cuda(
+            wx, wy, grad_frames.contiguous(), ctx.sensor_size, ctx.window_size
+        )
+        return dwx, dwy, None, None
 

@@ -12,8 +12,9 @@ the same in every tree: the splat at the MVSEC shape (staged window 0 at
 its ground-truth flow, 2 refs x 30k events, 256x336), the DSEC shape (the
 staged 1.5M-event window, 2 refs, 480x640) and the fused bench's uniform
 events (2 refs, 480x640), forward and, with a seeded cotangent, backward
-(`splat_bwd_*`); kernels 7 and 8 on window 0's events with its 16x16 GT
-theta and on the fused bench's 1.5M events, for window sizes 3 and 5
+(`splat_bwd_*`), both also with a 5x5 window where the tree takes one
+(`*_w5`); kernels 7 and 8 on window 0's events with its 16x16 GT theta and
+on the fused bench's 1.5M events, for window sizes 3 and 5
 (`fused_{7,8}_*`); kernel 9 (`highest`, `dot3`, `bf16`) on window 0's
 events and on the dense-interp bench's 1.5M events, beside kernel 1 and
 `F.grid_sample`. Where the tree has the splat's slab plan, the splat is
@@ -30,9 +31,10 @@ theta staged or gathered, the backward's modes up to 64x64); `splat_bwd`,
 the backward with its events as staged, sorted by texel and permuted (what
 the gather's locality is worth), both its kernels over threads and blocks
 per SM, and both on the first 2^14 to 2^20 events (where one overtakes
-the other); `fused`, kernel 8 over `plan_fused`'s choices (cluster size,
-threads, chunks, events per round, queues of the least size) on its events
-as they are and permuted, and both its kernels on the first 2^14 to 2^20.
+the other); `fused`, kernel 8 and, where the tree plans it, kernel 7 over
+`plan_fused`'s choices (cluster size, threads, chunks, events per round,
+queues of the least size) on their events as they are and permuted, and
+both kernels of each on the first 2^14 to 2^20 permuted events.
 
 Times are device ms per call from CUDA events (the tree's
 `utils/profiling.cuda_ms`). Prints the card, one line per time and one
@@ -43,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import inspect
 import json
 import math
 import sys
@@ -108,10 +111,10 @@ def sweep_splat_bwd(sk, splat_in, cot, timed, res):
                         blocks = sk.N_SM * per_sm // (R if kernel == "stream" else 1)
                         p = sk.plan_splat_bwd(R, E, *sensor, kernel, threads, blocks)
                         key = f"sweep_splat_bwd_{tag}_{name}_{kernel}_{threads}t_{p.blocks}b"
-                        timed(key, lambda: sk.splat_bwd_cuda(ox, oy, G, sensor, p))
+                        timed(key, lambda: sk.splat_bwd_cuda(ox, oy, G, sensor, plan=p))
             p = dataclasses.replace(sk.plan_splat_bwd(R, E, *sensor, "stream"), vec=False)
             timed(f"sweep_splat_bwd_{tag}_{name}_stream_scalar",
-                  lambda: sk.splat_bwd_cuda(ox, oy, G, sensor, p))
+                  lambda: sk.splat_bwd_cuda(ox, oy, G, sensor, plan=p))
         if tag != "dsec":
             continue
         # where the stream kernel overtakes the gather kernel: the first n
@@ -121,66 +124,80 @@ def sweep_splat_bwd(sk, splat_in, cot, timed, res):
             for kernel in ("gather", "stream"):
                 p = sk.plan_splat_bwd(R, n, *sensor, kernel)
                 timed(f"sweep_splat_bwd_{tag}_first{n}_{kernel}",
-                      lambda: sk.splat_bwd_cuda(ox, oy, G, sensor, p))
+                      lambda: sk.splat_bwd_cuda(ox, oy, G, sensor, plan=p))
 
 
-def sweep_fused(sf, fused_in, timed, res):
+def sweep_fused(sf, ti, fused_in, timed, res):
     """Kernel 8 over its plan's choices (cluster size, threads, chunks,
     events per thread and round), and with its events permuted: events
     sorted by row add into their own block's tile, permuted events travel
     to a sibling's queue seven times in eight. With queues of the least
     size most permuted events find theirs full and go into the sibling's
-    tile by remote atomics, one by one."""
+    tile by remote atomics, one by one. The same for kernel 7, on the same
+    stage with the events' velocities as inputs, where the tree's
+    `fused_warp_splat_cuda` takes a plan."""
     import dataclasses
+    import inspect
 
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     plans = res.setdefault("plans", {})
+    kernels = (8, 7) if "plan" in inspect.signature(sf.fused_warp_splat_cuda).parameters else (8,)
     for tag, (xi, yi, ts, theta, t_ref, sensor) in fused_in.items():
         E = xi.shape[0]
-        h, w = theta.shape[:2]
+        th = ti.interp_fwd_cuda(theta, xi, yi, sensor)
+        thx, thy = th[:, 0].contiguous(), th[:, 1].contiguous()
         order = torch.randperm(E, generator=gen, device=xi.device)
-        inputs = {"staged": (xi, yi, ts),
-                  "permuted": tuple(a[order].contiguous() for a in (xi, yi, ts))}
+        inputs = {"staged": (xi, yi, ts, thx, thy),
+                  "permuted": tuple(a[order].contiguous() for a in (xi, yi, ts, thx, thy))}
 
-        def run(key, ev, ws, n=E, **choices):
+        def run(k, key, ev, ws, n=E, **choices):
+            h, w = theta.shape[:2] if k == 8 else (0, 0)
             try:
                 p = sf.plan_fused(n, *sensor, h, w, **choices)
             except ValueError:
                 return  # does not fit a block's shared memory
-            key = f"sweep_fused_8_{tag}_{key}_w{ws}_{p.kernel}_{p.threads}t_{p.chunks}chunks"
+            key = f"sweep_fused_{k}_{tag}_{key}_w{ws}_{p.kernel}_{p.threads}t_{p.chunks}chunks"
             if p.kernel == "cluster":
                 key += (f"_cluster{p.cluster}_{p.per_thread}each_{p.queue}queue_"
                         f"{p.bands}bands")
             plans[key] = dataclasses.asdict(p)
-            timed(key, lambda: sf.fully_fused_warp_splat_cuda(*ev, theta, t_ref, sensor, ws, p))
+            if k == 8:
+                timed(key, lambda: sf.fully_fused_warp_splat_cuda(
+                    *ev[:3], theta, t_ref, sensor, ws, p))
+            else:
+                timed(key, lambda: sf.fused_warp_splat_cuda(*ev, t_ref, sensor, ws, plan=p))
 
-        for ws in (3, 5):
-            plans[f"fused_8_{tag}_w{ws}"] = dataclasses.asdict(sf.card_plan(E, *sensor, h, w, ws))
-        for name, ev in inputs.items():
-            base = sf.plan_fused(E, *sensor, h, w, "cluster")
+        for k in kernels:
+            h, w = theta.shape[:2] if k == 8 else (0, 0)
             for ws in (3, 5):
-                run(name, ev, ws, kernel="scatter")
-                for S in (1, 2, 4, 8):
-                    for threads in (256, 512, 1024):
-                        run(name, ev, ws, kernel="cluster", cluster=S, threads=threads)
-                for chunks in sorted({1, max(1, base.chunks // 4), max(1, base.chunks // 2),
-                                      base.chunks - 2, base.chunks - 1, base.chunks + 1,
-                                      2 * base.chunks, 4 * base.chunks} - {0, -1}):
-                    for threads in (256, 512, 1024):
-                        run(name, ev, ws, kernel="cluster", chunks=chunks, threads=threads)
-                for per_thread in (1, 2, 3, 4, 6, 8):
-                    run(name, ev, ws, kernel="cluster", per_thread=per_thread)
-                run(name + "_full_queues", ev, ws, kernel="cluster", queue=sf.MIN_QUEUE)
-        if tag != "dsec":
-            continue
-        # where the cluster kernel overtakes the scatter kernel: the first n
-        # of the permuted events (spread over the frame, in no order)
-        for n in (1 << 14, 1 << 15, 1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20):
-            ev = tuple(a[:n].contiguous() for a in inputs["permuted"])
-            for kernel in ("scatter", "cluster"):
-                run(f"first{n}", ev, 3, n=n, kernel=kernel)
+                plans[f"fused_{k}_{tag}_w{ws}"] = dataclasses.asdict(
+                    sf.card_plan(E, *sensor, h, w, ws))
+            for name, ev in inputs.items():
+                base = sf.plan_fused(E, *sensor, h, w, "cluster")
+                for ws in (3, 5):
+                    run(k, name, ev, ws, kernel="scatter")
+                    for S in (1, 2, 4, 8):
+                        for threads in (256, 512, 1024):
+                            run(k, name, ev, ws, kernel="cluster", cluster=S, threads=threads)
+                    for chunks in sorted({1, max(1, base.chunks // 4), max(1, base.chunks // 2),
+                                          base.chunks - 2, base.chunks - 1, base.chunks + 1,
+                                          2 * base.chunks, 4 * base.chunks} - {0, -1}):
+                        for threads in (256, 512, 1024):
+                            run(k, name, ev, ws, kernel="cluster", chunks=chunks,
+                                threads=threads)
+                    for per_thread in (1, 2, 3, 4, 6, 8):
+                        run(k, name, ev, ws, kernel="cluster", per_thread=per_thread)
+                    run(k, name + "_full_queues", ev, ws, kernel="cluster", queue=sf.MIN_QUEUE)
+            if tag != "dsec":
+                continue
+            # where the cluster kernel overtakes the scatter kernel: the first
+            # n of the permuted events (spread over the frame, in no order)
+            for n in (1 << 14, 1 << 15, 1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20):
+                ev = tuple(a[:n].contiguous() for a in inputs["permuted"])
+                for kernel in ("scatter", "cluster"):
+                    run(k, f"first{n}", ev, 3, n=n, kernel=kernel)
 
 
 def main(argv=None) -> int:
@@ -249,8 +266,11 @@ def main(argv=None) -> int:
     theta, xs, ys = ip.make_inputs(device)
     interp_in["dsec"] = (theta, xs, ys, ip.SENSOR)
 
+    window5 = "window_size" in inspect.signature(sk.splat_fwd_cuda).parameters
     for tag, (wx, wy, sensor) in splat_in.items():
         timed(f"splat_fwd_{tag}", lambda: sk.splat_fwd_cuda(wx, wy, sensor))
+        if window5:
+            timed(f"splat_fwd_{tag}_w5", lambda: sk.splat_fwd_cuda(wx, wy, sensor, 5))
     if hasattr(sk, "plan_splat"):
         # tile budgets (KB) x event chunks (None: the plan's own)
         budgets_by_tag = {"mvsec": ((227, 113, 56, 28), (None, 1, 16)),
@@ -265,7 +285,7 @@ def main(argv=None) -> int:
                     p = base if c is None else dataclasses.replace(base, chunks=c)
                     key = f"splat_fwd_{tag}_{kb}k_{p.row_slabs}slabs_{p.chunks}chunks"
                     res["plans"][key] = dataclasses.asdict(p)
-                    timed(key, lambda: sk.splat_fwd_cuda(wx, wy, sensor, p))
+                    timed(key, lambda: sk.splat_fwd_cuda(wx, wy, sensor, plan=p))
     # the splat backward (kernels 4 and 6) on the same inputs, with a seeded
     # cotangent, and the fused warp+splat kernels (7 and 8) at both shapes
     # and both window sizes
@@ -275,6 +295,8 @@ def main(argv=None) -> int:
         cot[tag] = torch.randn(wx.shape[0], *sensor, generator=gen, device=device)
         G = cot[tag]
         timed(f"splat_bwd_{tag}", lambda: sk.splat_bwd_cuda(wx, wy, G, sensor))
+        if window5:
+            timed(f"splat_bwd_{tag}_w5", lambda: sk.splat_bwd_cuda(wx, wy, G, sensor, 5))
     w0 = mvsec[0]
     xs, ys, ts = _sanitize_events(w0.xs, w0.ys, w0.ts)
     bench = fb.make_inputs(device)
@@ -296,7 +318,7 @@ def main(argv=None) -> int:
     if "splat_bwd" in sweeps:
         sweep_splat_bwd(sk, splat_in, cot, timed, res)
     if "fused" in sweeps and hasattr(sf, "plan_fused"):
-        sweep_fused(sf, fused_in, timed, res)
+        sweep_fused(sf, ti, fused_in, timed, res)
     del cot, fused_in
     for tag, (theta, xs, ys, sensor) in interp_in.items():
         for mode in ("highest", "dot3", "bf16"):

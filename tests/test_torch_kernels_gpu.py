@@ -230,8 +230,15 @@ def test_routers_launch_the_kernels_on_cuda(cuda):
 def test_kernels_refuse_what_they_do_not_take(cuda):
     theta = torch.zeros(16, 16, 2, device=cuda)
     xs = torch.zeros(100, device=cuda)
+    # float64 takes the plain version (routed by dtype); any other dtype
+    # that is not float32 reaches a kernel and raises
     with pytest.raises(TypeError):
-        ti.interp_theta_at_events(theta.double(), xs.double(), xs.double(), SENSOR)
+        ti.interp_theta_at_events(theta.half(), xs.half(), xs.half(), SENSOR)
+    with pytest.raises(TypeError):
+        ts.splat_multi_ref(xs.half()[None], xs.half()[None], SENSOR)
+    for ws in (1, 4, 7):  # the kernels are built for windows 3 and 5
+        with pytest.raises(ValueError, match="window_size"):
+            ts.splat_multi_ref(xs[None], xs[None], SENSOR, ws)
     with pytest.raises(ValueError):
         ti.interp_fwd_cuda(torch.zeros(129, 4, 2, device=cuda), xs, xs, SENSOR)
     w = torch.zeros(100, 2, device=cuda).t()  # (2, 100), not contiguous
@@ -310,10 +317,11 @@ def test_interp_dense_highest_matches_interp_fwd(cuda, gh, gw):
     )
 
 
-def _slab_window(rng, R, n, sensor, tile_rows, device):
+def _slab_window(rng, R, n, sensor, tile_rows, device, wide=False):
     """(R, E) coordinates: n uniform events per ref, the edge cases, and
     events on and around every slab edge (their windows straddle two
-    slabs), each ref in its own order."""
+    slabs; `wide`: up to 2.5 rows off, for a 5x5 window), each ref in its
+    own order."""
     Hs, Ws = sensor
     xs = [rng.uniform(-3, Ws + 2, n)]
     ys = [rng.uniform(-3, Hs + 2, n)]
@@ -321,7 +329,8 @@ def _slab_window(rng, R, n, sensor, tile_rows, device):
     xs.append(ex)
     ys.append(ey)
     edges = np.arange(tile_rows, Hs, tile_rows, dtype=np.float64)
-    for d in (-1.5, -1.0, -0.6, -0.5, 0.0, 0.4, 0.5, 1.0):
+    offsets = (-1.5, -1.0, -0.6, -0.5, 0.0, 0.4, 0.5, 1.0)
+    for d in offsets + ((-2.5, -2.0, 1.5, 2.0, 2.4) if wide else ()):
         ys.append(edges + d)
         xs.append(rng.uniform(0, Ws - 1, edges.size))
     x = np.concatenate(xs).astype(np.float32)
@@ -352,9 +361,9 @@ def test_splat_fwd_slabs_match_plain(cuda, R, sensor, budget):
     wx, wy = _slab_window(rng, R, 30_000, sensor, p.tile_rows, cuda)
     p = tk.plan_splat(R, wx.shape[1], *sensor, smem_budget=budget)
     ref = tk.splat_plain(wx, wy, sensor)
-    _close(ref, tk.splat_fwd_cuda(wx, wy, sensor, p), 1e-5)
+    _close(ref, tk.splat_fwd_cuda(wx, wy, sensor, plan=p), 1e-5)
     many = dataclasses.replace(p, chunks=7)
-    _close(ref, tk.splat_fwd_cuda(wx, wy, sensor, many), 1e-5)
+    _close(ref, tk.splat_fwd_cuda(wx, wy, sensor, plan=many), 1e-5)
 
 
 @pytest.mark.gpu
@@ -390,7 +399,8 @@ def test_splat_bwd_stream_is_the_gather_kernel_bitwise(cuda, R, sensor):
         E = wx.shape[1]
         wxr, wyr = wx.clone().requires_grad_(True), wy.clone().requires_grad_(True)
         rx, ry = torch.autograd.grad(tk.splat_plain(wxr, wyr, sensor), (wxr, wyr), G)
-        gx, gy = tk.splat_bwd_cuda(wx, wy, G, sensor, tk.plan_splat_bwd(R, E, Hs, Ws, "gather"))
+        gx, gy = tk.splat_bwd_cuda(wx, wy, G, sensor,
+                                   plan=tk.plan_splat_bwd(R, E, Hs, Ws, "gather"))
         _close(rx, gx, 1e-6)
         _close(ry, gy, 1e-6)
         plan = tk.plan_splat_bwd(R, E, Hs, Ws, "stream")
@@ -398,18 +408,18 @@ def test_splat_bwd_stream_is_the_gather_kernel_bitwise(cuda, R, sensor):
         for p in (plan, dataclasses.replace(plan, vec=False),
                   tk.plan_splat_bwd(R, E, Hs, Ws, "stream", threads=512, blocks=3),
                   tk.plan_splat_bwd(R, E, Hs, Ws, "stream", threads=32, blocks=5000)):
-            kx, ky = tk.splat_bwd_cuda(wx, wy, G, sensor, p)
+            kx, ky = tk.splat_bwd_cuda(wx, wy, G, sensor, plan=p)
             assert torch.equal(kx, gx) and torch.equal(ky, gy)
-            again = tk.splat_bwd_cuda(wx, wy, G, sensor, p)
+            again = tk.splat_bwd_cuda(wx, wy, G, sensor, plan=p)
             assert torch.equal(again[0], kx) and torch.equal(again[1], ky)
     # one ref, as views that start 4 bytes into a 16-byte line
     flat_x, flat_y = torch.zeros(E + 1, device=cuda), torch.zeros(E + 1, device=cuda)
     flat_x[1:], flat_y[1:] = wx[0], wy[0]
     ux, uy = flat_x[1:][None], flat_y[1:][None]
     with pytest.raises(ValueError):  # float4s on arrays off a 16-byte line
-        tk.splat_bwd_cuda(ux, uy, G[:1], sensor, tk.plan_splat_bwd(1, E, Hs, Ws, "stream"))
+        tk.splat_bwd_cuda(ux, uy, G[:1], sensor, plan=tk.plan_splat_bwd(1, E, Hs, Ws, "stream"))
     kx, ky = tk.splat_bwd_cuda(ux, uy, G[:1], sensor,
-                               tk.plan_splat_bwd(1, E, Hs, Ws, "stream", aligned=False))
+                               plan=tk.plan_splat_bwd(1, E, Hs, Ws, "stream", aligned=False))
     assert torch.equal(kx[0], gx[0]) and torch.equal(ky[0], gy[0])
 
 
@@ -430,7 +440,7 @@ def test_splat_bwd_plan_chooses_by_shape(cuda):
     _build.reset_launch_counts()
     kx, ky = tk.splat_bwd_cuda(wx, wy, G, sensor)
     assert _build.launch_counts()["splat_bwd"] == 1
-    ox, oy = tk.splat_bwd_cuda(wx, wy, G, sensor, tk.plan_splat_bwd(2, E, *sensor, "gather"))
+    ox, oy = tk.splat_bwd_cuda(wx, wy, G, sensor, plan=tk.plan_splat_bwd(2, E, *sensor, "gather"))
     assert torch.equal(kx, ox) and torch.equal(ky, oy)
     vx, vy = wx[:, 1:].contiguous(), wy[:, 1:].contiguous()  # E - 1 events a ref: no float4s
     kx, ky = tk.splat_bwd_cuda(vx, vy, G, sensor)
@@ -444,18 +454,18 @@ def test_splat_bwd_refuses_a_plan_that_does_not_fit(cuda):
     fits = tk.plan_splat_bwd(2, 1001, H, W, "stream")
     assert not fits.vec
     with pytest.raises(ValueError):  # float4s where a ref starts off a 16-byte line
-        tk.splat_bwd_cuda(w, w, G, SENSOR, dataclasses.replace(fits, vec=True))
+        tk.splat_bwd_cuda(w, w, G, SENSOR, plan=dataclasses.replace(fits, vec=True))
     with pytest.raises(RuntimeError):  # the C side refuses a block of 48 threads
-        tk.splat_bwd_cuda(w, w, G, SENSOR, dataclasses.replace(fits, threads=48))
+        tk.splat_bwd_cuda(w, w, G, SENSOR, plan=dataclasses.replace(fits, threads=48))
     with pytest.raises(RuntimeError):  # and 1024 threads for the stream kernel
-        tk.splat_bwd_cuda(w, w, G, SENSOR, dataclasses.replace(fits, threads=1024))
+        tk.splat_bwd_cuda(w, w, G, SENSOR, plan=dataclasses.replace(fits, threads=1024))
 
 
-def _fused_events(rng, n, sensor, tile_rows, device):
+def _fused_events(rng, n, sensor, tile_rows, device, wide=False):
     """n uniform events, the edge cases and events on and around every slab
     edge, unsorted, with timestamps; velocities stay small enough that the
     warped windows still straddle the edges."""
-    x, y = _slab_window(rng, 1, n, sensor, tile_rows, device)
+    x, y = _slab_window(rng, 1, n, sensor, tile_rows, device, wide)
     ts = torch.as_tensor(rng.uniform(0, 1, x.shape[1]).astype(np.float32), device=device)
     return torch.round(x[0]).contiguous(), torch.round(y[0]).contiguous(), ts
 
@@ -532,3 +542,172 @@ def test_fully_fused_refuses_a_plan_that_does_not_fit(cuda):
             xs, xs, xs, theta, 0.5, SENSOR, 3, dataclasses.replace(fits, tile_rows=2))
     with pytest.raises(ValueError):
         tf.plan_fused(100, 3, 70_000, 16, 16, "cluster")  # a row wider than a tile
+
+
+# ---- window 5, kernel 7 on the cluster stage, float64 on the card -----------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [1, 3])
+@pytest.mark.parametrize(
+    "sensor,budget",
+    [((48, 64), tk.SMEM_MAX), ((48, 64), 48 * 64 * 2), ((480, 640), tk.SMALL_BUDGET),
+     ((256, 336), tk.SMEM_MAX), ((6, 70_000), tk.SMEM_MAX)],
+    ids=["one_slab", "two_slabs", "dsec", "mvsec", "column_slabs"],
+)
+def test_splat_window5_kernels_match_plain(cuda, R, sensor, budget):
+    """The forward at window 5 through the slabs (events up to 2.5 rows off
+    every slab edge) within 1e-5 of the plain version, with the plan's
+    chunks and with seven; both backward kernels within 2e-6 of the plain
+    version (25 texels an event), bitwise equal to each other, with and
+    without float4s, and bitwise the same twice."""
+    rng = np.random.default_rng(19)
+    Hs, Ws = sensor
+    p = tk.plan_splat(R, 30_000, *sensor, smem_budget=budget)
+    wx, wy = _slab_window(rng, R, 30_000, sensor, p.tile_rows, cuda, wide=True)
+    E = wx.shape[1]
+    p = tk.plan_splat(R, E, *sensor, smem_budget=budget)
+    wxr, wyr = wx.clone().requires_grad_(True), wy.clone().requires_grad_(True)
+    ref = tk.splat_plain(wxr, wyr, sensor, 5)
+    _close(ref, tk.splat_fwd_cuda(wx, wy, sensor, 5, p), 1e-5)
+    _close(ref, tk.splat_fwd_cuda(wx, wy, sensor, 5, dataclasses.replace(p, chunks=7)), 1e-5)
+    _close(ref, ts.splat_multi_ref(wx, wy, sensor, 5), 1e-5)
+    G = torch.as_tensor(rng.normal(size=(R, Hs, Ws)).astype(np.float32), device=cuda)
+    rx, ry = torch.autograd.grad(ref, (wxr, wyr), G)
+    gx, gy = tk.splat_bwd_cuda(wx, wy, G, sensor, 5, tk.plan_splat_bwd(R, E, Hs, Ws, "gather"))
+    _close(rx, gx, 2e-6)
+    _close(ry, gy, 2e-6)
+    plan = tk.plan_splat_bwd(R, E, Hs, Ws, "stream")
+    for q in (plan, dataclasses.replace(plan, vec=False),
+              tk.plan_splat_bwd(R, E, Hs, Ws, "stream", threads=32, blocks=5000)):
+        kx, ky = tk.splat_bwd_cuda(wx, wy, G, sensor, 5, q)
+        assert torch.equal(kx, gx) and torch.equal(ky, gy)
+        again = tk.splat_bwd_cuda(wx, wy, G, sensor, 5, q)
+        assert torch.equal(again[0], kx) and torch.equal(again[1], ky)
+
+
+@pytest.mark.gpu
+def test_splat_window5_router_and_autograd(cuda):
+    """`splat_multi_ref(..., 5)` launches the window-5 kernels forward and
+    backward, and its gradient agrees with the plain version's."""
+    rng = np.random.default_rng(20)
+    x, y = _coords(rng, 5_000, cuda)
+    fin = torch.isfinite(x) & torch.isfinite(y)
+    wx = torch.stack([x[fin], y[fin]]).contiguous()
+    wy = torch.stack([y[fin], x[fin]]).contiguous()
+    G = torch.as_tensor(rng.normal(size=(2, H, W)).astype(np.float32), device=cuda)
+    grads = []
+    _build.reset_launch_counts()
+    for splat in (ts.splat_multi_ref, tk.splat_plain):
+        a, b = wx.clone().requires_grad_(True), wy.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(splat(a, b, SENSOR, 5), (a, b), G))
+    counts = _build.launch_counts()
+    assert counts["splat_fwd"] == 1 and counts["splat_bwd"] == 1
+    for k, p in zip(grads[0], grads[1]):
+        _close(p, k, 2e-6)
+
+
+def _kernel7_events(rng, n, sensor, tile_rows, device, wide=False):
+    x, y, ts_ = _fused_events(rng, n, sensor, tile_rows, device, wide)
+    thx = torch.as_tensor(rng.normal(0, 1, x.shape[0]).astype(np.float32), device=device)
+    thy = torch.as_tensor(rng.normal(0, 1, x.shape[0]).astype(np.float32), device=device)
+    return x, y, ts_, thx, thy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window_size", [3, 5])
+@pytest.mark.parametrize(
+    "sensor,S", [((48, 64), None), ((48, 64), 1), ((47, 63), 4), ((256, 336), 8),
+                 ((480, 640), 8), ((1080, 1440), 8)],
+)
+def test_fused_warp_splat_cluster_scatter_match_plain(cuda, sensor, S, window_size):
+    """Kernel 7 through the cluster stage it shares with kernel 8, and its
+    scatter kernel: unsorted events, the sentinel, NaN and +-inf
+    coordinates, windows on every slab edge; the plan's chunks and three,
+    three rounds, queues of 32 (most events go straight into a sibling's
+    tile), four bands of rows at 1080x1440."""
+    rng = np.random.default_rng(21)
+    Hs, Ws = sensor
+    plan = tf.plan_fused(30_000, Hs, Ws, 0, 0, "cluster", cluster=S)
+    x, y, ts_, thx, thy = _kernel7_events(rng, 30_000, sensor, plan.tile_rows, cuda,
+                                          wide=window_size == 5)
+    E = x.shape[0]
+    plan = tf.plan_fused(E, Hs, Ws, 0, 0, "cluster", cluster=S)
+    assert not plan.staged
+    cut = functools.partial(tf.plan_fused, E, Hs, Ws, 0, 0, "cluster", S)
+    plans = (plan, cut(chunks=3),
+             cut(chunks=1, threads=128, per_thread=-(-E // (plan.cluster * 128 * 3))),
+             cut(chunks=2, per_thread=4, queue=32),
+             None, tf.plan_fused(E, Hs, Ws, 0, 0, "scatter", threads=128, chunks=7))
+    for t_ref in (0.0, 1.0):
+        ref = tf.fused_warp_splat_frame_plain(x, y, ts_, thx, thy, t_ref, sensor, window_size)
+        for p in plans:
+            got = tf.fused_warp_splat_cuda(x, y, ts_, thx, thy, t_ref, sensor, window_size, p)
+            _close(ref, got, 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window_size", [3, 5])
+def test_fused_warp_splat_every_event_on_one_texel(cuda, window_size):
+    """Kernel 7's counters wrap: 40k events inside one texel on a slab edge,
+    zero velocities; against the plain version in f64."""
+    rng = np.random.default_rng(22)
+    sensor = (480, 640)
+    plan = tf.plan_fused(40_000, *sensor, 0, 0, "cluster")
+    row = float(plan.tile_rows)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=cuda)
+    x = t(rng.uniform(300.2, 300.4, 40_000))
+    y = t(rng.uniform(row - 0.1, row + 0.1, 40_000))
+    ts_ = t(rng.uniform(0, 1, 40_000))
+    zero = torch.zeros(40_000, device=cuda)
+    ref = tf.fused_warp_splat_frame_plain(
+        x.double(), y.double(), ts_.double(), zero.double(), zero.double(), 0.0, sensor,
+        window_size)
+    assert float(ref.max()) > 4 * 256.0
+    for p in (plan, tf.plan_fused(40_000, *sensor, 0, 0, "cluster", chunks=1)):
+        _close(ref, tf.fused_warp_splat_cuda(x, y, ts_, zero, zero, 0.0, sensor, window_size, p),
+               1e-5)
+
+
+@pytest.mark.gpu
+def test_fused_warp_splat_refuses_a_plan_that_does_not_fit(cuda):
+    xs = torch.zeros(100, device=cuda)
+    kernel8 = tf.plan_fused(100, H, W, 4, 4, "cluster")  # stages a theta
+    with pytest.raises(ValueError):
+        tf.fused_warp_splat_cuda(xs, xs, xs, xs, xs, 0.5, SENSOR, 3, kernel8)
+    fits = tf.plan_fused(100, H, W, 0, 0, "cluster")
+    with pytest.raises(ValueError):
+        tf.fused_warp_splat_cuda(xs, xs, xs, xs, xs, 0.5, SENSOR, 3,
+                                 dataclasses.replace(fits, tile_rows=2))
+    _build.reset_launch_counts()
+    tf.fused_warp_splat_cuda(xs, xs, xs, xs, xs, 0.5, SENSOR, 5, fits)
+    assert _build.launch_counts()["fused_warp_splat"] == 1
+
+
+@pytest.mark.gpu
+def test_float64_solver_loss_on_the_card_matches_cpu(cuda):
+    """A float64 window takes the plain versions on the card (no kernel
+    launches) and gives the CPU's float64 loss and gradient to 1e-12."""
+    from eincm_tpu_torch.models.loss import (
+        LossParams, LossStatics, compute_window_statics, solver_loss)
+
+    rng = np.random.default_rng(23)
+    n = 20_000
+    arrays = (rng.uniform(-2, W + 1, n), rng.uniform(-2, H + 1, n), rng.uniform(0, 1, n),
+              rng.uniform(0, 1, (2, H, W)), np.array([0.0, 1.0]))
+    theta0 = rng.normal(0, 2, (8, 8, 2))
+    out = []
+    _build.reset_launch_counts()
+    for dev in (cuda, torch.device("cpu")):
+        xs, ys, ts_, edges, edge_ts = (torch.as_tensor(a, device=dev) for a in arrays)
+        wstat = compute_window_statics(xs, ys, edges, SENSOR)
+        th = torch.as_tensor(theta0, device=dev).requires_grad_(True)
+        loss = solver_loss(th, xs, ys, ts_, edges, edge_ts, LossParams(20.0, 35.0, gamma=0.1),
+                           0, LossStatics(SENSOR, 5), wstat)
+        (grad,) = torch.autograd.grad(loss, th)
+        assert loss.dtype == torch.float64 and grad.dtype == torch.float64
+        out.append((float(loss.detach()), grad.cpu()))
+    assert set(_build.launch_counts().values()) == {0}
+    (lk, gk), (lp, gp) = out
+    assert abs(lk - lp) <= 1e-12 * abs(lp)
+    _close(gp, gk, 1e-12)

@@ -134,8 +134,44 @@ def test_upscale_linear(dt):
 
 
 def test_unported_resize_method_raises():
-    with pytest.raises(NotImplementedError):
-        tr.downscale_theta(torch.zeros(4, 4, 2), 2, "bicubic")
+    """A name outside eincm_tpu/ops/resize.py:_INTERP_METHODS raises, as
+    it does in the JAX package."""
+    for fn in (tr.downscale_theta, tr.upscale_theta):
+        with pytest.raises(NotImplementedError):
+            fn(torch.zeros(4, 4, 2), 2, "nearest")
+        with pytest.raises(NotImplementedError):
+            fn(torch.zeros(4, 4, 2), 2, "triangle")
+    with pytest.raises(ValueError):
+        tr.scale_theta_to_sensor_size(torch.zeros(4, 4, 2), (8, 8), "nearest")
+
+
+RESIZE_METHODS = ["linear", "bilinear", "trilinear", "cubic", "bicubic", "tricubic",
+                  "lanczos3", "lanczos5"]
+
+
+def test_resize_methods_are_the_jax_packages():
+    assert tuple(RESIZE_METHODS) == jr._INTERP_METHODS == tr._INTERP_METHODS
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("method", RESIZE_METHODS)
+@pytest.mark.parametrize("shape", [(2, 2), (4, 6), (16, 16)])
+def test_resize_every_method_up_and_down(dt, method, shape):
+    a = np.random.default_rng(10).normal(0, 2, (*shape, 2))
+    _run(dt, lambda t: jr.upscale_theta(t, 2, method),
+         lambda t: tr.upscale_theta(t, 2, method), a)
+    _run(dt, lambda t: jr.downscale_theta(t, 2, method),
+         lambda t: tr.downscale_theta(t, 2, method), a)
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("method", RESIZE_METHODS)
+@pytest.mark.parametrize("shape,sensor", [((4, 4), (40, 48)), ((3, 5), (17, 23)),
+                                          ((16, 16), (256, 336))])
+def test_resize_every_method_to_sensor_size(dt, method, shape, sensor):
+    a = np.random.default_rng(11).normal(0, 2, (*shape, 2))
+    _run(dt, lambda t: jr.scale_theta_to_sensor_size(t, sensor, method),
+         lambda t: tr.scale_theta_to_sensor_size(t, sensor, method), a)
 
 
 def test_resize_gradient_matches_jax():
@@ -151,4 +187,22 @@ def test_resize_gradient_matches_jax():
     t = torch.as_tensor(a).requires_grad_(True)
     out = tr.scale_theta_to_sensor_size(t, (24, 20), "bilinear")
     (gt,) = torch.autograd.grad((out * torch.as_tensor(ct)).sum(), t)
+    _close(gj, gt, "f64")
+
+
+@pytest.mark.parametrize("method", ["bicubic", "lanczos3"])
+def test_resize_gradient_of_cubic_and_lanczos_matches_jax(method):
+    """Down and up, so that both the widened (antialiased) kernel and the
+    plain one are differentiated."""
+    rng = np.random.default_rng(12)
+    a = rng.normal(0, 2, (8, 6, 2))
+    ct = rng.normal(0, 1, (8, 6, 2))
+
+    def both(resize):
+        return lambda t: resize.upscale_theta(resize.downscale_theta(t, 2, method), 2, method)
+
+    with jax.enable_x64(True):
+        gj = jax.grad(lambda t: jnp.vdot(both(jr)(t), ct))(jnp.asarray(a))
+    t = torch.as_tensor(a).requires_grad_(True)
+    (gt,) = torch.autograd.grad((both(tr)(t) * torch.as_tensor(ct)).sum(), t)
     _close(gj, gt, "f64")

@@ -239,3 +239,49 @@ def test_solver_refuses_a_sample_on_another_device():
     with pytest.raises(ValueError):
         solve(compat.window_sample_from_numpy(*arrays, device="cpu"),
               cfg.zero_pyramid(device="cpu"), True)
+
+
+@pytest.mark.parametrize(
+    "methods",
+    [dict(pyramid_downscale_method="bicubic"),
+     dict(pyramid_downscale_method="lanczos3", pyramid_upscale_method="bicubic",
+          scale_to_sensor_size_method="bicubic")],
+    ids=["downscale_bicubic", "cubic_and_lanczos_everywhere"],
+)
+def test_handover_window_f64_with_cubic_resizes_matches_jax(methods):
+    """A handover window whose coarse priors are downscaled from the finest
+    one by a cubic (or Lanczos) kernel, and in the second case upscaled and
+    scaled to the sensor by the cubic kernel too: the same per-level
+    iterations and statuses, handover weights and theta as the JAX
+    package."""
+    wins = _windows(2)
+    jcfg = dataclasses.replace(_jax_cfg(1e-5), **methods)
+    assert jcfg.handover.use_downscaled_finest_priors
+    # (with rng(2) this window's golden section is chaotic: a change of
+    # 1e-14 in the prior moves the port's own handover weight by 2e-4)
+    rng = np.random.default_rng(1)
+    prior = [rng.normal(0, 1, (*jcfg.level_shape(l), 2)) for l in range(3)]
+    arrays = wins[1][0]
+    with jax.enable_x64(True):
+        jres = jp.make_window_solver(jcfg)(
+            jp.WindowSample(*[jnp.asarray(a) for a in arrays]),
+            tuple(jnp.asarray(p) for p in prior), False,
+        )
+        jstats = _stats(jres)
+        jw = [float(w) for w in jres.final_handover_weights]
+        jtheta = np.asarray(jres.final_theta_pyr[0])
+        jprior1 = np.asarray(jres.prior_theta_pyr[1])
+    tcfg = compat.solver_config_from_dict(dataclasses.asdict(jcfg))
+    tres = tp.make_window_solver(tcfg, "cpu")(
+        compat.window_sample_from_numpy(*arrays, device="cpu"),
+        compat.theta_pyramid_from_numpy(prior), False,
+    )
+    np.testing.assert_allclose(tres.prior_theta_pyr[1].numpy(), jprior1, rtol=0, atol=1e-12)
+    assert _stats(tres) == jstats
+    assert sum(s.total_iters for s in tres.theta_opt_states) > 3
+    np.testing.assert_allclose(
+        [float(w) for w in tres.final_handover_weights], jw, atol=1e-6
+    )
+    np.testing.assert_allclose(
+        tres.final_theta_pyr[0].numpy(), jtheta, rtol=0, atol=1e-6
+    )

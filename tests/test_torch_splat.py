@@ -175,3 +175,140 @@ def test_cpu_tensors_never_launch_a_kernel():
     assert _build.launch_counts()["splat_fwd"] == 0
     assert _build.launch_counts()["splat_bwd"] == 0
 
+
+
+# ---- window 5 (the kernels are built for windows 3 and 5) -------------------
+
+
+@pytest.mark.parametrize("n", [1, 700, 9000])
+def test_forward_window5_f32_vs_xla_pallas_and_scatter(n):
+    rng = np.random.default_rng(50 + n)
+    xs, ys = _events(rng, n)
+    xs, ys = xs.astype(np.float32), ys.astype(np.float32)
+    jx, jy = jnp.asarray(xs), jnp.asarray(ys)
+    got = ts.events_to_pdf_frame(torch.as_tensor(xs), torch.as_tensor(ys), SENSOR, 5)
+    _close(js.events_to_pdf_frame(jx, jy, SENSOR, 5), got, 1e-5)
+    _close(js.events_to_pdf_frame_scatter(jx, jy, SENSOR, 5), got, 1e-5)
+    _close(events_to_pdf_frame_pallas(jx, jy, SENSOR, 5, True), got, 1e-5)
+    _close(js.events_to_pdf_frame_scatter(jx, jy, SENSOR, 5),
+           ts.events_to_pdf_frame_scatter(torch.as_tensor(xs), torch.as_tensor(ys), SENSOR, 5),
+           1e-5)
+
+
+def test_forward_window5_f64_vs_xla_and_multi_ref():
+    rng = np.random.default_rng(51)
+    per_ref = [_events(rng, 1500) for _ in range(3)]
+    wx = np.stack([p[0] for p in per_ref])
+    wy = np.stack([p[1] for p in per_ref])
+    with jax.enable_x64(True):
+        ref = js.splat_multi_ref(jnp.asarray(wx), jnp.asarray(wy), SENSOR, 5)
+        one = js.events_to_pdf_frame(jnp.asarray(wx[0]), jnp.asarray(wy[0]), SENSOR, 5)
+    got = ts.splat_multi_ref(torch.as_tensor(wx), torch.as_tensor(wy), SENSOR, 5)
+    assert got.dtype == torch.float64
+    _close(ref, got, 1e-12)
+    _close(one, ts.events_to_pdf_frame(torch.as_tensor(wx[0]), torch.as_tensor(wy[0]),
+                                       SENSOR, 5), 1e-12)
+    # a 5x5 window reaches two texels further than a 3x3 one
+    three = ts.splat_multi_ref(torch.as_tensor(wx), torch.as_tensor(wy), SENSOR)
+    assert float((got - three).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("dt", [np.float64, np.float32])
+def test_grad_window5_vs_jax_grad(dt):
+    """Autograd of the plain version at window 5 against jax.grad of the
+    XLA path: float64 within 1e-12 of max |grad| (the two agree to ~1e-15),
+    float32 within 2e-6 (25 texels per event, summed in another order)."""
+    rng = np.random.default_rng(52)
+    per_ref = [_events(rng, 800, edges=False) for _ in range(2)]
+    wx = np.stack([p[0] for p in per_ref]).astype(dt)
+    wy = np.stack([p[1] for p in per_ref]).astype(dt)
+    g = rng.normal(0, 1, (2, *SENSOR)).astype(dt)
+    with jax.enable_x64(dt == np.float64):
+        jgx, jgy = jax.grad(
+            lambda a, b: jnp.vdot(js.splat_multi_ref(a, b, SENSOR, 5), g),
+            argnums=(0, 1),
+        )(jnp.asarray(wx), jnp.asarray(wy))
+    tx = torch.as_tensor(wx).requires_grad_(True)
+    ty = torch.as_tensor(wy).requires_grad_(True)
+    gx, gy = torch.autograd.grad(
+        ts.splat_multi_ref(tx, ty, SENSOR, 5), (tx, ty), torch.as_tensor(g)
+    )
+    tol = 1e-12 if dt == np.float64 else 2e-6
+    _close(jgx, gx, tol)
+    _close(jgy, gy, tol)
+
+
+@pytest.mark.parametrize("n", [300, 9000])
+def test_grad_window5_f32_vs_pallas_bwd_kernel(n):
+    """The Pallas backward kernel (interpret mode) at window 5, edge cases
+    included: dropped events get 0."""
+    rng = np.random.default_rng(53 + n)
+    xs, ys = _events(rng, n)
+    xs, ys = xs.astype(np.float32), ys.astype(np.float32)
+    g = rng.normal(0, 1, SENSOR).astype(np.float32)
+    dwx, dwy = _bwd_pallas(
+        jnp.asarray(xs), jnp.asarray(ys), jnp.asarray(g), SENSOR, 5, True
+    )
+    dwx = np.where(np.isfinite(dwx), dwx, 0.0)
+    dwy = np.where(np.isfinite(dwy), dwy, 0.0)
+    tx = torch.as_tensor(xs).requires_grad_(True)
+    ty = torch.as_tensor(ys).requires_grad_(True)
+    frame = ts.events_to_pdf_frame(tx, ty, SENSOR, 5)
+    gx, gy = torch.autograd.grad(frame, (tx, ty), torch.as_tensor(g))
+    _close(dwx, gx, 2e-6)
+    _close(dwy, gy, 2e-6)
+
+
+def test_kernel_window_sizes():
+    """The kernels are built for windows 3 and 5; the plain version takes
+    any window."""
+    assert tk.WINDOW_SIZES == (3, 5)
+    assert [tk.half_window(w) for w in (3, 5)] == [1, 2]
+    for w in (1, 4, 7):
+        with pytest.raises(ValueError, match="window_size"):
+            tk.half_window(w)
+    wx = torch.tensor([[10.2, 5.0]])
+    frame = tk.splat_plain(wx, wx, SENSOR, 7)
+    assert int((frame[0] > 0).sum()) == 2 * 49 - 4  # two 7x7 windows, 4 shared
+
+
+# ---- the wrap-compat splat (eincm_tpu/ops/splat.py:set_splat_wrap_compat) ---
+
+
+@pytest.mark.parametrize("window_size", [3, 5])
+@pytest.mark.parametrize("dt", [np.float64, np.float32])
+def test_wrap_compat_vs_jax(dt, window_size):
+    """With the switch on, both packages wrap taps at negative rows and
+    columns onto the far edge (and still drop those past it); the oracle
+    keeps dropping. Gradients agree too. The switches are reset whatever
+    happens. The edge cases are the finite ones: JAX's gradient of a NaN
+    event is NaN."""
+    rng = np.random.default_rng(54)
+    finite = np.array([e for e in EDGE_XY if np.isfinite(e).all()]).T
+    per_ref = [_events(rng, 600, spread=4.0, edges=False) for _ in range(2)]
+    wx = np.stack([np.concatenate([p[0], finite[0]]) for p in per_ref]).astype(dt)
+    wy = np.stack([np.concatenate([p[1], finite[1]]) for p in per_ref]).astype(dt)
+    g = rng.normal(0, 1, (2, *SENSOR)).astype(dt)
+    tol = 1e-12 if dt == np.float64 else 1e-5
+    try:
+        js.set_splat_wrap_compat(True)
+        ts.set_splat_wrap_compat(True)
+        with jax.enable_x64(dt == np.float64):
+            fn = jax.jit(lambda a, b: js.splat_multi_ref(a, b, SENSOR, window_size))
+            ref = fn(jnp.asarray(wx), jnp.asarray(wy))
+            jgx, jgy = jax.grad(lambda a, b: jnp.vdot(fn(a, b), g), argnums=(0, 1))(
+                jnp.asarray(wx), jnp.asarray(wy))
+        tx = torch.as_tensor(wx).requires_grad_(True)
+        ty = torch.as_tensor(wy).requires_grad_(True)
+        got = ts.splat_multi_ref(tx, ty, SENSOR, window_size)
+        gx, gy = torch.autograd.grad(got, (tx, ty), torch.as_tensor(g))
+        oracle = ts.events_to_pdf_frame_scatter(tx[0], ty[0], SENSOR, window_size)
+    finally:
+        js.set_splat_wrap_compat(False)
+        ts.set_splat_wrap_compat(False)
+    _close(ref, got.detach(), tol)
+    _close(jgx, gx, 1e-12 if dt == np.float64 else 1e-6)
+    _close(jgy, gy, 1e-12 if dt == np.float64 else 1e-6)
+    dropped = ts.splat_multi_ref(torch.as_tensor(wx), torch.as_tensor(wy), SENSOR, window_size)
+    assert float((got.detach() - dropped).abs().max()) > 1e-3  # some mass wrapped
+    _close(dropped[0], oracle.detach(), tol)

@@ -89,20 +89,20 @@ def test_plan_refuses_what_the_kernel_does_not_take():
         tk.plan_splat(1, 10, 10, 10, smem_budget=tk.SMEM_MAX + 4)
 
 
-def _slab_taps(xs, ys, H, W, r0, r1, c0, c1):
+def _slab_taps(xs, ys, H, W, r0, r1, c0, c1, hw=1):
     """The taps of events (xs, ys) that fall in [r0, r1) x [c0, c1): flat
     tile indices and values in units of 2^-24, as csrc/splat.cu's
-    `deposit` computes them."""
+    `deposit` computes them for windows of radius hw."""
     rx, ry = torch.round(xs), torch.round(ys)
-    # window_hits: the rounded 3x3 window touches the sensor (NaN, +-inf
-    # fail), tested before any int conversion
-    hit = (ry >= -1) & (ry <= H) & (rx >= -1) & (rx <= W)
+    # window_hits: the rounded window touches the sensor (NaN, +-inf fail),
+    # tested before any int conversion
+    hit = (ry >= -hw) & (ry <= H - 1 + hw) & (rx >= -hw) & (rx <= W - 1 + hw)
     rx, ry, xs, ys = rx[hit], ry[hit], xs[hit], ys[hit]
     idx, val = [], []
-    for a in (-1, 0, 1):
+    for a in range(-hw, hw + 1):
         row = ry + a
         gy = torch.exp(-0.5 * (row - ys) * (row - ys)) * tk._INV_SQRT_2PI
-        for b in (-1, 0, 1):
+        for b in range(-hw, hw + 1):
             col = rx + b
             gx = torch.exp(-0.5 * (col - xs) * (col - xs)) * tk._INV_SQRT_2PI
             keep = (row >= r0) & (row < r1) & (col >= c0) & (col < c1)
@@ -111,7 +111,7 @@ def _slab_taps(xs, ys, H, W, r0, r1, c0, c1):
     return torch.cat(idx), torch.cat(val)
 
 
-def slab_emulation(wx, wy, sensor, plan):
+def slab_emulation(wx, wy, sensor, plan, window_size=3):
     """The kernel's partition in torch ops: block (ref, chunk, row slab,
     column slab) deposits the taps of its chunk's runs of events in its
     tile, exactly, and the tile is added into the frame."""
@@ -129,7 +129,8 @@ def slab_emulation(wx, wy, sensor, plan):
             for r0, r1 in _spans(plan.row_slabs, plan.tile_rows, H):
                 for c0, c1 in _spans(plan.col_slabs, plan.tile_cols, W):
                     tile = torch.zeros((r1 - r0) * (c1 - c0), dtype=torch.long)
-                    idx, val = _slab_taps(wx[r, e], wy[r, e], H, W, r0, r1, c0, c1)
+                    idx, val = _slab_taps(wx[r, e], wy[r, e], H, W, r0, r1, c0, c1,
+                                          window_size // 2)
                     tile.index_put_((idx,), val, accumulate=True)
                     frames[r, r0:r1, c0:c1] += tile.reshape(r1 - r0, c1 - c0) / UNIT
     return frames.float()
@@ -145,7 +146,13 @@ EDGE_XY = [
 ]
 
 
-def _window(rng, R, n, H, W, slab_rows):
+SLAB_EDGE_OFFSETS = (-1.5, -1.0, -0.6, -0.5, 0.0, 0.4, 0.5, 1.0)
+# a 5x5 window reaches two rows past its center: events up to 2.5 rows off
+# an edge still straddle it
+SLAB_EDGE_OFFSETS_5 = SLAB_EDGE_OFFSETS + (-2.5, -2.0, 1.5, 2.0, 2.4)
+
+
+def _window(rng, R, n, H, W, slab_rows, offsets=SLAB_EDGE_OFFSETS):
     """n uniform events per ref, the edge cases, and events on and around
     every slab edge, so that their windows straddle two slabs."""
     xs = [rng.uniform(-3, W + 2, n)]
@@ -154,7 +161,7 @@ def _window(rng, R, n, H, W, slab_rows):
     xs.append(ex)
     ys.append(ey)
     edges = np.arange(slab_rows, H, slab_rows, dtype=np.float64)
-    for d in (-1.5, -1.0, -0.6, -0.5, 0.0, 0.4, 0.5, 1.0):
+    for d in offsets:
         ys.append(edges + d)
         xs.append(rng.uniform(0, W - 1, edges.size))
     x = np.concatenate(xs).astype(np.float32)
@@ -185,6 +192,38 @@ def test_slab_emulation_matches_splat_plain(R, budget):
     # the same partition with the events cut into many chunks of short runs
     many = dataclasses.replace(p, chunks=7, threads=32)
     _close(ref, slab_emulation(wx, wy, (H, W), many), TOL_ATOMIC)
+
+
+@pytest.mark.parametrize(
+    "R,budget",
+    [(1, tk.SMEM_MAX), (2, 48 * 64 * 4 // 5), (3, 64 * 4 * 3), (2, 4 * 24)],
+    ids=["one_slab", "five_row_slabs", "many_row_slabs", "column_slabs"],
+)
+def test_slab_emulation_window5_matches_splat_plain(R, budget):
+    """The same partitions with a 5x5 window, whose taps reach two rows
+    and columns past a slab edge; the plan is the same for every window."""
+    H, W = 48, 64
+    p = tk.plan_splat(R, 600, H, W, smem_budget=budget)
+    rng = np.random.default_rng(31 + R)
+    wx, wy = _window(rng, R, 600, H, W, p.tile_rows, SLAB_EDGE_OFFSETS_5)
+    p = tk.plan_splat(R, wx.shape[1], H, W, smem_budget=budget)
+    ref = tk.splat_plain(wx, wy, (H, W), 5)
+    _close(ref, slab_emulation(wx, wy, (H, W), p, 5), TOL_ATOMIC)
+    many = dataclasses.replace(p, chunks=7, threads=32)
+    _close(ref, slab_emulation(wx, wy, (H, W), many, 5), TOL_ATOMIC)
+    # the 3x3 window's taps are a part of the 5x5 window's (up to the f32
+    # sums' rounding)
+    assert float((ref - tk.splat_plain(wx, wy, (H, W))).min()) >= -1e-6 * float(ref.max())
+
+
+def test_slab_emulation_window5_every_event_on_one_texel():
+    H, W = 48, 64
+    rng = np.random.default_rng(4)
+    wx = torch.as_tensor(rng.uniform(20.2, 20.4, (2, 5000)).astype(np.float32))
+    wy = torch.as_tensor(rng.uniform(23.9, 24.1, (2, 5000)).astype(np.float32))
+    p = tk.plan_splat(2, 5000, H, W, smem_budget=8 * W * 4)
+    _close(tk.splat_plain(wx, wy, (H, W), 5), slab_emulation(wx, wy, (H, W), p, 5),
+           TOL_ATOMIC)
 
 
 def test_slab_emulation_every_event_on_one_texel():
@@ -384,20 +423,26 @@ def _add_taps(tiles, cx, cy, H, W, hw, row0, c0, c1, tile_rows):
             tiles.index_put_((owner, offset), q, accumulate=True)
 
 
-def cluster_fused_emulation(xi, yi, ts, theta, t_ref, sensor, window_size, plan):
-    """Kernel 8 in torch ops. Per (chunk, band) cluster and round, each
-    block warps its events, adds the taps on its own rows, and queues each
-    event for every other block that owns rows of its window (straight into
-    that block's tile once the queue is full); then each block adds the taps
-    of its inbox on its own rows. A 32-bit counter that wraps carries 256.0;
-    at the end every tile is added into the frame. Returns (frame, events
-    queued, events that found a queue full)."""
+def cluster_fused_emulation(xi, yi, ts, velocity, t_ref, sensor, window_size, plan):
+    """Kernels 7 and 8 in torch ops: `velocity` is the (h, w, 2) theta that
+    kernel 8 samples, or kernel 7's per-event (thx, thy). Per (chunk, band)
+    cluster and round, each block warps its events, adds the taps on its
+    own rows, and queues each event for every other block that owns rows of
+    its window (straight into that block's tile once the queue is full);
+    then each block adds the taps of its inbox on its own rows. A 32-bit
+    counter that wraps carries 256.0; at the end every tile is added into
+    the frame. Returns (frame, events queued, events that found a queue
+    full)."""
     H, W = sensor
     S, tr, hw = plan.cluster, plan.tile_rows, window_size // 2
     E = xi.shape[0]
-    th = interp_theta_at_events_plain(theta, xi, yi, sensor, round_coords=False)
+    if isinstance(velocity, tuple):
+        thx, thy = velocity
+    else:
+        th = interp_theta_at_events_plain(velocity, xi, yi, sensor, round_coords=False)
+        thx, thy = th[:, 0], th[:, 1]
     dt = ts - np.float32(t_ref)
-    wx, wy = xi - th[:, 0] * dt, yi - th[:, 1] * dt
+    wx, wy = xi - thx * dt, yi - thy * dt
     frame = torch.zeros(H, W, dtype=torch.float64)
     queued = full = 0
     section = -(-E // S)
@@ -492,3 +537,82 @@ def test_cluster_fused_emulation_every_event_on_one_texel(window_size):
     got, _, full = cluster_fused_emulation(xi, yi, ts, theta, 0.0, (H, W), window_size, p)
     _close(ref, got, TOL_ATOMIC)
     assert full > 0  # every event goes to the same two blocks
+
+
+# ---- kernel 7 on the same cluster stage: the velocities are inputs ----------
+
+
+def test_fused_plan_of_kernel7():
+    """h = w = 0: no theta, nothing staged, the whole block's shared memory
+    for the tile and the queues; kernel 7's own crossover."""
+    p = tf.plan_fused(1_500_000, 480, 640, 0, 0)
+    assert (p.kernel, p.cluster, p.tile_rows, p.bands, p.staged) == ("cluster", 8, 60, 1, False)
+    assert p.smem_bytes == 153_600 + 8 * 8 * p.queue <= tk.SMEM_BLOCK - tf.SMEM_RESERVE
+    assert p.queue >= tf.plan_fused(1_500_000, 480, 640, 16, 16).queue
+    for E in (tf.CLUSTER_EVENTS_7 - 1, tf.CLUSTER_EVENTS_7):
+        assert tf.plan_fused(E, 480, 640, 0, 0).kernel == (
+            "cluster" if E >= tf.CLUSTER_EVENTS_7 else "scatter")
+    assert tf.plan_fused(30_000, 256, 336, 0, 0).kernel == "scatter"
+    for h, w in ((0, 4), (4, 0), (-1, -1)):
+        with pytest.raises(ValueError):
+            tf.plan_fused(100, 48, 64, h, w)
+
+
+def _kernel7_inputs(rng, n, H, W, tile_rows, spread=1.0):
+    xi, yi, ts = _fused_window(rng, n, H, W, tile_rows)
+    thx = torch.as_tensor(rng.normal(0, spread, xi.shape[0]).astype(np.float32))
+    thy = torch.as_tensor(rng.normal(0, spread, xi.shape[0]).astype(np.float32))
+    return xi, yi, ts, thx, thy
+
+
+@pytest.mark.parametrize("window_size", [3, 5])
+@pytest.mark.parametrize(
+    "sensor,S,chunks,rows,queue",
+    [((48, 64), 8, 2, None, None), ((47, 63), 4, 3, None, None), ((48, 64), 1, 1, None, None),
+     ((48, 64), 2, 2, 7, None), ((48, 64), 8, 1, None, 32), ((48, 64), 8, 1, 2, None)],
+    ids=["eight_tiles", "odd_sensor", "one_tile", "four_bands", "full_queues", "two_row_tiles"],
+)
+def test_cluster_fused_emulation_kernel7_matches_plain(sensor, S, chunks, rows, queue,
+                                                       window_size):
+    """Kernel 7's routing, queues and full-queue overflow against its plain
+    version: the same stage as kernel 8's, with per-event velocities."""
+    H, W = sensor
+    rng = np.random.default_rng(43)
+    p = tf.plan_fused(600, H, W, 0, 0, "cluster", cluster=S, chunks=chunks, threads=32,
+                      queue=queue)
+    if rows is not None:
+        p = dataclasses.replace(p, tile_rows=rows, bands=-(-H // (S * rows)))
+    xi, yi, ts, thx, thy = _kernel7_inputs(rng, 600 if queue is None else 4000, H, W,
+                                           p.tile_rows)
+    rounds = 2 if queue is None else 1
+    p = dataclasses.replace(p, per_thread=-(-xi.shape[0] // (p.cluster * p.chunks * 32 * rounds)))
+    for t_ref in (0.0, 1.0):
+        ref = tf.fused_warp_splat_frame_plain(xi, yi, ts, thx, thy, t_ref, sensor, window_size)
+        got, queued, full = cluster_fused_emulation(xi, yi, ts, (thx, thy), t_ref, sensor,
+                                                    window_size, p)
+        _close(ref, got, TOL_ATOMIC)
+        assert (queued > 0) == (S > 1)
+        assert (full > 0) == (queue is not None)
+
+
+@pytest.mark.parametrize("window_size", [3, 5])
+def test_cluster_fused_emulation_kernel7_every_event_on_one_texel(window_size):
+    """Kernel 7 with every event on the same texels of a tile edge, zero
+    velocities: the counters wrap and the carries keep the sum."""
+    H, W = 48, 64
+    rng = np.random.default_rng(6)
+    n = 3000
+    xi = torch.as_tensor(rng.uniform(20.2, 20.4, n).astype(np.float32))
+    yi = torch.as_tensor(rng.uniform(23.9, 24.1, n).astype(np.float32))
+    ts = torch.as_tensor(rng.uniform(0, 1, n).astype(np.float32))
+    zero = torch.zeros(n)
+    p = tf.plan_fused(n, H, W, 0, 0, "cluster", chunks=1, threads=32)
+    assert p.tile_rows == 6
+    ref = tf.fused_warp_splat_frame_plain(xi.double(), yi.double(), ts.double(),
+                                          zero.double(), zero.double(), 0.0, (H, W),
+                                          window_size)
+    assert float(ref.max()) > 256.0
+    got, _, full = cluster_fused_emulation(xi, yi, ts, (zero, zero), 0.0, (H, W),
+                                           window_size, p)
+    _close(ref, got, TOL_ATOMIC)
+    assert full > 0
