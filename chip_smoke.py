@@ -23,7 +23,10 @@ Phases, each failing loudly (any failure exits non-zero):
    equal results; and both kernels of the splat backward (one
    event per thread, and four in a row as float4s), the stream kernel
    bitwise the gather kernel's and bitwise the same twice, each timed, with
-   the one the plan chooses at that shape in the row;
+   the one the plan chooses at that shape in the row; and the direct
+   kernels (float64, and the wrap-compat splat in float32 and float64)
+   against the plain versions in the same precision, the float64 ones
+   timed beside their bound and library call;
 3. the measurement kernels (fused warp+splat, fully fused warp+splat,
    dense-layout interp) against their plain versions at the MVSEC shape
    (staged window 0, GT theta, both refs) and the DSEC shape of the fused
@@ -39,14 +42,16 @@ Phases, each failing loudly (any failure exits non-zero):
    with the launch counters read around the chain;
 5. one DSEC-scale `solver_loss` value and gradient with the kernels (on
    the card, its splat backward through the stream kernel) against the
-   plain versions (on CPU tensors), and in float64 on the card (the plain
-   versions, no kernel launch) against float64 on the CPU, printed beside
-   the float32 kernel loss with their relative gap.
+   plain versions (on CPU tensors); in float64 on the card (the direct
+   kernels, with the launch counters read around it) against float64 on
+   the CPU, printed beside the float32 kernel loss with their relative
+   gap; and with the wrap-compat switch on (float32: the interp kernels
+   and the direct splat) against the CPU's.
 
 Every kernel's time stands beside its bound: the least time the card could
 take for the same work, the longer of the bytes it must move (each input
 read once, each output written once) over 3.35 TB/s and its f32
-operations over 67 TFLOP/s (H100 SXM data sheet).
+operations over 67 TFLOP/s (float64: 34 TFLOP/s; H100 SXM data sheet).
 
 The last lines are the card as nvidia-smi names it, one JSON object of
 per-kernel results, and `{"ok": true, "device": {...}}`.
@@ -100,7 +105,15 @@ SOURCES = {
     "fused_warp_splat": "eincm_tpu_torch/csrc/fused.cu",
     "fully_fused_warp_splat": "eincm_tpu_torch/csrc/fused.cu",
     "interp_dense": "eincm_tpu_torch/csrc/interp_dense.cu",
+    "interp_direct_fwd": "eincm_tpu_torch/csrc/direct.cu",
+    "interp_direct_bwd": "eincm_tpu_torch/csrc/direct.cu",
+    "splat_direct_fwd": "eincm_tpu_torch/csrc/direct.cu",
+    "splat_direct_bwd": "eincm_tpu_torch/csrc/direct.cu",
 }
+# the float64 and wrap-compat routes of kernels 1-6 (the JAX package runs
+# these calls on XLA instead of its Pallas kernels)
+DIRECT_KERNELS = ("interp_direct_fwd", "interp_direct_bwd", "splat_direct_fwd",
+                  "splat_direct_bwd")
 REPLACES = {
     "interp_fwd": "eincm_tpu/ops/interp_pallas.py:197",
     "interp_bwd": "eincm_tpu/ops/interp_pallas.py:239",
@@ -109,15 +122,22 @@ REPLACES = {
     "fused_warp_splat": "eincm_tpu/experimental/splat_fused.py:449",
     "fully_fused_warp_splat": "eincm_tpu/experimental/splat_fused.py:345",
     "interp_dense": "scripts/interp_kernel_proto.py:124",
+    "interp_direct_fwd": "eincm_tpu/ops/interp_pallas.py:197",
+    "interp_direct_bwd": "eincm_tpu/ops/interp_pallas.py:239",
+    "splat_direct_fwd": "eincm_tpu/ops/splat_pallas.py:127",
+    "splat_direct_bwd": "eincm_tpu/ops/splat_pallas.py:194",
 }
 ALSO_REPLACES = {
     "splat_fwd": "eincm_tpu/ops/splat_pallas.py:127",
     "splat_bwd": "eincm_tpu/ops/splat_pallas.py:194",
+    "splat_direct_fwd": "eincm_tpu/ops/splat_banded.py:374",
+    "splat_direct_bwd": "eincm_tpu/ops/splat_banded.py:491",
 }
 
 # the card's peaks (NVIDIA's H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12  # outside the tensor cores
 # f32 operations per event (per event and ref for a splat), counted from
 # the kernels' arithmetic with an exp as one operation:
 # - interp weights, per axis 15: place u (3), floor, two triangle weights
@@ -155,14 +175,15 @@ def ops_dense(h: int, w: int) -> int:
     return 6 + 6 * (hp + wp) + 4 * wp * hp + 4 * wp
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
     """(least ms, what bounds it) on the card."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def record(rows, name, tag, err, ms, plain_ms, n_bytes, n_ops, library_ms, **extra):
-    bound_ms, bound_by = bound(n_bytes, n_ops)
+def record(rows, name, tag, err, ms, plain_ms, n_bytes, n_ops, library_ms,
+           ops_per_s=F32_OPS_PER_S, **extra):
+    bound_ms, bound_by = bound(n_bytes, n_ops, ops_per_s)
     rows.setdefault(name, {})[tag] = {
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms, **extra,
@@ -245,23 +266,23 @@ def splat_planes(wx, wy, sensor):
     U (R, H, E) holds each event's 3 row taps, V (R, E, W) its 3 column
     taps, so the frames are U @ V. The backward's yardstick is the two
     products U^T G and V G^T it needs; the row sums with the derivative
-    taps that follow them are left out."""
+    taps that follow them are left out. In the coordinates' dtype."""
     from eincm_tpu_torch.ops.splat_kernel import _gauss1d
 
     R, E = wx.shape
     H, W = sensor
-    d = torch.tensor([-1.0, 0.0, 1.0], device=wx.device)
-    zero = torch.zeros((), device=wx.device)
+    d = torch.tensor([-1.0, 0.0, 1.0], dtype=wx.dtype, device=wx.device)
+    zero = torch.zeros((), dtype=wx.dtype, device=wx.device)
     rows = torch.round(wy)[..., None] + d  # (R, E, 3)
     cols = torch.round(wx)[..., None] + d
     vr = (rows >= 0) & (rows <= H - 1)
     vc = (cols >= 0) & (cols <= W - 1)
     gy = torch.where(vr, _gauss1d(torch.where(vr, rows - wy[..., None], zero)), zero)
     gx = torch.where(vc, _gauss1d(torch.where(vc, cols - wx[..., None], zero)), zero)
-    U = torch.zeros((R, H, E), device=wx.device)
+    U = torch.zeros((R, H, E), dtype=wx.dtype, device=wx.device)
     U.scatter_add_(1, torch.where(vr, rows, zero).long().transpose(1, 2),
                    gy.transpose(1, 2).contiguous())
-    V = torch.zeros((R, E, W), device=wx.device)
+    V = torch.zeros((R, E, W), dtype=wx.dtype, device=wx.device)
     V.scatter_add_(2, torch.where(vc, cols, zero).long(), gx)
     return U, V
 
@@ -478,6 +499,8 @@ def check_kernels(tag, window, theta, sensor, rows):
            kernel=p_bwd.kernel, gather_ms=by_kernel["gather"],
            stream_ms=by_kernel["stream"])
     check_splat_window5(tag, wx, wy, wxe, wye, G, sensor, rows)
+    del U, V, Ut
+    check_direct(tag, theta, xs, ys, wx, wy, wxe, wye, G, sensor, rows)
     return lib_interp_ms
 
 
@@ -522,6 +545,94 @@ def check_splat_window5(tag, wx, wy, wxe, wye, G, sensor, rows):
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row.update(window5_ms=ms, window5_bound_ms=bound_ms, window5_bound_by=bound_by)
         print(f"  {name} window 5: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+
+
+def check_direct(tag, theta, xs, ys, wx, wy, wxe, wye, G, sensor, rows):
+    """The direct kernels of csrc/direct.cu against the plain versions in
+    the same precision, with the edge cases and slab-edge events: the
+    float64 interp fwd and bwd and the splat fwd and bwd within TOL_F64,
+    the wrap-compat splat in float32 (TOL_ATOMIC forward, TOL_GATHER
+    backward) and float64 (TOL_F64) at windows 3 and 5; then the float64
+    kernels at the window's shape timed beside their plain version, bound
+    (float64 operations over F64_OPS_PER_S) and library call, in float64."""
+    from eincm_tpu_torch.ops import interp as ti
+    from eincm_tpu_torch.ops import splat_kernel as sk
+
+    H, W = sensor
+    h, w, _ = theta.shape
+    E = xs.shape[0]
+    R = wx.shape[0]
+    f64 = torch.float64
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    th64 = theta.to(f64)
+    ex, ey = (t.to(f64) for t in with_edges(xs, ys, H, W))
+    err_if = max_err(ti.interp_direct_fwd_cuda(th64, ex, ey, sensor),
+                     ti.interp_theta_at_events_plain(th64, ex, ey, sensor), TOL_F64,
+                     "interp_direct_fwd float64")
+    fin = torch.isfinite(ex) & torch.isfinite(ey)
+    bx, by = ex[fin].contiguous(), ey[fin].contiguous()
+    g = torch.randn(bx.shape[0], 2, generator=gen, device="cuda", dtype=f64)
+    err_ib = max_err(ti.interp_direct_bwd_cuda(g, bx, by, (h, w, 2), sensor),
+                     ti.interp_bwd_plain(g, bx, by, (h, w, 2), sensor), TOL_F64,
+                     "interp_direct_bwd float64")
+    err_sf = err_sb = 0.0
+    for dtype in (torch.float32, f64):
+        ax, ay = wxe.to(dtype).contiguous(), wye.to(dtype).contiguous()
+        Gd = G.to(dtype)
+        for wrap in (False, True) if dtype == f64 else (True,):
+            for ws in (3, 5):
+                what = f"{dtype} window {ws}{' wrap' if wrap else ''}"
+                ar, br = ax.clone().requires_grad_(True), ay.clone().requires_grad_(True)
+                f_p = sk.splat_plain(ar, br, sensor, ws, wrap=wrap)
+                f_k = sk.splat_direct_fwd_cuda(ax, ay, sensor, ws, wrap)
+                d_p = torch.autograd.grad(f_p, (ar, br), Gd)
+                d_k = sk.splat_direct_bwd_cuda(ax, ay, Gd, sensor, ws, wrap)
+                torch.cuda.synchronize()
+                tol_f, tol_b = (TOL_F64, TOL_F64) if dtype == f64 else (TOL_ATOMIC, TOL_GATHER)
+                err_sf = max(err_sf, max_err(f_k, f_p, tol_f, f"splat_direct_fwd {what}"))
+                for k, p, n in zip(d_k, d_p, ("dwx", "dwy")):
+                    err_sb = max(err_sb, max_err(k, p, tol_b, f"splat_direct_bwd {what} {n}"))
+    # times at the window's own shape, in float64
+    x64, y64 = xs.to(f64), ys.to(f64)
+    g_main = torch.randn(E, 2, generator=gen, device="cuda", dtype=f64)
+    thr = th64.clone().requires_grad_(True)
+    out_main = ti.interp_theta_at_events_plain(thr, x64, y64, sensor)
+    lib_call, _ = grid_sample_interp(th64, x64, y64, sensor)
+    record(rows, "interp_direct_fwd", tag, err_if,
+           cuda_ms(lambda: ti.interp_direct_fwd_cuda(th64, x64, y64, sensor)),
+           cuda_ms(lambda: ti.interp_theta_at_events_plain(th64, x64, y64, sensor)),
+           32 * E + 16 * h * w, (OPS_INTERP_WEIGHTS + OPS_INTERP_CONTRACT) * E,
+           cuda_ms(lib_call), F64_OPS_PER_S)
+    uy = ti._axis_weights(y64, h, h, float(h) / H, True)
+    vx = ti._axis_weights(x64, w, w, float(w) / W, True)
+    record(rows, "interp_direct_bwd", tag, err_ib,
+           cuda_ms(lambda: ti.interp_direct_bwd_cuda(g_main, x64, y64, (h, w, 2), sensor)),
+           cuda_ms(lambda: torch.autograd.grad(out_main, thr, g_main, retain_graph=True)),
+           32 * E + 16 * h * w, OPS_INTERP_BWD * E,
+           cuda_ms(lambda: torch.einsum("eh,ew,ec->hwc", uy, vx, g_main)), F64_OPS_PER_S)
+    del uy, vx, out_main
+    wx64, wy64 = wx.to(f64), wy.to(f64)
+    G64 = G.to(f64)
+    wxm, wym = wx64.clone().requires_grad_(True), wy64.clone().requires_grad_(True)
+    f_main = sk.splat_plain(wxm, wym, sensor)
+    U, V = splat_planes(wx64, wy64, sensor)
+    reps = 3 if E > 100_000 else 10
+    record(rows, "splat_direct_fwd", tag, err_sf,
+           cuda_ms(lambda: sk.splat_direct_fwd_cuda(wx64, wy64, sensor)),
+           cuda_ms(lambda: sk.splat_plain(wx64, wy64, sensor)),
+           16 * R * E + 8 * R * H * W, ops_splat(1) * R * E,
+           cuda_ms(lambda: torch.bmm(U, V), reps), F64_OPS_PER_S,
+           wrap_f32_ms=cuda_ms(lambda: sk.splat_direct_fwd_cuda(wx, wy, sensor, 3, True)))
+    Ut = U.transpose(1, 2)
+    record(rows, "splat_direct_bwd", tag, err_sb,
+           cuda_ms(lambda: sk.splat_direct_bwd_cuda(wx64, wy64, G64, sensor)),
+           cuda_ms(lambda: torch.autograd.grad(f_main, (wxm, wym), G64, retain_graph=True)),
+           32 * R * E + 8 * R * H * W, ops_splat_bwd(1) * R * E,
+           cuda_ms(lambda: (torch.bmm(Ut, G64), torch.bmm(V, G64.transpose(1, 2))), reps),
+           F64_OPS_PER_S,
+           wrap_f32_ms=cuda_ms(lambda: sk.splat_direct_bwd_cuda(wx, wy, G, sensor, 3, True)))
+    del U, V, Ut, f_main
+    torch.cuda.empty_cache()
 
 
 # ---- phase 3 ----------------------------------------------------------------
@@ -672,6 +783,7 @@ def main() -> int:
     )
     from eincm_tpu_torch.models.pyramid import make_window_solver
     from eincm_tpu_torch.ops import _build
+    from eincm_tpu_torch.ops.splat import set_splat_wrap_compat
     from eincm_tpu_torch.ops.splat_kernel import plan_splat, plan_splat_bwd
     from eincm_tpu_torch.utils import workloads as wl
 
@@ -686,7 +798,7 @@ def main() -> int:
     print(f"[setup] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, python {sys.version.split()[0]}")
     print("[setup] TF32 off for matmul and cuDNN")
-    build_s = _build.build_all(verbose=("interp", "splat", "fused", "interp_dense"))
+    build_s = _build.build_all(verbose=("interp", "splat", "fused", "interp_dense", "direct"))
     print(f"[setup] built {sorted(p.stem for p in _build.CSRC.glob('*.cu'))} "
           f"with nvcc for sm_90a in {build_s:.2f} s (ptxas report above)")
 
@@ -791,20 +903,22 @@ def main() -> int:
           f"(limit {TOL_DSEC_LOSS:.0e})  grad max rel {grel:.3e}")
     if not rel <= TOL_DSEC_LOSS:
         raise AssertionError("DSEC-scale loss: kernels disagree with plain")
-    # float64: the plain versions on the card (routed by dtype: no kernel
-    # launches) against the same on the CPU
+    # float64: the direct kernels on the card (routed by dtype), the
+    # launch counters read around it, against the plain versions on the CPU
     out64 = []
-    _build.reset_launch_counts()
     for dev in (device, torch.device("cpu")):
         win = [t.to(dev, torch.float64) for t in dsec]
         wstat = compute_window_statics(win[0], win[1], win[3], dsec_sensor)
         th = theta.to(dev, torch.float64).requires_grad_(True)
+        _build.reset_launch_counts()
         loss = solver_loss(th, *win, params, 0, statics, wstat)
         (grad,) = torch.autograd.grad(loss, th)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            f64_launches = _build.launch_counts()
         if loss.dtype != torch.float64:
             raise AssertionError(f"float64 loss came out {loss.dtype}")
         out64.append((float(loss.detach()), grad.cpu()))
-    f64_launches = _build.launch_counts()
     (l64, g64), (l64c, g64c) = out64
     rel64 = abs(l64 - l64c) / abs(l64c)
     grel64 = float((g64 - g64c).abs().max() / g64c.abs().max())
@@ -812,13 +926,46 @@ def main() -> int:
           f"{rel64:.3e}, grad max rel {grel64:.3e} (limit {TOL_F64:.0e}); float32 kernels "
           f"vs float64: rel {abs(lk - l64) / abs(l64):.3e}, grad max rel "
           f"{float((gk - g64).abs().max() / g64.abs().max()):.3e}; launches {f64_launches}")
-    if any(f64_launches.values()):
-        raise AssertionError("a float64 loss launched a float32 kernel")
+    launched = {k for k, n in f64_launches.items() if n}
+    if launched != set(DIRECT_KERNELS):
+        raise AssertionError(f"the float64 loss launched {sorted(launched)}, not the "
+                             f"direct kernels {DIRECT_KERNELS}")
     if not (rel64 <= TOL_F64 and grel64 <= TOL_F64):
         raise AssertionError("float64 DSEC-scale loss: the card disagrees with the CPU")
+    # the wrap-compat splat (float32): the interp kernels and the direct
+    # splat on the card, the launch counters read around it, against the
+    # plain versions on the CPU
+    out_wrap = []
+    set_splat_wrap_compat(True)
+    try:
+        for dev in (device, torch.device("cpu")):
+            win = [t.to(dev) for t in dsec]
+            wstat = compute_window_statics(win[0], win[1], win[3], dsec_sensor)
+            th = theta.to(dev).requires_grad_(True)
+            _build.reset_launch_counts()
+            loss = solver_loss(th, *win, params, 0, statics, wstat)
+            (grad,) = torch.autograd.grad(loss, th)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                wrap_launches = _build.launch_counts()
+            out_wrap.append((float(loss.detach()), grad.cpu()))
+    finally:
+        set_splat_wrap_compat(False)
+    (lw, gw), (lwc, gwc) = out_wrap
+    relw = abs(lw - lwc) / abs(lwc)
+    print(f"[dsec loss] wrap-compat: card {lw:.7f}  CPU {lwc:.7f}  rel {relw:.3e} (limit "
+          f"{TOL_DSEC_LOSS:.0e}), grad max rel "
+          f"{float((gw - gwc).abs().max() / gwc.abs().max()):.3e}; without the wrap "
+          f"{lk:.7f}; launches {wrap_launches}")
+    launched = {k for k, n in wrap_launches.items() if n}
+    if launched != {"interp_fwd", "interp_bwd", "splat_direct_fwd", "splat_direct_bwd"}:
+        raise AssertionError(f"the wrap-compat loss launched {sorted(launched)}")
+    if not relw <= TOL_DSEC_LOSS:
+        raise AssertionError("wrap-compat DSEC-scale loss: the card disagrees with the CPU")
 
     launches = {**{k: chain_launches[k] for k in CHAIN_KERNELS},
-                **{k: bench_launches[k] for k in BENCH_KERNELS}}
+                **{k: bench_launches[k] for k in BENCH_KERNELS},
+                **{k: f64_launches[k] + wrap_launches[k] for k in DIRECT_KERNELS}}
     kernels = []
     for name in SOURCES:
         m, d = rows[name]["mvsec"], rows[name]["dsec"]
@@ -832,6 +979,9 @@ def main() -> int:
         if name in CHAIN_KERNELS:
             entry["launches_per_loss_eval"] = launches[name] / evals
             entry["dsec_loss_launches"] = dsec_launches[name]
+        if name in DIRECT_KERNELS:
+            entry["f64_loss_launches"] = f64_launches[name]
+            entry["wrap_loss_launches"] = wrap_launches[name]
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
         kernels.append(entry)

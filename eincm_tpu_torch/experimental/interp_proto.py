@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from eincm_tpu_torch.ops import _build
-from eincm_tpu_torch.ops._build import KERNELS, check_cuda_f32
+from eincm_tpu_torch.ops._build import KERNELS, check_cuda
 from eincm_tpu_torch.ops.interp import (
     _axis_weights,
     _scales,
@@ -112,7 +112,7 @@ def interp_dense_cuda(theta, xs, ys, sensor_size, mode: str = "highest") -> torc
     code = _check_mode(mode)
     h, w, _ = theta.shape
     e = xs.shape[0]
-    check_cuda_f32("interp_dense", (theta, xs, ys), ((h, w, 2), (e,), (e,)))
+    check_cuda("interp_dense", (theta, xs, ys), ((h, w, 2), (e,), (e,)))
     sy, sx = _scales(h, w, sensor_size)
     out = torch.empty((e, 2), dtype=torch.float32, device=theta.device)
     if e:

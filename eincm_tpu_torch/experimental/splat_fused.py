@@ -48,7 +48,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from eincm_tpu_torch.ops._build import KERNELS, active_clusters, check_cuda_f32
+from eincm_tpu_torch.ops._build import KERNELS, active_clusters, check_cuda
 from eincm_tpu_torch.ops.interp import (
     FWD_STAGED_BYTES, _scales, interp_theta_at_events_plain,
 )
@@ -59,14 +59,13 @@ from eincm_tpu_torch.ops.splat_kernel import (
 # The two kernels of kernels 7 and 8 (csrc/fused.cu). The cluster kernel
 # zeroes and writes back a whole frame per cluster and passes two cluster
 # barriers per round, which few events do not pay for: below the crossover
-# the scatter kernel, whose global atomics are then few. Each kernel has its
-# own crossover, measured on an H100 over the first 2^14 to 2^20 permuted
-# events (PERF.md): kernel 8's scatter kernel led at 2^18 and was even at
-# 2^19; kernel 7's led at 2^18 (0.0313 against 0.0371 ms) and trailed at
-# 2^19 (0.0588 against 0.0540). Kernel 7 samples nothing, but neither does
-# its scatter kernel, so the two crossovers fall together.
+# the scatter kernel, whose global atomics are then few. Measured on an H100
+# over the first 2^14 to 2^20 permuted events (PERF.md): kernel 8's scatter
+# kernel led at 2^18 and was even at 2^19; kernel 7's sweep put its
+# crossover in the same place (ahead at 2^18, 0.0313 against 0.0371 ms;
+# behind at 2^19, 0.0588 against 0.0540), since its scatter kernel samples
+# nothing either. One crossover serves both.
 CLUSTER_EVENTS = 1 << 19
-CLUSTER_EVENTS_7 = 1 << 19
 MAX_CLUSTER = 8  # blocks in a thread block cluster: the portable limit
 SCATTER_THREADS = 256
 SCATTER_MAX_BLOCKS = N_SM * 16
@@ -164,16 +163,15 @@ def plan_fused(
     """The plan of kernel 8 for E events on an H x W sensor and an (h, w, 2)
     theta, or of kernel 7 with h = w = 0 (the velocities are inputs: no
     theta is staged): by default the cluster kernel from CLUSTER_EVENTS
-    (kernel 7: CLUSTER_EVENTS_7) events on, else the scatter kernel, a
-    choice by shape alone. `active_clusters` is the number of clusters of
-    the launch that the card runs at once (the CUDA runtime's answer,
-    `card_plan`; by default an H100's SMs over the cluster)."""
+    events on, else the scatter kernel, a choice by shape alone.
+    `active_clusters` is the number of clusters of the launch that the card
+    runs at once (the CUDA runtime's answer, `card_plan`; by default an
+    H100's SMs over the cluster)."""
     if not (E >= 1 and H >= 1 and W >= 1 and ((h, w) == (0, 0) or (h >= 1 and w >= 1))):
         raise ValueError(f"plan_fused: need E, H, W >= 1 and h, w >= 1 or both 0, "
                          f"got {(E, H, W, h, w)}")
     if kernel is None:
-        crossover = CLUSTER_EVENTS if h else CLUSTER_EVENTS_7
-        kernel = "cluster" if E >= crossover else "scatter"
+        kernel = "cluster" if E >= CLUSTER_EVENTS else "scatter"
     if kernel not in ("scatter", "cluster"):
         raise ValueError(f"plan_fused: kernel {kernel!r}")
     limit = 1024
@@ -271,7 +269,7 @@ def fused_warp_splat_cuda(
     card runs at once) says. A plan that does not fit the shapes raises."""
     hw = half_window(window_size)
     e = xi.shape[0]
-    check_cuda_f32("fused_warp_splat", (xi, yi, ts, thx, thy), [(e,)] * 5)
+    check_cuda("fused_warp_splat", (xi, yi, ts, thx, thy), [(e,)] * 5)
     H, W = sensor_size
     frame = torch.zeros((H, W), dtype=torch.float32, device=xi.device)
     if not e:
@@ -297,7 +295,7 @@ def fully_fused_warp_splat_cuda(
     hw = half_window(window_size)
     e = xi.shape[0]
     h, w, _ = theta.shape
-    check_cuda_f32(
+    check_cuda(
         "fully_fused_warp_splat", (xi, yi, ts, theta), [(e,)] * 3 + [(h, w, 2)]
     )
     sy, sx = _scales(h, w, sensor_size)

@@ -112,19 +112,30 @@ def build_all(verbose: Tuple[str, ...] = ()) -> float:
     return time.perf_counter() - t0
 
 
-def check_cuda_f32(name: str, tensors, shapes) -> None:
-    """Raise unless every tensor is a contiguous float32 tensor of the
+def check_cuda(name: str, tensors, shapes, dtype=torch.float32) -> None:
+    """Raise unless every tensor is a contiguous `dtype` tensor of the
     given shape on one CUDA device: what a kernel's pointers assume."""
     dev = tensors[0].device
     for t, shape in zip(tensors, shapes):
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name}: every tensor must be on one CUDA device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: float32 only, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {dtype} only, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
+
+
+# the direct kernels (csrc/direct.cu): one thread per event in a
+# grid-stride loop of at most 16 blocks per SM of an H100 (132 SMs)
+DIRECT_THREADS = 256
+DIRECT_MAX_BLOCKS = 132 * 16
+
+
+def direct_launch(n: int) -> Tuple[int, int]:
+    """(blocks, threads) of a direct kernel over n events."""
+    return max(1, min(-(-n // DIRECT_THREADS), DIRECT_MAX_BLOCKS)), DIRECT_THREADS
 
 
 class Kernel:
@@ -154,6 +165,7 @@ class Kernel:
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+D = ctypes.c_double
 LL = ctypes.c_longlong
 
 KERNELS: Dict[str, Kernel] = {
@@ -196,6 +208,27 @@ KERNELS: Dict[str, Kernel] = {
     #  stream)
     "interp_dense": Kernel(
         "interp_dense", "eincm_interp_dense", (P, P, P, P, LL, I, I, I, I, F, F, I, P)
+    ),
+    # the direct kernels of float64 and of the wrap-compat splat:
+    # (wx, wy, frames, n_refs, n_events, H, W, hw, f64, wrap, blocks,
+    #  threads, stream)
+    "splat_direct_fwd": Kernel(
+        "direct", "eincm_splat_direct_fwd", (P, P, P, I, LL, I, I, I, I, I, I, I, P)
+    ),
+    # (wx, wy, grad_frames, dwx, dwy, n_refs, n_events, H, W, hw, f64, wrap,
+    #  blocks, threads, stream)
+    "splat_direct_bwd": Kernel(
+        "direct", "eincm_splat_direct_bwd", (P, P, P, P, P, I, LL, I, I, I, I, I, I, I, P)
+    ),
+    # (theta, xs, ys, out, n_events, h, w, scale_y, scale_x, blocks,
+    #  threads, stream), float64
+    "interp_direct_fwd": Kernel(
+        "direct", "eincm_interp_direct_fwd", (P, P, P, P, LL, I, I, D, D, I, I, P)
+    ),
+    # (g, xs, ys, dtheta, n_events, h, w, scale_y, scale_x, blocks, threads,
+    #  stream), float64
+    "interp_direct_bwd": Kernel(
+        "direct", "eincm_interp_direct_bwd", (P, P, P, P, LL, I, I, D, D, I, I, P)
     ),
 }
 

@@ -14,11 +14,12 @@ sensor (the -1e4 padding sentinel) therefore samples exactly 0. Gradients
 flow to theta only; the coordinates enter through round() and get no
 cotangent.
 
-Dispatch (`interp_theta_at_events`): CPU tensors, and float64 ones on any
-device, take the plain version on their own device (the kernels compute in
-float32; the JAX package keeps float64 on its XLA path the same way,
-eincm_tpu/ops/warp.py:199-209). Every other CUDA tensor launches the
-kernels, and anything they do not take raises.
+Dispatch (`interp_theta_at_events`): CPU tensors take the plain version.
+On the card a float64 theta launches the direct kernels of `csrc/direct.cu`
+(one thread per event, global float64 atomics, any grid; the JAX package
+keeps float64 off its Pallas kernels the same way, eincm_tpu/ops/
+warp.py:199-209), and a float32 one the kernels of `csrc/interp.cu`.
+Anything a kernel does not take raises.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from eincm_tpu_torch.ops._build import KERNELS, check_cuda_f32
+from eincm_tpu_torch.ops._build import KERNELS, check_cuda, direct_launch
 
 MAX_GRID = 128  # the kernel gate of eincm_tpu/ops/warp.py:interp_theta_at_events
 
@@ -112,6 +113,7 @@ def interp_bwd_plain(g, xs, ys, theta_shape, sensor_size, sum_dtype=None):
 
 
 def _scales(h, w, sensor_size):
+    """The float32 kernels' (scale_y, scale_x), for grids up to MAX_GRID."""
     H, W = sensor_size
     if not (1 <= h <= MAX_GRID and 1 <= w <= MAX_GRID):
         raise ValueError(f"interp kernel takes h, w <= {MAX_GRID}, got {h}x{w}")
@@ -291,7 +293,7 @@ def interp_fwd_cuda(theta, xs, ys, sensor_size, plan: InterpPlan = None) -> torc
     cut as `plan` (default: `plan_interp`'s) says."""
     h, w, c = theta.shape
     e = xs.shape[0]
-    check_cuda_f32("interp_fwd", (theta, xs, ys), ((h, w, 2), (e,), (e,)))
+    check_cuda("interp_fwd", (theta, xs, ys), ((h, w, 2), (e,), (e,)))
     sy, sx = _scales(h, w, sensor_size)
     out = torch.empty((e, 2), dtype=torch.float32, device=theta.device)
     if e:
@@ -312,7 +314,7 @@ def interp_bwd_cuda(g, xs, ys, theta_shape, sensor_size, plan: InterpPlan = None
     bitwise the same from run to run."""
     h, w, _ = theta_shape
     e = xs.shape[0]
-    check_cuda_f32("interp_bwd", (g, xs, ys), ((e, 2), (e,), (e,)))
+    check_cuda("interp_bwd", (g, xs, ys), ((e, 2), (e,), (e,)))
     sy, sx = _scales(h, w, sensor_size)
     if not e:
         return torch.zeros((h, w, 2), dtype=torch.float32, device=g.device)
@@ -334,6 +336,42 @@ def interp_bwd_cuda(g, xs, ys, theta_shape, sensor_size, plan: InterpPlan = None
     return dtheta
 
 
+def interp_direct_fwd_cuda(theta, xs, ys, sensor_size) -> torch.Tensor:
+    """Launch the float64 direct forward: (h, w, 2) theta, (E,) coords ->
+    (E, 2), `interp_theta_at_events_plain`'s function, on any grid."""
+    h, w, _ = theta.shape
+    e = xs.shape[0]
+    check_cuda("interp_direct_fwd", (theta, xs, ys), ((h, w, 2), (e,), (e,)), torch.float64)
+    H, W = sensor_size
+    out = torch.empty((e, 2), dtype=torch.float64, device=theta.device)
+    if e:
+        blocks, threads = direct_launch(e)
+        with torch.cuda.device(theta.device):
+            KERNELS["interp_direct_fwd"](
+                theta.data_ptr(), xs.data_ptr(), ys.data_ptr(), out.data_ptr(), e, h, w,
+                h / H, w / W, blocks, threads, torch.cuda.current_stream().cuda_stream,
+            )
+    return out
+
+
+def interp_direct_bwd_cuda(g, xs, ys, theta_shape, sensor_size) -> torch.Tensor:
+    """Launch the float64 direct backward: (E, 2) cotangent -> (h, w, 2)
+    dtheta, `interp_bwd_plain`'s function."""
+    h, w, _ = theta_shape
+    e = xs.shape[0]
+    check_cuda("interp_direct_bwd", (g, xs, ys), ((e, 2), (e,), (e,)), torch.float64)
+    H, W = sensor_size
+    dtheta = torch.zeros((h, w, 2), dtype=torch.float64, device=g.device)
+    if e:
+        blocks, threads = direct_launch(e)
+        with torch.cuda.device(g.device):
+            KERNELS["interp_direct_bwd"](
+                g.data_ptr(), xs.data_ptr(), ys.data_ptr(), dtheta.data_ptr(), e, h, w,
+                h / H, w / W, blocks, threads, torch.cuda.current_stream().cuda_stream,
+            )
+    return dtheta
+
+
 class _InterpCuda(torch.autograd.Function):
     @staticmethod
     def forward(ctx, theta, xs, ys, sensor_size):
@@ -351,6 +389,22 @@ class _InterpCuda(torch.autograd.Function):
         return dtheta, None, None, None
 
 
+class _InterpDirect(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, theta, xs, ys, sensor_size):
+        ctx.save_for_backward(xs, ys)
+        ctx.theta_shape = tuple(theta.shape)
+        ctx.sensor_size = sensor_size
+        return interp_direct_fwd_cuda(theta, xs, ys, sensor_size)
+
+    @staticmethod
+    def backward(ctx, g):
+        xs, ys = ctx.saved_tensors
+        dtheta = interp_direct_bwd_cuda(g.contiguous(), xs, ys, ctx.theta_shape,
+                                        ctx.sensor_size)
+        return dtheta, None, None, None
+
+
 def interp_theta_at_events(
     theta: torch.Tensor,
     xs: torch.Tensor,
@@ -362,14 +416,14 @@ def interp_theta_at_events(
     Equal to gathering `scale_theta_to_sensor_size(theta, S, 'bilinear')`
     at the rounded event coordinates, without the full-sensor field.
 
-    The plain version runs where all three tensors lie on the CPU, or where
-    any of them is float64 (on the tensors' device): the condition is the
-    dtype, not the grid. Every other call launches the kernels, which take
-    float32 grids up to MAX_GRID cells a side and raise on anything else.
+    The plain version runs where all three tensors lie on the CPU. On the
+    card a float64 theta (the condition is its dtype, not the grid)
+    launches the direct kernels, which take float64 coordinates on any
+    grid; every other call the float32 kernels, which take grids up to
+    MAX_GRID cells a side. Anything a kernel does not take raises.
     """
-    tensors = (theta, xs, ys)
-    if all(t.device.type == "cpu" for t in tensors) or any(
-        t.dtype == torch.float64 for t in tensors
-    ):
+    if all(t.device.type == "cpu" for t in (theta, xs, ys)):
         return interp_theta_at_events_plain(theta, xs, ys, sensor_size)
+    if theta.dtype == torch.float64:
+        return _InterpDirect.apply(theta, xs, ys, tuple(sensor_size))
     return _InterpCuda.apply(theta, xs, ys, tuple(sensor_size))

@@ -4,12 +4,13 @@ Reference: src/utils/event_utils.py:13-77. The splat itself lives in
 `ops/splat_kernel.py` (the CUDA kernels and their plain version); this
 module is the router the loss calls, plus the plain event counts.
 
-Routing: the plain version takes CPU tensors, float64 coordinates on any
-device (the kernels sum in float32; the JAX package keeps an x64 caller on
-its XLA path the same way, eincm_tpu/ops/splat.py:174-177, :347) and
-everything while the wrap-compat switch is on (JAX routes it to XLA).
-Every other CUDA tensor launches the kernels, which take windows 3 and 5
-and raise on anything else.
+Routing: CPU tensors take the plain version. On the card, float64
+coordinates and every call while the wrap-compat switch is on launch the
+direct kernels (`csrc/direct.cu`: float32 or float64, any window size;
+the JAX package keeps these calls off its Pallas kernels the same way,
+eincm_tpu/ops/splat.py:173-177, :347-352); every other CUDA tensor
+launches the slab and stream kernels, which take float32 at windows 3 and
+5. Whatever a kernel does not take raises.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Tuple
 
 import torch
 
-from eincm_tpu_torch.ops.splat_kernel import _SplatCuda, splat_plain
+from eincm_tpu_torch.ops.splat_kernel import _SplatCuda, _SplatDirect, splat_plain
 
 # Opt-in reproduction of the reference's negative-index wrap (splat mass at
 # coordinate -k lands on the opposite sensor edge; src/utils/event_utils.py:
@@ -33,16 +34,6 @@ def set_splat_wrap_compat(enable: bool) -> None:
     _SPLAT_WRAP_COMPAT = bool(enable)
 
 
-def _plain(*tensors: torch.Tensor) -> bool:
-    """True where the plain version runs: CPU tensors, float64 ones on any
-    device, or the wrap-compat switch on."""
-    return (
-        _SPLAT_WRAP_COMPAT
-        or all(t.device.type == "cpu" for t in tensors)
-        or any(t.dtype == torch.float64 for t in tensors)
-    )
-
-
 def splat_multi_ref(
     warped_xs: torch.Tensor,
     warped_ys: torch.Tensor,
@@ -50,13 +41,16 @@ def splat_multi_ref(
     window_size: int = 3,
 ) -> torch.Tensor:
     """(n_refs, E) warped coordinates -> (n_refs, H, W) IWEs, every ref in
-    one launch. CPU tensors, float64 ones on any device and the wrap-compat
-    switch take the plain version (on the tensors' device); other CUDA
-    tensors the kernels."""
-    if _plain(warped_xs, warped_ys):
+    one launch. CPU tensors take the plain version; on the card, float64
+    coordinates (the condition is warped_xs's dtype) and the wrap-compat
+    switch take the direct kernels, and float32 the slab kernels."""
+    if warped_xs.device.type == "cpu" and warped_ys.device.type == "cpu":
         return splat_plain(
             warped_xs, warped_ys, sensor_size, window_size, wrap=_SPLAT_WRAP_COMPAT
         )
+    if _SPLAT_WRAP_COMPAT or warped_xs.dtype == torch.float64:
+        return _SplatDirect.apply(warped_xs, warped_ys, tuple(sensor_size), window_size,
+                                  _SPLAT_WRAP_COMPAT)
     return _SplatCuda.apply(warped_xs, warped_ys, tuple(sensor_size), window_size)
 
 

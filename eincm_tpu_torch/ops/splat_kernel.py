@@ -19,6 +19,11 @@ whose coordinate is NaN or infinite, or whose window misses the sensor (the
 a zero gradient. The kernels are built for windows 3 and 5 (WINDOW_SIZES)
 and refuse any other size; the plain version takes any.
 
+The direct kernels (`splat_direct_fwd_cuda`, `splat_direct_bwd_cuda`;
+`csrc/direct.cu`) take what the slab and stream kernels do not: float64
+coordinates and the wrap-compat splat, in float32 or float64, at any window
+size, one thread per event with global atomics.
+
 Dispatch (`ops/splat.py`): a CPU tensor takes the plain version; a CUDA
 tensor launches the kernels, and anything they do not take raises.
 """
@@ -32,7 +37,7 @@ from typing import Tuple
 
 import torch
 
-from eincm_tpu_torch.ops._build import KERNELS, check_cuda_f32
+from eincm_tpu_torch.ops._build import KERNELS, check_cuda, direct_launch
 
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
@@ -198,7 +203,7 @@ def splat_fwd_cuda(
     R, E = warped_xs.shape
     H, W = sensor_size
     hw = half_window(window_size)
-    check_cuda_f32("splat_fwd", (warped_xs, warped_ys), ((R, E), (R, E)))
+    check_cuda("splat_fwd", (warped_xs, warped_ys), ((R, E), (R, E)))
     frames = torch.zeros((R, H, W), dtype=torch.float32, device=warped_xs.device)
     if R * E:
         p = plan_splat(R, E, H, W) if plan is None else plan
@@ -289,7 +294,7 @@ def splat_bwd_cuda(
     R, E = warped_xs.shape
     H, W = sensor_size
     hw = half_window(window_size)
-    check_cuda_f32(
+    check_cuda(
         "splat_bwd",
         (warped_xs, warped_ys, grad_frames),
         ((R, E), (R, E), (R, H, W)),
@@ -328,3 +333,70 @@ class _SplatCuda(torch.autograd.Function):
         )
         return dwx, dwy, None, None
 
+
+# ---- the direct kernels: float64, and the wrap-compat splat -----------------
+
+def _direct_dtype(name, warped_xs, window_size) -> torch.dtype:
+    if warped_xs.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: float32 or float64 only, got {warped_xs.dtype}")
+    if int(window_size) < 1:
+        raise ValueError(f"{name}: window_size {window_size} < 1")
+    return warped_xs.dtype
+
+
+def splat_direct_fwd_cuda(warped_xs, warped_ys, sensor_size, window_size: int = 3,
+                          wrap: bool = False) -> torch.Tensor:
+    """Launch the direct forward: (R, E) float32 or float64 coordinates ->
+    (R, H, W) frames of their dtype, `splat_plain(..., wrap=wrap)`'s
+    function."""
+    R, E = warped_xs.shape
+    H, W = sensor_size
+    dtype = _direct_dtype("splat_direct_fwd", warped_xs, window_size)
+    check_cuda("splat_direct_fwd", (warped_xs, warped_ys), ((R, E), (R, E)), dtype)
+    frames = torch.zeros((R, H, W), dtype=dtype, device=warped_xs.device)
+    if R * E:
+        blocks, threads = direct_launch(R * E)
+        with torch.cuda.device(warped_xs.device):
+            KERNELS["splat_direct_fwd"](
+                warped_xs.data_ptr(), warped_ys.data_ptr(), frames.data_ptr(), R, E, H, W,
+                int(window_size) // 2, int(dtype == torch.float64), int(wrap), blocks,
+                threads, torch.cuda.current_stream().cuda_stream,
+            )
+    return frames
+
+
+def splat_direct_bwd_cuda(warped_xs, warped_ys, grad_frames, sensor_size,
+                          window_size: int = 3, wrap: bool = False):
+    """Launch the direct backward: (R, H, W) cotangent -> (dwx, dwy), each
+    (R, E), in the coordinates' dtype."""
+    R, E = warped_xs.shape
+    H, W = sensor_size
+    dtype = _direct_dtype("splat_direct_bwd", warped_xs, window_size)
+    check_cuda("splat_direct_bwd", (warped_xs, warped_ys, grad_frames),
+               ((R, E), (R, E), (R, H, W)), dtype)
+    dwx = torch.empty_like(warped_xs)
+    dwy = torch.empty_like(warped_ys)
+    if R * E:
+        blocks, threads = direct_launch(R * E)
+        with torch.cuda.device(warped_xs.device):
+            KERNELS["splat_direct_bwd"](
+                warped_xs.data_ptr(), warped_ys.data_ptr(), grad_frames.data_ptr(),
+                dwx.data_ptr(), dwy.data_ptr(), R, E, H, W, int(window_size) // 2,
+                int(dtype == torch.float64), int(wrap), blocks, threads,
+                torch.cuda.current_stream().cuda_stream,
+            )
+    return dwx, dwy
+
+
+class _SplatDirect(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, warped_xs, warped_ys, sensor_size, window_size=3, wrap=False):
+        ctx.save_for_backward(warped_xs, warped_ys)
+        ctx.args = (sensor_size, window_size, wrap)
+        return splat_direct_fwd_cuda(warped_xs, warped_ys, sensor_size, window_size, wrap)
+
+    @staticmethod
+    def backward(ctx, grad_frames):
+        wx, wy = ctx.saved_tensors
+        dwx, dwy = splat_direct_bwd_cuda(wx, wy, grad_frames.contiguous(), *ctx.args)
+        return dwx, dwy, None, None, None

@@ -4,7 +4,7 @@ and 8), the dense-layout interp (kernel 9) and the coarse-theta interp
 turns on one card.
 
     python3 eincm_tpu_torch/utils/kernel_ab.py --tree DIR --label NAME \
-        [--out FILE] [--sweep [interp] [splat_bwd] [fused]]
+        [--out FILE] [--sweep [interp] [splat_bwd] [fused]] [--chains N]
 
 Imports `eincm_tpu_torch` from DIR (a checkout or a `git archive` of any
 commit that has these entry points) and builds its kernels there. Inputs,
@@ -22,7 +22,15 @@ also timed at several tile budgets (and, at MVSEC, event chunks): time
 that grows with the number of slabs is time spent re-reading events. The
 interp forward and backward are timed at the chain's five grids (1x1 to
 16x16) on both staged windows' events, beside `F.grid_sample` and
-`torch.einsum` at 16x16.
+`torch.einsum` at 16x16. Where the tree has the direct kernels of float64
+and the wrap-compat splat (`csrc/direct.cu`), they are timed at both
+staged windows' shapes (`direct_*`).
+
+`--chains N` also solves the MVSEC handover chain N times with the
+tree's solver, reading the launch counters around each run: launches per
+loss evaluation of each chain kernel, the evaluations and the mean AEE of
+windows 1..5 (`chains`), which vary from run to run with the atomics'
+order.
 
 `--sweep` names what else to time (no name: all three), each where the
 tree has the plan: `interp`, the interp kernels over `plan_interp`'s
@@ -137,7 +145,6 @@ def sweep_fused(sf, ti, fused_in, timed, res):
     stage with the events' velocities as inputs, where the tree's
     `fused_warp_splat_cuda` takes a plan."""
     import dataclasses
-    import inspect
 
     import torch
 
@@ -200,6 +207,59 @@ def sweep_fused(sf, ti, fused_in, timed, res):
                     run(k, f"first{n}", ev, 3, n=n, kernel=kernel)
 
 
+def time_direct(sk, ti, splat_in, cot, theta, timed):
+    """The direct kernels at both staged windows' shapes: the splat forward
+    and backward in float64 and with the wrap in float32, and the interp
+    forward and backward in float64 on the 16x16 theta."""
+    import torch
+
+    for tag in ("mvsec", "dsec"):
+        wx, wy, sensor = splat_in[tag]
+        G = cot[tag]
+        wx64, wy64, G64 = wx.double(), wy.double(), G.double()
+        timed(f"direct_splat_fwd_{tag}_f64", lambda: sk.splat_direct_fwd_cuda(wx64, wy64, sensor))
+        timed(f"direct_splat_bwd_{tag}_f64",
+              lambda: sk.splat_direct_bwd_cuda(wx64, wy64, G64, sensor))
+        timed(f"direct_splat_fwd_{tag}_wrap_f32",
+              lambda: sk.splat_direct_fwd_cuda(wx, wy, sensor, 3, True))
+        timed(f"direct_splat_bwd_{tag}_wrap_f32",
+              lambda: sk.splat_direct_bwd_cuda(wx, wy, G, sensor, 3, True))
+        # the unwarped coordinates of ref 0 stand in for the events
+        xs, ys = wx64[0].contiguous(), wy64[0].contiguous()
+        th64 = theta.double()
+        g = torch.ones(xs.shape[0], 2, dtype=torch.float64, device=xs.device)
+        timed(f"direct_interp_fwd_{tag}_f64", lambda: ti.interp_direct_fwd_cuda(th64, xs, ys, sensor))
+        timed(f"direct_interp_bwd_{tag}_f64",
+              lambda: ti.interp_direct_bwd_cuda(g, xs, ys, tuple(th64.shape), sensor))
+
+
+def run_chains(n, device, windows, vels, _build, wl):
+    """n runs of the MVSEC handover chain through the tree's
+    `make_window_solver`, each with the launch counters read around it."""
+    import numpy as np
+    import torch
+
+    from eincm_tpu_torch.models.pyramid import make_window_solver
+
+    cfg = wl.mvsec_solver_config()
+    solver = make_window_solver(cfg, device)
+    runs = []
+    for r in range(n):
+        _build.reset_launch_counts()
+        recs = [rec for _, rec in wl.solve_chain(solver, cfg, windows, vels)]
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        evals = sum(rec["evals"] for rec in recs)
+        run = {"evals": evals, "mean_aee": float(np.mean([rec["aee"] for rec in recs[1:]])),
+               "launches": {k: counts[k] for k in
+                            ("interp_fwd", "interp_bwd", "splat_fwd", "splat_bwd")}}
+        run["per_eval"] = {k: v / evals for k, v in run["launches"].items()}
+        print(f"chain {r}: {evals} evaluations, launches per evaluation "
+              f"{[round(v, 4) for v in run['per_eval'].values()]}, AEE {run['mean_aee']:.4f}")
+        runs.append(run)
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", type=Path, required=True, help="source tree to time")
@@ -208,6 +268,8 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", nargs="*", choices=SWEEPS, default=None,
                     help="also time these kernels over their launch plans' choices "
                          "(no name: all of them)")
+    ap.add_argument("--chains", type=int, default=0,
+                    help="also solve the MVSEC chain this many times, counting launches")
     args = ap.parse_args(argv)
     sweeps = set(SWEEPS if args.sweep == [] else args.sweep or ())
     sys.path.insert(0, str(args.tree.resolve()))
@@ -315,6 +377,8 @@ def main(argv=None) -> int:
                   lambda: sf.fused_warp_splat_cuda(xi, yi, ts, thx, thy, t_ref, sensor, ws))
             timed(f"fused_8_{tag}_w{ws}",
                   lambda: sf.fully_fused_warp_splat_cuda(xi, yi, ts, theta, t_ref, sensor, ws))
+    if hasattr(sk, "splat_direct_fwd_cuda"):
+        time_direct(sk, ti, splat_in, cot, interp_in["mvsec"][0], timed)
     if "splat_bwd" in sweeps:
         sweep_splat_bwd(sk, splat_in, cot, timed, res)
     if "fused" in sweeps and hasattr(sf, "plan_fused"):
@@ -377,6 +441,8 @@ def main(argv=None) -> int:
                                 continue  # too few threads to sum this grid
                             timed(f"sweep_bwd_{mode}_{key}",
                                   lambda: ti.interp_bwd_cuda(g, xs, ys, (n, n, 2), sensor, p))
+    if args.chains:
+        res["chains"] = run_chains(args.chains, device, mvsec, vels, _build, wl)
     line = json.dumps(res)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

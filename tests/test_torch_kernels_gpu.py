@@ -67,6 +67,66 @@ def _close(ref, got, tol):
     assert err <= tol * scale, err / scale
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_direct_wrappers_refuse_cpu_tensors(dtype):
+    """The direct kernels' wrappers launch only on CUDA tensors; the
+    routers never reach them with CPU tensors."""
+    _build.reset_launch_counts()
+    theta = torch.zeros(4, 4, 2, dtype=torch.float64)
+    xs = torch.zeros(10, dtype=dtype)
+    w = torch.zeros(2, 10, dtype=dtype)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.splat_direct_fwd_cuda(w, w, SENSOR, 3, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.splat_direct_bwd_cuda(w, w, torch.zeros(2, H, W, dtype=dtype), SENSOR, 5)
+    with pytest.raises(ValueError, match="CUDA"):
+        ti.interp_direct_fwd_cuda(theta, xs, xs, SENSOR)
+    with pytest.raises(ValueError, match="CUDA"):
+        ti.interp_direct_bwd_cuda(torch.zeros(10, 2, dtype=dtype), xs, xs, (4, 4, 2), SENSOR)
+    assert set(_build.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 256, 257, 10**7])
+def test_direct_launch(n):
+    """One thread per event, up to 16 blocks of 256 per SM of an H100."""
+    blocks, threads = _build.direct_launch(n)
+    assert threads == 256 and 1 <= blocks <= 132 * 16
+    assert blocks == max(1, min(-(-n // 256), 132 * 16))
+    assert n <= blocks * threads or blocks == 132 * 16
+
+
+@pytest.mark.parametrize(
+    "case,route",
+    [("splat float32", "slab"), ("splat float64", "direct"), ("splat float32 wrap", "direct"),
+     ("splat float64 wrap", "direct"), ("interp float32", "interp"),
+     ("interp float64", "interp direct")],
+)
+def test_routers_choose_the_kernels(monkeypatch, case, route):
+    """Tensors off the CPU (here on the meta device, which no kernel sees)
+    go to the float32 kernels, or, in float64 or with the wrap-compat
+    switch, to the direct kernels; the switch is reset in a `finally`."""
+    seen = []
+    for cls, name in ((tk._SplatCuda, "slab"), (tk._SplatDirect, "direct"),
+                      (ti._InterpCuda, "interp"), (ti._InterpDirect, "interp direct")):
+        monkeypatch.setattr(cls, "apply", staticmethod(
+            lambda *args, name=name: seen.append((name, args))))
+    dtype = torch.float64 if "float64" in case else torch.float32
+    ts.set_splat_wrap_compat("wrap" in case)
+    try:
+        if case.startswith("splat"):
+            w = torch.zeros(2, 10, dtype=dtype, device="meta")
+            ts.splat_multi_ref(w, w, SENSOR, 5)
+        else:
+            ti.interp_theta_at_events(torch.zeros(4, 4, 2, dtype=dtype, device="meta"),
+                                      torch.zeros(10, dtype=dtype, device="meta"),
+                                      torch.zeros(10, dtype=dtype, device="meta"), SENSOR)
+    finally:
+        ts.set_splat_wrap_compat(False)
+    assert [name for name, _ in seen] == [route]
+    if route == "direct":
+        assert seen[0][1][2:] == (SENSOR, 5, "wrap" in case)
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     _build.reset_launch_counts()
     theta = torch.zeros(4, 4, 2)
@@ -230,12 +290,16 @@ def test_routers_launch_the_kernels_on_cuda(cuda):
 def test_kernels_refuse_what_they_do_not_take(cuda):
     theta = torch.zeros(16, 16, 2, device=cuda)
     xs = torch.zeros(100, device=cuda)
-    # float64 takes the plain version (routed by dtype); any other dtype
-    # that is not float32 reaches a kernel and raises
+    # float64 takes the direct kernels (routed by dtype), which want every
+    # tensor in float64; any other dtype reaches a kernel and raises
     with pytest.raises(TypeError):
         ti.interp_theta_at_events(theta.half(), xs.half(), xs.half(), SENSOR)
     with pytest.raises(TypeError):
         ts.splat_multi_ref(xs.half()[None], xs.half()[None], SENSOR)
+    with pytest.raises(TypeError):
+        ti.interp_theta_at_events(theta.double(), xs, xs, SENSOR)
+    with pytest.raises(TypeError):
+        ts.splat_multi_ref(xs.double()[None], xs[None], SENSOR)
     for ws in (1, 4, 7):  # the kernels are built for windows 3 and 5
         with pytest.raises(ValueError, match="window_size"):
             ts.splat_multi_ref(xs[None], xs[None], SENSOR, ws)
@@ -686,8 +750,9 @@ def test_fused_warp_splat_refuses_a_plan_that_does_not_fit(cuda):
 
 @pytest.mark.gpu
 def test_float64_solver_loss_on_the_card_matches_cpu(cuda):
-    """A float64 window takes the plain versions on the card (no kernel
-    launches) and gives the CPU's float64 loss and gradient to 1e-12."""
+    """A float64 window launches the direct kernels on the card (and none
+    of the float32 ones) and gives the CPU's float64 loss and gradient to
+    1e-12."""
     from eincm_tpu_torch.models.loss import (
         LossParams, LossStatics, compute_window_statics, solver_loss)
 
@@ -707,7 +772,105 @@ def test_float64_solver_loss_on_the_card_matches_cpu(cuda):
         (grad,) = torch.autograd.grad(loss, th)
         assert loss.dtype == torch.float64 and grad.dtype == torch.float64
         out.append((float(loss.detach()), grad.cpu()))
-    assert set(_build.launch_counts().values()) == {0}
+    counts = _build.launch_counts()
+    assert {k for k, n in counts.items() if n} == set(DIRECT)
     (lk, gk), (lp, gp) = out
     assert abs(lk - lp) <= 1e-12 * abs(lp)
     _close(gp, gk, 1e-12)
+
+
+# ---- the direct kernels: float64 and the wrap-compat splat -----------------
+
+DIRECT = ("splat_direct_fwd", "splat_direct_bwd", "interp_direct_fwd", "interp_direct_bwd")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window_size", [3, 5, 7])
+@pytest.mark.parametrize("wrap", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_splat_direct_kernels_match_plain(cuda, dtype, wrap, window_size):
+    """The direct forward and backward against `splat_plain(..., wrap)` and
+    its autograd gradient, with events off every edge (some wrap), the
+    sentinel, NaN and +-inf: float64 within 1e-12, float32 within 1e-5
+    (forward, atomics) and 2e-6 (backward)."""
+    rng = np.random.default_rng(24)
+    per_ref = [_coords(rng, 20_000, cuda, spread=4.0) for _ in range(2)]
+    wx = torch.stack([p[0] for p in per_ref]).to(dtype).contiguous()
+    wy = torch.stack([p[1] for p in per_ref]).to(dtype).contiguous()
+    wxr, wyr = wx.clone().requires_grad_(True), wy.clone().requires_grad_(True)
+    ref = tk.splat_plain(wxr, wyr, SENSOR, window_size, wrap=wrap)
+    f64 = dtype == torch.float64
+    _build.reset_launch_counts()
+    got = tk.splat_direct_fwd_cuda(wx, wy, SENSOR, window_size, wrap)
+    assert got.dtype == dtype
+    _close(ref, got, 1e-12 if f64 else 1e-5)
+    G = torch.as_tensor(rng.normal(size=(2, H, W)), dtype=dtype, device=cuda)
+    rx, ry = torch.autograd.grad(ref, (wxr, wyr), G)
+    kx, ky = tk.splat_direct_bwd_cuda(wx, wy, G, SENSOR, window_size, wrap)
+    _close(rx, kx, 1e-12 if f64 else 2e-6)
+    _close(ry, ky, 1e-12 if f64 else 2e-6)
+    assert _build.launch_counts()["splat_direct_fwd"] == 1
+    assert _build.launch_counts()["splat_direct_bwd"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gh,gw", [(1, 1), (2, 2), (4, 4), (16, 16), (5, 12), (200, 150)])
+def test_interp_direct_kernels_match_plain(cuda, gh, gw):
+    """The float64 direct forward and backward against the plain versions
+    in float64 within 1e-12, on every grid (200x150 is above MAX_GRID),
+    with the sentinel, NaN and +-inf events; 20k events on one cell too."""
+    rng = np.random.default_rng(25)
+    x, y = (t.double() for t in _coords(rng, 30_001, cuda))
+    theta = torch.as_tensor(rng.normal(0, 3, (gh, gw, 2)), device=cuda)
+    _close(ti.interp_theta_at_events_plain(theta, x, y, SENSOR),
+           ti.interp_direct_fwd_cuda(theta, x, y, SENSOR), 1e-12)
+    finite = torch.isfinite(x) & torch.isfinite(y)
+    x, y = x[finite].contiguous(), y[finite].contiguous()
+    g = torch.as_tensor(rng.normal(size=(x.shape[0], 2)), device=cuda)
+    _close(ti.interp_bwd_plain(g, x, y, (gh, gw, 2), SENSOR),
+           ti.interp_direct_bwd_cuda(g, x, y, (gh, gw, 2), SENSOR), 1e-12)
+    x, y = (torch.as_tensor(rng.uniform(a, a + 0.2, 20_000), device=cuda) for a in (20.2, 30.1))
+    g = torch.as_tensor(rng.normal(size=(20_000, 2)), device=cuda)
+    _close(ti.interp_bwd_plain(g, x, y, (gh, gw, 2), SENSOR),
+           ti.interp_direct_bwd_cuda(g, x, y, (gh, gw, 2), SENSOR), 1e-12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["float64", "wrap_float32", "wrap_float64"])
+def test_routers_launch_the_direct_kernels(cuda, case):
+    """float64 tensors and the wrap-compat switch reach the direct kernels
+    through the routers, forward and backward, with the plain versions'
+    gradient; the switch is reset in a `finally`."""
+    dtype = torch.float32 if case == "wrap_float32" else torch.float64
+    wrap = case.startswith("wrap")
+    rng = np.random.default_rng(26)
+    x, y = _coords(rng, 5_000, cuda)
+    fin = torch.isfinite(x) & torch.isfinite(y)
+    x, y = x[fin].to(dtype).contiguous(), y[fin].to(dtype).contiguous()
+    theta = torch.as_tensor(rng.normal(0, 3, (16, 16, 2)), dtype=dtype, device=cuda)
+
+    def loss(interp, splat):
+        th = theta.clone().requires_grad_(True)
+        v = interp(th, x, y, SENSOR)
+        iwe = splat((x - 2.0 * v[:, 0])[None], (y - 2.0 * v[:, 1])[None], SENSOR)
+        val = (iwe * iwe).sum()
+        return val, torch.autograd.grad(val, th)[0]
+
+    ts.set_splat_wrap_compat(wrap)
+    try:
+        _build.reset_launch_counts()
+        val_k, grad_k = loss(ti.interp_theta_at_events, ts.splat_multi_ref)
+        counts = _build.launch_counts()
+    finally:
+        ts.set_splat_wrap_compat(False)
+    plain_splat = lambda a, b, s: tk.splat_plain(a, b, s, wrap=wrap)
+    val_p, grad_p = loss(ti.interp_theta_at_events_plain, plain_splat)
+    launched = {k for k, n in counts.items() if n}
+    if dtype == torch.float64:
+        assert launched == set(DIRECT)
+        _close(val_p, val_k, 1e-12)
+        _close(grad_p, grad_k, 1e-12)
+    else:
+        assert launched == {"interp_fwd", "interp_bwd", "splat_direct_fwd", "splat_direct_bwd"}
+        _close(val_p, val_k, 1e-5)
+        _close(grad_p, grad_k, 1e-4)

@@ -544,14 +544,14 @@ def test_cluster_fused_emulation_every_event_on_one_texel(window_size):
 
 def test_fused_plan_of_kernel7():
     """h = w = 0: no theta, nothing staged, the whole block's shared memory
-    for the tile and the queues; kernel 7's own crossover."""
+    for the tile and the queues; kernel 8's crossover."""
     p = tf.plan_fused(1_500_000, 480, 640, 0, 0)
     assert (p.kernel, p.cluster, p.tile_rows, p.bands, p.staged) == ("cluster", 8, 60, 1, False)
     assert p.smem_bytes == 153_600 + 8 * 8 * p.queue <= tk.SMEM_BLOCK - tf.SMEM_RESERVE
     assert p.queue >= tf.plan_fused(1_500_000, 480, 640, 16, 16).queue
-    for E in (tf.CLUSTER_EVENTS_7 - 1, tf.CLUSTER_EVENTS_7):
+    for E in (tf.CLUSTER_EVENTS - 1, tf.CLUSTER_EVENTS):
         assert tf.plan_fused(E, 480, 640, 0, 0).kernel == (
-            "cluster" if E >= tf.CLUSTER_EVENTS_7 else "scatter")
+            "cluster" if E >= tf.CLUSTER_EVENTS else "scatter")
     assert tf.plan_fused(30_000, 256, 336, 0, 0).kernel == "scatter"
     for h, w in ((0, 4), (4, 0), (-1, -1)):
         with pytest.raises(ValueError):
