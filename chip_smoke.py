@@ -46,7 +46,19 @@ Phases, each failing loudly (any failure exits non-zero):
    kernels, with the launch counters read around it) against float64 on
    the CPU, printed beside the float32 kernel loss with their relative
    gap; and with the wrap-compat switch on (float32: the interp kernels
-   and the direct splat) against the CPU's.
+   and the direct splat) against the CPU's;
+6. [wolfe] the armijo rescue's configuration (strong Wolfe, 10 trials, the
+   histories and the prior loss on) over the same 6-window MVSEC chain:
+   statuses, finite theta, the prior loss (+inf on window 0 only), each
+   level's history against its solve, the level-0 handover history, kernels
+   1-4 launched, the chain AEE against the JAX package's Wolfe reading,
+   and one window's host syncs read by the sync debug mode against the
+   count the solver reports;
+7. [eval] the EVAL path (`prepare_eval_inputs` + `evaluate_theta_array`)
+   at DSEC (GT + noise theta, as phase 5) and on each Wolfe window's final
+   theta, on the card against the CPU: every value of `evals`, the counts
+   exactly, the splat forward launched once to prepare and twice per
+   evaluation, the eval's ms per call and its host syncs.
 
 Every kernel's time stands beside its bound: the least time the card could
 take for the same work, the longer of the bytes it must move (each input
@@ -59,6 +71,7 @@ per-kernel results, and `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import sys
@@ -93,7 +106,18 @@ TOL_F64 = 1e-12  # float64 on the card vs on the CPU: the same plain versions
 # hold the port's chain to. Atomics make each run on the card differ.
 # Keeping each window's prior as it came scores ~1.5 px, zero flow 5 px.
 MAX_MEAN_AEE = 0.35
+# px, the same bound for the armijo rescue's strong-Wolfe configuration:
+# the JAX package's Wolfe reading on this chain (WOLFE_JAX_AEE px in float32
+# on CPU, tests/test_torch_mvsec_chain.py[wolfe]) plus the same 0.05 px band
+WOLFE_JAX_AEE = 0.3181  # the port's own: 0.3099 px
+MAX_WOLFE_AEE = WOLFE_JAX_AEE + 0.05
 OK_STATUSES = {0, 1, 2, 4}
+# The eval, card against CPU: every value of `evals` within TOL_DSEC_LOSS
+# relative, the A{n}PE rates also within one pixel's share (100 / n_ee %)
+# absolute, since they count pixels whose endpoint error passes a
+# threshold and a pixel within the last bits of one may count on one side
+# and not on the other (a rate of 0 has no relative room); the AEE within:
+TOL_EVAL_AEE = 1e-5  # relative
 
 CHAIN_KERNELS = ("interp_fwd", "interp_bwd", "splat_fwd", "splat_bwd")
 BENCH_KERNELS = ("fused_warp_splat", "fully_fused_warp_splat", "interp_dense")
@@ -764,13 +788,193 @@ def check_bench_kernels(tag, xs, ys, ts, t_refs, theta, sensor, rows, lib_interp
            layout_ops_ms=ops_dense(h, w) * E / F32_OPS_PER_S * 1e3)
 
 
+def count_syncs(fn):
+    """(fn(), the synchronizing CUDA operations it made, {file:line: count}
+    of the innermost lines of this repository that made them), read with
+    `torch.cuda.set_sync_debug_mode("warn")`."""
+    import collections
+    import os
+    import traceback
+    import warnings
+
+    root = os.path.dirname(os.path.realpath(__file__))  # the path imports resolve to
+    where = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" in str(message):
+            path, line = [(os.path.realpath(f.filename), f.lineno)
+                          for f in traceback.extract_stack()[:-1]  # not this frame
+                          if os.path.realpath(f.filename).startswith(root)][-1]
+            where[f"{os.path.relpath(path, root)}:{line}"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        # the first switch to "warn" in a process reports itself as a sync
+        warnings.showwarning = lambda *args, **kw: None
+        torch.cuda.set_sync_debug_mode("warn")
+        warnings.showwarning = record
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum(where.values()), dict(where)
+
+
+def eval_both(tag, theta_full, staged, params, sensor, device):
+    """`prepare_eval_inputs` + `evaluate_theta_array` of a full-sensor theta
+    over a staged sample's eval events and GT, on `device` and then on the
+    CPU, the launch counters read around each call; the first's values held
+    to the CPU's. Returns the first's (evals, ms per evaluation, ms to
+    prepare, host syncs of one evaluation)."""
+    from eincm_tpu_torch.evals.theta_metrics import evaluate_theta_array, prepare_eval_inputs
+    from eincm_tpu_torch.ops import _build
+    from eincm_tpu_torch.utils.profiling import timed
+
+    ev = staged.eval_events
+    out = []
+    for dev in (device, torch.device("cpu")):
+        f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+        ex, ey, et = f32(ev["x"]), f32(ev["y"]), f32(ev["t"])
+        edges, edge_ts = staged.window.edges.to(dev), staged.window.edge_ts.to(dev)
+        gt, th = f32(staged.gt_flow), theta_full.to(dev)
+        prep = lambda: prepare_eval_inputs(ex, ey, et, edges, sensor, dtype=th.dtype)
+        evaluate = lambda: evaluate_theta_array(
+            th, exs, eys, ets, edges, edge_ts, gt, params, sensor, window_statics=wstat)
+        _build.reset_launch_counts()
+        exs, eys, ets, wstat = prep()
+        prep_launches = _build.launch_counts()
+        _build.reset_launch_counts()
+        _, eval_str, evals, _ = evaluate()
+        eval_launches = _build.launch_counts()
+        out.append(evals)
+        if len(out) > 1:
+            continue
+        if dev.type == "cuda" and (prep_launches["splat_fwd"], eval_launches["splat_fwd"]) != (1, 2):
+            raise AssertionError(f"[eval] {tag}: splat_fwd launched {prep_launches} to "
+                                 f"prepare, {eval_launches} per evaluation; not 1 and 2")
+        prep_s, _ = timed(prep, iters=3)
+        eval_s, _ = timed(evaluate, iters=5)
+        syncs = None
+        if dev.type == "cuda":
+            _, syncs, where = count_syncs(evaluate)
+            if syncs != 1:
+                raise AssertionError(f"[eval] {tag}: {syncs} host syncs per evaluation, "
+                                     f"not the one transfer of its bundle: {where}")
+        print(f"[eval] {tag}: {eval_str.strip()}")
+        print(f"[eval] {tag}: {eval_s * 1e3:.3f} ms per evaluation, prepare "
+              f"{prep_s * 1e3:.3f} ms; launches: prepare {prep_launches['splat_fwd']} "
+              f"splat_fwd, evaluation {dict((n, c) for n, c in eval_launches.items() if c)}; "
+              f"{syncs} host sync(s) per evaluation")
+        first = (evals, eval_s * 1e3, prep_s * 1e3, syncs)
+    k, p = out
+    counts = ("n_ee", "n_pred", "n_gt", "n_pixels")
+    for key in counts:
+        if int(k[key]) != int(p[key]):
+            raise AssertionError(f"[eval] {tag}: {key} card {k[key]}, CPU {p[key]}")
+    worst = 0.0
+    for key, ref in p.items():
+        if key in counts:
+            continue
+        ref, got = np.asarray(ref, np.float64), np.asarray(k[key], np.float64)
+        atol = 100.0 / max(int(p["n_ee"]), 1) if key[0] == "A" and key.endswith("PE") else 0.0
+        err = np.abs(got - ref)
+        if not np.all(err <= TOL_DSEC_LOSS * np.abs(ref) + atol):
+            raise AssertionError(f"[eval] {tag}: {key} card {got}, CPU {ref}")
+        worst = max(worst, float(np.max(err / np.maximum(np.abs(ref), 1e-30))))
+    aee_rel = abs(float(k["AEE"]) - float(p["AEE"])) / max(abs(float(p["AEE"])), 1e-30)
+    if not aee_rel <= TOL_EVAL_AEE:
+        raise AssertionError(f"[eval] {tag}: AEE card {k['AEE']}, CPU {p['AEE']}")
+    print(f"[eval] {tag}: card vs CPU, every value within {TOL_DSEC_LOSS:.0e} relative "
+          f"(worst {worst:.3e}), AEE rel {aee_rel:.3e}, counts equal "
+          f"(n_ee {int(k['n_ee'])}, n_pred {int(k['n_pred'])}, n_gt {int(k['n_gt'])})")
+    return first
+
+
+def wolfe_chain(cfg, windows, vels, device):
+    """Phase 6: the chain under the armijo rescue's configuration, each
+    window checked (see the module docstring), then window 1 again under
+    the sync debug mode. Returns (results, launches, evaluations, record)."""
+    from eincm_tpu_torch.models.pyramid import make_window_solver
+    from eincm_tpu_torch.ops import _build
+    from eincm_tpu_torch.utils import workloads as wl
+
+    wcfg = dataclasses.replace(cfg, line_search="wolfe", max_ls_evals=10,
+                               collect_intermediate=True, compute_prior_loss=True)
+    solver = make_window_solver(wcfg, device)
+    ho_cap = 2 + 2 + wcfg.handover_opt_maxiters[0]  # bounds, 2 interior, 1 a step
+    _build.reset_launch_counts()
+    seen = _build.launch_counts()
+    aees, ms, evals, results, per_window = [], [], 0, [], []
+    for res, rec in wl.solve_chain(solver, wcfg, windows, vels):
+        k = rec["window"]
+        now = _build.launch_counts()
+        rec["launches_per_eval"] = {n: (now[n] - seen[n]) / rec["evals"] for n in CHAIN_KERNELS}
+        seen = now
+        for th in res.final_theta_pyr:
+            if not bool(torch.isfinite(th).all()):
+                raise AssertionError(f"[wolfe] window {k}: non-finite theta")
+        if not set(rec["statuses"]) <= OK_STATUSES:
+            raise AssertionError(f"[wolfe] window {k}: statuses {rec['statuses']}")
+        prior_loss = float(res.prior_loss_lvl0)
+        if (prior_loss == math.inf) != (k == 0) or math.isnan(prior_loss):
+            raise AssertionError(f"[wolfe] window {k}: prior loss {prior_loss}")
+        for lvl, (h, st) in enumerate(zip(res.theta_histories, res.theta_opt_states)):
+            if h.n != st.total_iters or float(h.fs[h.n - 1]) != float(st.fun_val):
+                raise AssertionError(f"[wolfe] window {k} level {lvl}: history n {h.n}, "
+                                     f"last loss {float(h.fs[h.n - 1])}; the solve's "
+                                     f"{st.total_iters}, {float(st.fun_val)}")
+        ho = res.handover_histories[0]
+        if ho.n != (0 if k == 0 else ho_cap) or ho.xs.shape != (ho_cap,):
+            raise AssertionError(f"[wolfe] window {k}: handover history n {ho.n}, "
+                                 f"{tuple(ho.xs.shape)} (capacity {ho_cap})")
+        aees.append(rec["aee"])
+        ms.append(rec["ms"])
+        evals += rec["evals"]
+        results.append(res)
+        rec["prior_loss"] = prior_loss
+        per_window.append(rec)
+        print(f"[wolfe] window {k}: {rec['ms']:.1f} ms  AEE {rec['aee']:.4f} px  iters/level "
+              f"{rec['iters']}  statuses {rec['statuses']}  evals {rec['evals']}  host syncs "
+              f"{rec['host_syncs']}  prior loss {prior_loss:.6f}  launches per evaluation "
+              f"{ {n: round(v, 4) for n, v in rec['launches_per_eval'].items()} }")
+    launches = _build.launch_counts()
+    mean_aee = float(np.mean(aees[1:]))
+    print(f"[wolfe] mean AEE windows 1-5: {mean_aee:.4f} px (limit {MAX_WOLFE_AEE}; JAX on "
+          f"CPU {WOLFE_JAX_AEE}); kernel launches {launches}; {evals} loss evaluations; "
+          f"window ms median of 1-5 {float(np.median(ms[1:])):.1f}")
+    if not mean_aee <= MAX_WOLFE_AEE:
+        raise AssertionError(f"[wolfe] mean AEE {mean_aee} > {MAX_WOLFE_AEE}")
+    missing = [k for k in CHAIN_KERNELS if launches[k] == 0]
+    if device.type == "cuda" and missing:
+        raise AssertionError(f"[wolfe] kernels not launched: {missing}")
+    row = {"windows": per_window, "mean_aee": mean_aee, "median_ms": float(np.median(ms[1:]))}
+    if device.type == "cuda":
+        # window 1 again from window 0's result: every synchronizing
+        # operation of the solve, read by the sync debug mode, against the
+        # count the solver reports
+        res1, syncs, where = count_syncs(
+            lambda: solver(windows[1], results[0].final_theta_pyr, False))
+        print(f"[wolfe] window 1 again: {syncs} synchronizing operations seen, n_host_syncs "
+              f"{res1.n_host_syncs}; made at {where}")
+        if syncs != res1.n_host_syncs:
+            raise AssertionError("[wolfe] the solve synchronizes where it does not count it")
+        row["sync_check"] = {"seen": syncs, "n_host_syncs": res1.n_host_syncs, "where": where}
+    return results, launches, evals, row
+
+
 def gt_theta(vel, shape, device):
     th = torch.empty((*shape, 2), dtype=torch.float32, device=device)
     th[..., 0], th[..., 1] = vel
     return th
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None, help="also write the results as JSON here")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs one GPU",
               file=sys.stderr)
@@ -804,10 +1008,12 @@ def main() -> int:
 
     # ---- 2. the solve's kernels vs plain -------------------------------------
     t0 = time.perf_counter()
-    mvsec, vels = wl.stage_mvsec_windows(device)
+    mvsec_staged, vels = wl.stage_mvsec_samples(device)
+    mvsec = [s.window for s in mvsec_staged]
     print(f"[stage] 6 MVSEC windows in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    dsec = wl.stage_dsec_window(device)
+    dsec_staged = wl.stage_dsec_sample(device)
+    dsec = dsec_staged.window
     print(f"[stage] DSEC window in {time.perf_counter() - t0:.2f} s")
     rows: dict = {}
     mvsec_sensor, dsec_sensor = (wl.MVSEC_H, wl.MVSEC_W), (wl.DSEC_H, wl.DSEC_W)
@@ -854,9 +1060,10 @@ def main() -> int:
     cfg = wl.mvsec_solver_config()
     solver = make_window_solver(cfg, device)
     _build.reset_launch_counts()
-    aees, evals = [], 0
+    aees, evals, chain_recs = [], 0, []
     for res, rec in wl.solve_chain(solver, cfg, mvsec, vels):
         k = rec["window"]
+        chain_recs.append(rec)
         for th in res.final_theta_pyr:
             if not bool(torch.isfinite(th).all()):
                 raise AssertionError(f"window {k}: non-finite theta")
@@ -963,6 +1170,29 @@ def main() -> int:
     if not relw <= TOL_DSEC_LOSS:
         raise AssertionError("wrap-compat DSEC-scale loss: the card disagrees with the CPU")
 
+    # ---- 6. [wolfe] the armijo rescue's configuration on the chain -----------
+    wolfe_results, wolfe_launches, wevals, wolfe_row = wolfe_chain(cfg, mvsec, vels, device)
+
+    # ---- 7. [eval] the EVAL path: card vs CPU -------------------------------
+    from eincm_tpu_torch.ops.resize import scale_theta_to_sensor_size
+
+    eval_rows = {}
+    ev_params = LossParams(alpha=2000.0, beta=4000.0)  # phase 5's
+    card_ev = eval_both("dsec", scale_theta_to_sensor_size(theta.to(device), dsec_sensor),
+                        dsec_staged, ev_params, dsec_sensor, device)
+    eval_rows["dsec"] = {"ms": card_ev[1], "prepare_ms": card_ev[2], "host_syncs": card_ev[3],
+                         "aee": float(card_ev[0]["AEE"])}
+    mv = []
+    for k, (res, staged) in enumerate(zip(wolfe_results, mvsec_staged)):
+        full = scale_theta_to_sensor_size(res.final_theta_pyr[0], mvsec_sensor)
+        mv.append(eval_both(f"mvsec window {k}", full, staged, cfg.params, mvsec_sensor,
+                            device))
+    eval_rows["mvsec"] = {
+        "ms": [m[1] for m in mv], "prepare_ms": [m[2] for m in mv],
+        "host_syncs": [m[3] for m in mv], "aee": [float(m[0]["AEE"]) for m in mv]}
+    print(f"[eval] MVSEC Wolfe windows: eval AEE {[round(a, 4) for a in eval_rows['mvsec']['aee']]}"
+          f", ms per evaluation {[round(m, 3) for m in eval_rows['mvsec']['ms']]}")
+
     launches = {**{k: chain_launches[k] for k in CHAIN_KERNELS},
                 **{k: bench_launches[k] for k in BENCH_KERNELS},
                 **{k: f64_launches[k] + wrap_launches[k] for k in DIRECT_KERNELS}}
@@ -979,12 +1209,24 @@ def main() -> int:
         if name in CHAIN_KERNELS:
             entry["launches_per_loss_eval"] = launches[name] / evals
             entry["dsec_loss_launches"] = dsec_launches[name]
+            entry["wolfe_launches"] = wolfe_launches[name]
+            entry["wolfe_launches_per_loss_eval"] = wolfe_launches[name] / wevals
+        if name == "splat_fwd":
+            entry["eval_launches_per_call"] = 2
+            entry["eval_prepare_launches"] = 1
         if name in DIRECT_KERNELS:
             entry["f64_loss_launches"] = f64_launches[name]
             entry["wrap_loss_launches"] = wrap_launches[name]
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
         kernels.append(entry)
+    paths = {"card": card, "armijo": {"windows": chain_recs, "mean_aee": mean_aee,
+                                      "median_ms": float(np.median([r["ms"] for r in chain_recs[1:]]))},
+             "wolfe": wolfe_row, "eval": eval_rows}
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"kernels": kernels, **paths}, f, indent=1)
+    print(json.dumps({"paths": paths}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

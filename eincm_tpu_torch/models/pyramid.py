@@ -17,6 +17,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from eincm_tpu_torch.models.bfgs import (
+    BFGSHistory,
     BFGSResult,
     minimize_bfgs,
     minimize_bounded_scalar,
@@ -59,14 +60,6 @@ class HandoverSettings:
     handover_grid_probes: int = 0
 
 
-_NOT_PORTED = {
-    "armijo_interpolate": "quadratic-interpolated backtracking",
-    "collect_intermediate": "per-iteration trajectories",
-    "progress_heartbeat": "per-iteration loss printing",
-    "compute_prior_loss": "the prior-loss anomaly signal of the armijo rescue",
-}
-
-
 @dataclass(frozen=True)
 class SolverConfig:
     """Static configuration of the multi-level solve; the fields and
@@ -86,24 +79,27 @@ class SolverConfig:
     pyramid_downscale_method: str = "bilinear"
     scale_to_sensor_size_method: str = "bilinear"
     handover: HandoverSettings = field(default_factory=HandoverSettings)
-    # value-only probe budget per iteration; None -> 6 for 'armijo'
+    # line-search budget per iteration; None resolves by line search: 6
+    # value-only probes for 'armijo', 10 bracket+zoom trials for 'wolfe'
     max_ls_evals: Optional[int] = None
+    # 'armijo' (value-only probes) or 'wolfe' (strong Wolfe, scipy-parity)
     line_search: str = "armijo"
+    # 'armijo' only: quadratic-interpolated backtracking instead of halving
     armijo_interpolate: bool = False
     theta_ftol: Optional[float] = None
     theta_ftol_patience: int = 2
+    # record per-iteration (theta, loss) trajectories per level, and the
+    # golden section's probes where a handover weight is solved
     collect_intermediate: bool = False
+    # print each iteration's loss per level (no extra host sync)
     progress_heartbeat: bool = False
+    # emit SolveResult.prior_loss_lvl0, the armijo rescue's anomaly signal:
+    # one level-0 loss evaluation per non-first window
     compute_prior_loss: bool = False
 
     def __post_init__(self):
-        if self.line_search != "armijo":
-            raise NotImplementedError(
-                f"line_search={self.line_search!r}: only 'armijo' is ported"
-            )
-        for name, what in _NOT_PORTED.items():
-            if getattr(self, name):
-                raise NotImplementedError(f"{name} ({what}) is not ported")
+        if self.line_search not in ("armijo", "wolfe"):
+            raise ValueError(f"line_search {self.line_search!r}")
         bases = self.pyramid_bases
         if bases is None:
             bases = (2,) * (self.n_pyr_lvls - 1)
@@ -117,7 +113,9 @@ class SolverConfig:
                 self, "handover_opt_maxiters", (15,) * self.n_pyr_lvls
             )
         if self.max_ls_evals is None:
-            object.__setattr__(self, "max_ls_evals", 6)
+            object.__setattr__(
+                self, "max_ls_evals", 6 if self.line_search == "armijo" else 10
+            )
 
     def base_between(self, fine_lvl: int) -> int:
         """Scale factor between level `fine_lvl` and `fine_lvl + 1`
@@ -159,6 +157,15 @@ class SolveResult(NamedTuple):
     final_theta_pyr: Tuple[torch.Tensor, ...]
     theta_opt_states: Tuple[BFGSResult, ...]
     final_handover_weights: Tuple[torch.Tensor, ...]
+    theta_histories: Tuple[BFGSHistory, ...] = ()  # per level, when collected
+    # per level, when collected: the golden section's probes where the
+    # weight was solved (an empty history, n = 0, on a first window), else
+    # None
+    handover_histories: Tuple = ()
+    # loss of the prior's level-0 theta under this window's objective (+inf
+    # on a first window or without compute_prior_loss): a level-0 optimum
+    # worse than it is anomalous (the manager's armijo -> wolfe rescue)
+    prior_loss_lvl0: Optional[torch.Tensor] = None
     n_host_syncs: int = 0  # device -> host transfers of the whole solve
 
 
@@ -168,7 +175,7 @@ def _solve_theta_level(
     theta0: torch.Tensor,
     sample: WindowSample,
     wstat: WindowStatics,
-) -> Tuple[torch.Tensor, BFGSResult]:
+) -> Tuple[torch.Tensor, BFGSResult, Optional[BFGSHistory]]:
     """BFGS at one pyramid level, with the reference's retry loop."""
     shape = theta0.shape
     statics = cfg.loss_statics
@@ -179,19 +186,28 @@ def _solve_theta_level(
             sample.edges, sample.edge_ts, cfg.params, lvl, statics, wstat,
         )
 
-    res = minimize_bfgs(
+    heartbeat = None
+    if cfg.progress_heartbeat:
+        def heartbeat(k, f):
+            print(f"  [lvl {lvl}] iter {int(k):3d}  loss {float(f):.6f}")
+
+    out = minimize_bfgs(
         value_and_grad(fun),
         theta0.reshape(-1),
         maxiter=cfg.theta_opt_maxiters[lvl],
         gtol=cfg.theta_gtol,
         max_ls_evals=cfg.max_ls_evals,
         n_extra_attempts=cfg.n_extra_attempts.get(lvl, 0),
+        record_history=cfg.collect_intermediate,
         line_search=cfg.line_search,
+        armijo_interpolate=cfg.armijo_interpolate,
         fun=fun,
+        heartbeat_fn=heartbeat,
         ftol=cfg.theta_ftol,
         ftol_patience=cfg.theta_ftol_patience,
     )
-    return res.x.reshape(shape), res
+    res, hist = out if cfg.collect_intermediate else (out, None)
+    return res.x.reshape(shape), res, hist
 
 
 def _solve_handover_weight(
@@ -201,10 +217,11 @@ def _solve_handover_weight(
     theta: torch.Tensor,
     sample: WindowSample,
     wstat: WindowStatics,
-) -> torch.Tensor:
-    """Golden-section solve of the blend weight at one level. For levels
-    > 0 the weight is solved one level finer with the upscaled optimized
-    theta (reference: src/eincm/solver.py:311-335)."""
+) -> Tuple[torch.Tensor, Optional[BFGSHistory]]:
+    """Golden-section solve of the blend weight at one level, with its
+    probe history when collected. For levels > 0 the weight is solved one
+    level finer with the upscaled optimized theta (reference:
+    src/eincm/solver.py:311-335)."""
     ho = cfg.handover
     loss_lvl = lvl - 1 if lvl > 0 else lvl
     maxiter = cfg.handover_opt_maxiters[loss_lvl]
@@ -216,13 +233,15 @@ def _solve_handover_weight(
             sample.edge_ts, cfg.params, loss_lvl, cfg.loss_statics, wstat,
         )
 
-    w_star, _ = minimize_bounded_scalar(
+    out = minimize_bounded_scalar(
         fun, ho.handover_limits, maxiter=maxiter,
+        record_history=cfg.collect_intermediate,
         n_grid_probes=ho.handover_grid_probes, device=theta.device,
     )
+    (w_star, _), hist = out if cfg.collect_intermediate else (out, None)
     if ho.clip_solved_handover:
         w_star = torch.clamp(w_star, *ho.clip_solved_handover_limits)
-    return w_star
+    return w_star, hist
 
 
 def stage_prior_pyramid(
@@ -256,25 +275,50 @@ def solve_window(
     )
     with torch.no_grad():
         prior = stage_prior_pyramid(cfg, prior_pyr)
+        if is_first_sample or not cfg.compute_prior_loss:
+            prior_loss0 = torch.full(
+                (), float("inf"), dtype=prior[0].dtype, device=prior[0].device
+            )
+        else:
+            prior_loss0 = solver_loss(
+                prior[0], sample.xs, sample.ys, sample.ts, sample.edges,
+                sample.edge_ts, cfg.params, 0, cfg.loss_statics, wstat,
+            )
 
     pre_opt: list = [None] * n
     opt: list = [None] * n
     final: list = [None] * n
     opt_states: list = [None] * n
     weights: list = [None] * n
+    histories: list = [None] * n
+    ho_histories: list = [None] * n
     pre_opt[n - 1] = prior[n - 1]
 
+    def scalar(v, like):
+        return torch.full((), v, dtype=like.dtype, device=like.device)
+
     for lvl in reversed(range(n)):
-        opt[lvl], opt_states[lvl] = _solve_theta_level(
+        opt[lvl], opt_states[lvl], histories[lvl] = _solve_theta_level(
             cfg, lvl, pre_opt[lvl], sample, wstat
         )
         with torch.no_grad():
             if is_first_sample or not ho.use_handover:
-                weights[lvl] = torch.tensor(
-                    ho.init_handover_weight, dtype=opt[lvl].dtype,
-                    device=opt[lvl].device,
-                )
+                weights[lvl] = scalar(ho.init_handover_weight, opt[lvl])
                 final[lvl] = opt[lvl]
+                if (
+                    cfg.collect_intermediate
+                    and ho.use_handover
+                    and lvl in ho.solve_handover_for_levels
+                ):
+                    # an empty history of the solved one's shape, so that
+                    # first and later windows' results have one structure
+                    maxiter = cfg.handover_opt_maxiters[max(lvl - 1, 0)]
+                    cap = max(2, ho.handover_grid_probes) + 2 + maxiter
+                    ho_histories[lvl] = BFGSHistory(
+                        xs=torch.zeros((cap,), dtype=torch.float32, device=opt[lvl].device),
+                        fs=torch.zeros((cap,), dtype=opt[lvl].dtype, device=opt[lvl].device),
+                        n=0,
+                    )
             else:
                 if lvl in ho.solve_handover_for_levels:
                     if lvl > 0:
@@ -287,14 +331,11 @@ def solve_window(
                     else:
                         prior_for_solve = prior[lvl]
                         theta_for_solve = opt[lvl]
-                    w = _solve_handover_weight(
+                    w, ho_histories[lvl] = _solve_handover_weight(
                         cfg, lvl, prior_for_solve, theta_for_solve, sample, wstat
                     )
                 else:
-                    w = torch.tensor(
-                        ho.alpha_handover, dtype=opt[lvl].dtype,
-                        device=opt[lvl].device,
-                    )
+                    w = scalar(ho.alpha_handover, opt[lvl])
                 weights[lvl] = w
                 final[lvl] = w * prior[lvl] + (1.0 - w) * opt[lvl]
             if lvl > 0:
@@ -304,6 +345,7 @@ def solve_window(
                     method=cfg.pyramid_upscale_method,
                 )
 
+    collected = cfg.collect_intermediate
     return SolveResult(
         prior_theta_pyr=tuple(prior),
         pre_opt_theta_pyr=tuple(pre_opt),
@@ -311,6 +353,11 @@ def solve_window(
         final_theta_pyr=tuple(final),
         theta_opt_states=tuple(opt_states),
         final_handover_weights=tuple(weights),
+        theta_histories=tuple(histories) if collected else (),
+        handover_histories=tuple(ho_histories) if collected else (),
+        prior_loss_lvl0=prior_loss0,
+        # every device -> host read of the solve is a BFGS one: the prior
+        # loss, the golden section and the histories stay on the device
         n_host_syncs=sum(s.n_host_syncs for s in opt_states),
     )
 

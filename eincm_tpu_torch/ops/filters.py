@@ -1,4 +1,4 @@
-"""3x3 image filters (Scharr gradients, divergence) as shift-and-add stencils.
+"""3x3 image filters (Scharr gradients, blur, divergence) as shift-and-add stencils.
 
 The reference applies 3x3 kernels as a true convolution with zero padding
 (src/utils/img_utils.py:414-432). As in eincm_tpu/ops/filters.py, each
@@ -24,6 +24,11 @@ SCHARR_GY = np.array(
 DIV_KERNEL = np.array(
     [[1 / 12, 1 / 6, 1 / 12], [1 / 6, 0.0, 1 / 6], [1 / 12, 1 / 6, 1 / 12]]
 )
+# 3x3 binomial blur (reference: src/utils/img_utils.py:430).
+BLUR_KERNEL = np.array(
+    [[1 / 16, 1 / 8, 1 / 16], [1 / 8, 1 / 4, 1 / 8], [1 / 16, 1 / 8, 1 / 16]]
+)
+_EPSN = float(np.finfo(np.float64).eps)
 
 
 def _conv2d_same(image: torch.Tensor, kernels: np.ndarray) -> torch.Tensor:
@@ -57,6 +62,22 @@ def scharr_grads(image: torch.Tensor) -> torch.Tensor:
     return torch.movedim(g, 0, -1)
 
 
+def gaussian_blur_3x3(image: torch.Tensor) -> torch.Tensor:
+    """3x3 binomial blur of (..., H, W). Reference:
+    src/utils/img_utils.py:428-432."""
+    return _conv2d_same(image, BLUR_KERNEL[None])[0]
+
+
 def divergence_filter(field: torch.Tensor) -> torch.Tensor:
     """Apply the divergence kernel to (..., H, W) fields (SAME padding)."""
     return _conv2d_same(field, DIV_KERNEL[None])[0]
+
+
+def gradient_magnitude(image: torch.Tensor) -> torch.Tensor:
+    """Scharr gradient magnitude of each (H, W) image of (..., H, W),
+    min-max normalized to [0, 1]. Reference: src/utils/img_utils.py:435-449."""
+    g = scharr_grads(image)
+    mag = torch.sqrt(g[..., 0] ** 2 + g[..., 1] ** 2)
+    lo = torch.amin(mag, dim=(-2, -1), keepdim=True)
+    hi = torch.amax(mag, dim=(-2, -1), keepdim=True)
+    return (mag - lo) / (hi - lo + _EPSN)

@@ -62,7 +62,7 @@ def _weight_mat(
     in_size: int, out_size: int, kernel, dtype: torch.dtype, device
 ) -> torch.Tensor:
     """(in_size, out_size) resampling weights of `kernel`, antialiased."""
-    scale = torch.tensor(out_size / in_size, dtype=dtype, device=device)
+    scale = torch.full((), out_size / in_size, dtype=dtype, device=device)  # no copy
     inv_scale = 1.0 / scale
     kernel_scale = torch.clamp_min(inv_scale, 1.0)
     sample_f = (

@@ -18,7 +18,7 @@ from typing import Iterator, List, Tuple
 import numpy as np
 import torch
 
-from eincm_tpu_torch.data.staging import stage_datasample
+from eincm_tpu_torch.data.staging import StagedSample, stage_datasample
 from eincm_tpu_torch.data.synthetic import SyntheticDataLoader
 from eincm_tpu_torch.edge.pipeline import iedt_edge_fn
 from eincm_tpu_torch.models.loss import LossParams
@@ -42,16 +42,17 @@ DSEC_N_EVENTS = 1_500_000
 DSEC_SEED = 3
 
 
-def stage_mvsec_windows(
+def stage_mvsec_samples(
     device,
-) -> Tuple[List[WindowSample], List[Tuple[float, float]]]:
+) -> Tuple[List[StagedSample], List[Tuple[float, float]]]:
     """Stage the MVSEC_N_WINDOWS windows of the chain (seeds 1..6, 180
     features) whose GT velocity rotates MVSEC_ROTATE_DEG per window.
 
-    Returns (windows on `device`, exact GT velocities (vx, vy))."""
+    Returns (staged samples, their windows on `device`; exact GT
+    velocities (vx, vy))."""
     phi0 = np.arctan2(-3.0, 4.0)
     edge_fn = iedt_edge_fn()
-    windows, vels = [], []
+    samples, vels = [], []
     for k in range(MVSEC_N_WINDOWS):
         phi = phi0 + np.deg2rad(MVSEC_ROTATE_DEG) * k
         vel = (_SPEED * np.cos(phi), _SPEED * np.sin(phi))
@@ -64,11 +65,19 @@ def stage_mvsec_windows(
             seed=1 + k,
         )
         dl.get_ready()
-        windows.append(
+        samples.append(
             stage_datasample(dl[0], device, edge_fn=edge_fn, pad_to=MVSEC_N_EVENTS)
         )
         vels.append(vel)
-    return windows, vels
+    return samples, vels
+
+
+def stage_mvsec_windows(
+    device,
+) -> Tuple[List[WindowSample], List[Tuple[float, float]]]:
+    """`stage_mvsec_samples`' windows on `device` and GT velocities."""
+    samples, vels = stage_mvsec_samples(device)
+    return [s.window for s in samples], vels
 
 
 def mvsec_solver_config() -> SolverConfig:
@@ -88,7 +97,7 @@ def mvsec_solver_config() -> SolverConfig:
     )
 
 
-def stage_dsec_window(device) -> WindowSample:
+def stage_dsec_sample(device) -> StagedSample:
     """One DSEC-scale window: 480x640, 1.5M events on 700 features, 2
     reference frames (eincm_tpu/utils/benchmarks.py:build_dsec_solve_bench)."""
     speed = 7.2
@@ -105,6 +114,11 @@ def stage_dsec_window(device) -> WindowSample:
     return stage_datasample(
         dl[0], device, edge_fn=iedt_edge_fn(), pad_to=DSEC_N_EVENTS
     )
+
+
+def stage_dsec_window(device) -> WindowSample:
+    """`stage_dsec_sample`'s window on `device`."""
+    return stage_dsec_sample(device).window
 
 
 @torch.no_grad()

@@ -1,10 +1,10 @@
-"""eincm_tpu_torch's BFGS (Armijo) and golden-section search vs eincm_tpu.
+"""eincm_tpu_torch's BFGS (strong Wolfe, Armijo) and golden section vs eincm_tpu.
 
-Mirrors tests/test_bfgs.py for the line search the port has ('armijo'),
-and holds every trajectory against the JAX package's in float64: the same
-iteration counts, evaluations, attempts and status, and iterates within
-1e-6 (Rosenbrock's valley amplifies last-bit differences of the matrix
-products along a trajectory).
+Mirrors tests/test_bfgs.py and holds every trajectory against the JAX
+package's in float64: the same iteration counts, evaluations, attempts and
+status, and iterates within 1e-6 (Rosenbrock's valley amplifies last-bit
+differences of the matrix products along a trajectory); the options
+(interpolated Armijo, histories, heartbeat, warm starts) too.
 """
 
 import jax
@@ -16,6 +16,7 @@ import torch
 
 from eincm_tpu.models import bfgs as jb
 from eincm_tpu_torch.models import bfgs as tb
+from eincm_tpu_torch.utils import host
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -56,19 +57,20 @@ def lib_mat(lib, a):
     return lib.asarray(a, dtype=lib.float64) if lib is jnp else torch.tensor(a, dtype=torch.float64)
 
 
-def _port(f, x0, **kw):
+def _port(f, x0, line_search="armijo", **kw):
     fun = lambda x: f(x, torch)
     return tb.minimize_bfgs(
-        tb.value_and_grad(fun), torch.tensor(x0, dtype=torch.float64), fun=fun, **kw
+        tb.value_and_grad(fun), torch.tensor(x0, dtype=torch.float64),
+        line_search=line_search, fun=fun, **kw,
     )
 
 
-def _jax(f, x0, **kw):
+def _jax(f, x0, line_search="armijo", **kw):
     fun = lambda x: f(x, jnp)
     with jax.enable_x64(True):
         r = jb.minimize_bfgs(
             jax.value_and_grad(fun), jnp.asarray(x0, jnp.float64),
-            line_search="armijo", fun=fun, **kw,
+            line_search=line_search, fun=fun, **kw,
         )
         return jax.tree_util.tree_map(np.asarray, r)
 
@@ -83,8 +85,7 @@ def _same_trajectory(j, t, atol=1e-6):
     np.testing.assert_allclose(t.x.numpy(), j.x, rtol=0, atol=atol)
 
 
-@pytest.mark.parametrize("name", sorted(PROBLEMS))
-@pytest.mark.parametrize(
+KWS = pytest.mark.parametrize(
     "kw",
     [
         dict(maxiter=200, gtol=1e-5),
@@ -94,9 +95,139 @@ def _same_trajectory(j, t, atol=1e-6):
     ],
     ids=["gtol", "maxiter", "ftol", "retry"],
 )
+
+
+@pytest.mark.parametrize("name", sorted(PROBLEMS))
+@KWS
 def test_trajectory_matches_jax(name, kw):
     f, x0 = PROBLEMS[name]
     _same_trajectory(_jax(f, x0, **kw), _port(f, x0, **kw))
+
+
+@pytest.mark.parametrize("name", sorted(PROBLEMS))
+@KWS
+def test_wolfe_trajectory_matches_jax(name, kw):
+    """Strong Wolfe (the default line search of both packages): the
+    trials counted as evaluations, as in JAX."""
+    f, x0 = PROBLEMS[name]
+    j, t = _jax(f, x0, "wolfe", **kw), _port(f, x0, "wolfe", **kw)
+    _same_trajectory(j, t)
+    assert t.total_iters > 0
+
+
+@pytest.mark.parametrize("name", sorted(PROBLEMS))
+@pytest.mark.parametrize("max_ls_evals", [25, 3])
+def test_armijo_interpolate_matches_jax(name, max_ls_evals):
+    f, x0 = PROBLEMS[name]
+    kw = dict(maxiter=60, gtol=1e-8, armijo_interpolate=True, max_ls_evals=max_ls_evals,
+              n_extra_attempts=1)
+    _same_trajectory(_jax(f, x0, **kw), _port(f, x0, **kw))
+
+
+@pytest.mark.parametrize("line_search", ["armijo", "wolfe"])
+@pytest.mark.parametrize("name", ["rosenbrock", "nonconvex"])
+def test_history_matches_jax(line_search, name):
+    """record_history: every iteration's (x, f), capacity maxiter *
+    (n_extra_attempts + 1), zero beyond n; with return_h_inv last."""
+    f, x0 = PROBLEMS[name]
+    kw = dict(maxiter=15, gtol=1e-10, n_extra_attempts=1, record_history=True,
+              return_h_inv=True)
+    jres, jhist, jh = _jax(f, x0, line_search, **kw)
+    tres, thist, th = _port(f, x0, line_search, **kw)
+    _same_trajectory(jres, tres)
+    assert thist.n == int(jhist.n) == tres.total_iters
+    assert thist.xs.shape == jhist.xs.shape == (30, len(x0))
+    np.testing.assert_allclose(thist.xs.numpy(), jhist.xs, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(thist.fs.numpy(), jhist.fs, rtol=0, atol=1e-6)
+    assert float(thist.fs[thist.n - 1]) == float(tres.fun_val)
+    np.testing.assert_allclose(th.numpy(), jh, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("line_search", ["armijo", "wolfe"])
+def test_heartbeat_matches_jax(line_search):
+    """The heartbeat's (iteration, loss) sequence is JAX's; it costs the
+    port no host sync beyond the iteration's status transfer."""
+    f, x0 = PROBLEMS["rosenbrock"]
+    jbeats, tbeats = [], []
+    _jax(f, x0, line_search, maxiter=20, gtol=1e-10,
+         heartbeat_fn=lambda k, v: jbeats.append((int(k), float(v))))
+    res = _port(f, x0, line_search, maxiter=20, gtol=1e-10,
+                heartbeat_fn=lambda k, v: tbeats.append((k, v)))
+    quiet = _port(f, x0, line_search, maxiter=20, gtol=1e-10)
+    assert [k for k, _ in tbeats] == list(range(1, res.total_iters + 1))
+    assert [k for k, _ in sorted(jbeats)] == [k for k, _ in tbeats]
+    np.testing.assert_allclose([v for _, v in tbeats], [v for _, v in sorted(jbeats)],
+                               rtol=0, atol=1e-6)
+    assert tbeats[-1][1] == float(res.fun_val)
+    assert res.n_host_syncs == quiet.n_host_syncs
+
+
+def _spd(d=16, seed=3):
+    rng = np.random.default_rng(seed)
+    m = rng.normal(size=(d, d))
+    return m @ m.T + d * np.eye(d), rng.normal(size=d)
+
+
+@pytest.mark.parametrize("line_search", ["armijo", "wolfe"])
+def test_warm_start_h0_exact_hessian_one_step(line_search):
+    """With H0 = A^-1 and a unit first trial a quadratic solves in one
+    iteration, identity needs several; the same counts and iterates as
+    JAX (tests/test_bfgs.py:194-216)."""
+    A, b = _spd()
+    f = lambda x, lib: 0.5 * x @ lib_mat(lib, A) @ x - lib_mat(lib, b) @ x
+    x0 = [0.0] * 16
+    kw = dict(maxiter=100, gtol=1e-3)
+    res_i = _port(f, x0, line_search, **kw)
+    jw, jh = _jax(f, x0, line_search, h0=np.linalg.inv(A), return_h_inv=True,
+                  unit_initial_step=True, **kw)
+    res_w, h_fin = _port(f, x0, line_search, h0=torch.as_tensor(np.linalg.inv(A)),
+                         return_h_inv=True, unit_initial_step=True, **kw)
+    _same_trajectory(jw, res_w)
+    assert res_w.success
+    assert res_w.total_iters <= 2 < res_i.total_iters
+    np.testing.assert_allclose(res_w.x.numpy(), np.linalg.solve(A, b), atol=1e-3)
+    assert h_fin.shape == (16, 16)
+    np.testing.assert_allclose(h_fin.numpy(), jh, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("line_search", ["armijo", "wolfe"])
+def test_warm_start_h0_nonfinite_falls_back(line_search):
+    """A poisoned warm start (NaN entries) behaves like identity."""
+    f = lambda x, lib: ((x - 2.0) ** 2).sum()
+    bad = torch.full((3, 3), float("nan"), dtype=torch.float64)
+    res = _port(f, [0.0] * 3, line_search, maxiter=50, h0=bad)
+    ref = _port(f, [0.0] * 3, line_search, maxiter=50)
+    assert res.success
+    np.testing.assert_allclose(res.x.numpy(), 2.0, atol=1e-4)
+    np.testing.assert_array_equal(res.x.numpy(), ref.x.numpy())
+    assert (res.total_iters, res.n_fun_evals) == (ref.total_iters, ref.n_fun_evals)
+
+
+def test_warm_start_return_combinations():
+    """return_h_inv composes with record_history: (result, hist, h_inv);
+    each alone gives a pair, neither the bare result."""
+    f = lambda x, lib: ((x - 1.0) ** 2).sum()
+    res, hist, h = _port(f, [0.0, 0.0], "wolfe", maxiter=10, record_history=True,
+                         return_h_inv=True)
+    assert hist.xs.shape[0] == 10 and h.shape == (2, 2) and res.success
+    assert isinstance(_port(f, [0.0, 0.0], "wolfe", maxiter=10, record_history=True)[1],
+                      tb.BFGSHistory)
+    assert _port(f, [0.0, 0.0], "wolfe", maxiter=10, return_h_inv=True)[1].shape == (2, 2)
+    assert isinstance(_port(f, [0.0, 0.0], "wolfe", maxiter=10), tb.BFGSResult)
+
+
+@pytest.mark.parametrize("name", sorted(PROBLEMS))
+def test_wolfe_host_syncs_counted(name, monkeypatch):
+    """A Wolfe solve reads the host once for the initial check, once per
+    trial and once per iteration (trials + iterations + 1), and every one
+    of those reads goes through `utils/host.py:to_host`."""
+    calls = []
+    real = host.to_host
+    monkeypatch.setattr(host, "to_host", lambda t: calls.append(1) or real(t))
+    f, x0 = PROBLEMS[name]
+    res = _port(f, x0, "wolfe", maxiter=30, gtol=1e-12, n_extra_attempts=1)
+    trials = res.n_fun_evals - 1
+    assert res.n_host_syncs == trials + res.total_iters + 1 == len(calls)
 
 
 def test_quadratic_exact():
@@ -126,11 +257,14 @@ def test_already_converged():
     assert res.success and res.iter_num == 0 and res.status == 0
 
 
-def test_host_syncs_counted():
+def test_host_syncs_counted(monkeypatch):
     """One sync for the initial check, one per probe, one per iteration:
-    the same count as the evaluations."""
+    the same count as the evaluations, every one through `to_host`."""
+    calls = []
+    real = host.to_host
+    monkeypatch.setattr(host, "to_host", lambda t: calls.append(1) or real(t))
     res = _port(PROBLEMS["rosenbrock"][0], [-1.2, 1.0], maxiter=30, gtol=1e-12)
-    assert res.n_host_syncs == res.n_fun_evals > res.total_iters
+    assert res.n_host_syncs == res.n_fun_evals == len(calls) > res.total_iters
 
 
 class TestFtolStop:
@@ -172,7 +306,8 @@ class TestFtolStop:
             j = jax.tree_util.tree_map(np.asarray, j)
         t = tb.minimize_bfgs(
             lambda x: (fun_t(x), 2.0 * (x - 1.0)),
-            torch.tensor([5.0, -4.0], dtype=torch.float32), fun=fun_t, **kw,
+            torch.tensor([5.0, -4.0], dtype=torch.float32), line_search="armijo",
+            fun=fun_t, **kw,
         )
         _same_trajectory(j, t, atol=1e-5)
         return t
@@ -194,13 +329,17 @@ class TestFtolStop:
         np.testing.assert_array_equal(p1.x.numpy(), p2.x.numpy())
 
 
-def test_unported_options_raise():
-    fun = lambda x: (x**2).sum()
-    with pytest.raises(NotImplementedError):
-        tb.minimize_bfgs(tb.value_and_grad(fun), torch.zeros(2), 5,
-                         line_search="wolfe", fun=fun)
+def test_line_search_arguments_checked():
+    """'wolfe' is the default and needs no value-only objective; 'armijo'
+    without one raises, as JAX asserts, and so does an unknown name."""
+    fun = lambda x: ((x - 1.0) ** 2).sum()
+    res = tb.minimize_bfgs(tb.value_and_grad(fun), torch.zeros(2, dtype=torch.float64), 20)
+    assert res.success and res.n_fun_evals > 1
     with pytest.raises(ValueError):
-        tb.minimize_bfgs(tb.value_and_grad(fun), torch.zeros(2), 5)
+        tb.minimize_bfgs(tb.value_and_grad(fun), torch.zeros(2), 5, line_search="armijo")
+    with pytest.raises(ValueError):
+        tb.minimize_bfgs(tb.value_and_grad(fun), torch.zeros(2), 5, line_search="lbfgs",
+                         fun=fun)
 
 
 def _two_basins(w, lib):
@@ -255,6 +394,24 @@ class TestBoundedScalar:
             method="L-BFGS-B", bounds=[(0.0, 1.0)],
         )
         assert f_grid < sres.fun - 0.4
+
+    @pytest.mark.parametrize("n_grid_probes", [0, 5])
+    def test_history_matches_jax(self, n_grid_probes):
+        """record_history: the probes in order (grid or bounds, the two
+        interior points, one per iteration) against JAX's
+        (tests/test_bfgs.py:349-365)."""
+        f = lambda w, lib: lib.cos(3 * w)
+        kw = dict(maxiter=7, record_history=True, n_grid_probes=n_grid_probes)
+        (jx, jf), jh = jb.minimize_bounded_scalar(lambda w: f(w, jnp), (0.0, 1.0), **kw)
+        (tx, tf), th = tb.minimize_bounded_scalar(lambda w: f(w, torch), (0.0, 1.0),
+                                                  device="cpu", **kw)
+        n_init = max(2, n_grid_probes)
+        assert th.n == int(jh.n) == n_init + 2 + 7 == th.xs.shape[0]
+        np.testing.assert_allclose(th.xs.numpy(), np.asarray(jh.xs), atol=1e-6)
+        np.testing.assert_allclose(th.fs.numpy(), np.asarray(jh.fs), atol=1e-6)
+        np.testing.assert_allclose(th.xs[:n_init].numpy(), np.linspace(0, 1, n_init),
+                                   atol=1e-6)
+        np.testing.assert_allclose([float(tx), float(tf)], [float(jx), float(jf)], atol=1e-6)
 
     @pytest.mark.parametrize("it", [0, 2, 8, 30])
     def test_grid_seeding_unimodal(self, it):

@@ -874,3 +874,106 @@ def test_routers_launch_the_direct_kernels(cuda, case):
         assert launched == {"interp_fwd", "interp_bwd", "splat_direct_fwd", "splat_direct_bwd"}
         _close(val_p, val_k, 1e-5)
         _close(grad_p, grad_k, 1e-4)
+
+
+# ---- the Wolfe solve and the EVAL path on the card --------------------------
+
+def _staged(device, seed=3, sensor=(64, 80), n=20_000):
+    from eincm_tpu_torch.data.staging import stage_datasample
+    from eincm_tpu_torch.data.synthetic import SyntheticDataLoader
+    from eincm_tpu_torch.edge.pipeline import iedt_edge_fn
+
+    dl = SyntheticDataLoader(sensor_size=sensor, n_windows=2, des_n_events=n,
+                             velocity=(3.0, -2.0), n_features=60, seed=seed)
+    dl.get_ready()
+    return stage_datasample(dl[1], device, edge_fn=iedt_edge_fn(), pad_to=n + 1000)
+
+
+@pytest.mark.gpu
+def test_staged_sample_window_lies_on_the_requested_device(cuda):
+    staged = _staged(cuda)
+    assert all(t.device.type == "cuda" for t in staged.window)
+    cpu = _staged("cpu")
+    for a, b in zip(staged.window, cpu.window):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())  # NaN padding included
+    assert isinstance(staged.eval_events["x"], np.ndarray) and staged.gt_flow.shape == (64, 80, 2)
+
+
+@pytest.mark.gpu
+def test_wolfe_solve_window_on_the_card_matches_cpu_statuses(cuda):
+    """A handover window under the armijo rescue's configuration (strong
+    Wolfe, 10 trials, histories, prior loss) on the card and on the CPU:
+    the same per-level statuses, kernels 1-4 launched, and every host sync
+    counted. Few iterations and no ftol stop: near the float32 noise floor
+    the last bits of the card's atomics decide between a line-search
+    failure and the ftol stop, so a longer solve's statuses are a toss."""
+    from eincm_tpu_torch.models.loss import LossParams
+    from eincm_tpu_torch.models.pyramid import HandoverSettings, SolverConfig, make_window_solver
+
+    cfg = SolverConfig(
+        n_pyr_lvls=3, sensor_size=(64, 80), params=LossParams(20.0, 35.0),
+        theta_opt_maxiters=(5, 4, 3), theta_gtol=1e-4, n_extra_attempts={0: 1},
+        handover=HandoverSettings(solve_handover_for_levels=(0,)), line_search="wolfe",
+        collect_intermediate=True, compute_prior_loss=True,
+    )
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        staged = _staged(dev)
+        prior = tuple(torch.full((*cfg.level_shape(l), 2), 1.0, device=dev).mul_(
+            torch.tensor([2.5, -1.5], device=dev)) for l in range(3))
+        _build.reset_launch_counts()
+        res = make_window_solver(cfg, dev)(staged.window, prior, False)
+        out[dev.type] = (res, _build.launch_counts())
+    (rk, lk), (rp, lp) = out["cuda"], out["cpu"]
+    assert [s.status for s in rk.theta_opt_states] == [s.status for s in rp.theta_opt_states]
+    assert all(lk[k] > 0 for k in ("interp_fwd", "interp_bwd", "splat_fwd", "splat_bwd"))
+    assert all(v == 0 for v in lp.values())
+    for res in (rk, rp):
+        assert res.n_host_syncs == sum(s.n_fun_evals + s.total_iters for s in res.theta_opt_states)
+        assert np.isfinite(float(res.prior_loss_lvl0))
+    _close(rp.final_theta_pyr[0], rk.final_theta_pyr[0], 0.05)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_evaluate_theta_array_on_the_card_matches_cpu(cuda, dtype):
+    """prepare_eval_inputs + evaluate_theta_array on the card against the
+    CPU: every value within 1e-4 relative (float32; float64 1e-12), the A{n}PE
+    rates within one pixel's share, the counts exactly; the splat forward
+    launched once to prepare and twice per evaluation (float32), or the
+    direct splat (float64)."""
+    from eincm_tpu_torch.evals.theta_metrics import evaluate_theta_array, prepare_eval_inputs
+    from eincm_tpu_torch.models.loss import LossParams
+    from eincm_tpu_torch.ops.resize import scale_theta_to_sensor_size
+
+    gen = torch.Generator().manual_seed(1)
+    theta = torch.tensor([3.0, -2.0]) + 0.5 * torch.randn(8, 8, 2, generator=gen)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        staged = _staged(dev)
+        ev = staged.eval_events
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+        full = scale_theta_to_sensor_size(theta.to(dev, dtype), (64, 80))
+        edges, edge_ts = staged.window.edges.to(dtype), staged.window.edge_ts.to(dtype)
+        _build.reset_launch_counts()
+        xs, ys, ts, ws = prepare_eval_inputs(t(ev["x"]), t(ev["y"]), t(ev["t"]), edges,
+                                             (64, 80), dtype=dtype)
+        prep = _build.launch_counts()
+        _build.reset_launch_counts()
+        _, s, evals, objs = evaluate_theta_array(
+            full, xs, ys, ts, edges, edge_ts, t(staged.gt_flow), LossParams(60.0, 60.0, 0.01, 0.1),
+            (64, 80), window_statics=ws)
+        out[dev.type] = (evals, prep, _build.launch_counts(), objs)
+    (ek, pk, lk, ok), (ep, _, _, _) = out["cuda"], out["cpu"]
+    splat = "splat_fwd" if dtype == torch.float32 else "splat_direct_fwd"
+    assert pk[splat] == 1 and lk[splat] == 2
+    assert ok["warped_xs"].device.type == "cuda"
+    tol = 1e-4 if dtype == torch.float32 else 1e-12
+    for key, ref in ep.items():
+        if key in ("n_ee", "n_pred", "n_gt", "n_pixels"):
+            assert int(ek[key]) == int(ref), key
+            continue
+        atol = 100.0 / int(ep["n_ee"]) if key[0] == "A" and key.endswith("PE") else 0.0
+        np.testing.assert_allclose(np.asarray(ek[key], np.float64), np.asarray(ref, np.float64),
+                                   rtol=tol, atol=atol, err_msg=key)
+    assert int(ek["n_ee"]) > 100

@@ -47,9 +47,16 @@ def _jax_cfg():
     )
 
 
-def test_mvsec_chain_f32_aee_matches_jax():
-    jcfg = _jax_cfg()
-    cfg = wl.mvsec_solver_config()
+# the armijo rescue's configuration (eincm_tpu/experiments/manager.py:
+# 510-514), as chip_smoke.py's [wolfe] phase solves it
+WOLFE = dict(line_search="wolfe", max_ls_evals=10, collect_intermediate=True,
+             compute_prior_loss=True)
+
+
+@pytest.mark.parametrize("options", [{}, WOLFE], ids=["armijo", "wolfe"])
+def test_mvsec_chain_f32_aee_matches_jax(options):
+    jcfg = dataclasses.replace(_jax_cfg(), **options)
+    cfg = dataclasses.replace(wl.mvsec_solver_config(), **options)
     assert compat.solver_config_from_dict(dataclasses.asdict(jcfg)) == cfg
     windows, vels = wl.stage_mvsec_windows("cpu")
 

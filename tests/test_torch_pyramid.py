@@ -57,7 +57,7 @@ def _windows(n_windows, speed=3.0, rotate_deg=15.0):
         dl.get_ready()
         w = stage_datasample(
             dl[0], "cpu", edge_fn=edge_fn, pad_to=N_EVENTS, dtype=torch.float64
-        )
+        ).window
         out.append(([t.numpy() for t in w], vel))
     return out
 
@@ -190,7 +190,7 @@ def test_staging_matches_jax():
     for i in range(2):
         ref = jax_stage(jdl[i], edge_fn=jedge, pad_to=N_EVENTS + 100).window
         got = stage_datasample(tdl[i], "cpu", edge_fn=iedt_edge_fn(),
-                               pad_to=N_EVENTS + 100)
+                               pad_to=N_EVENTS + 100).window
         for a, b in zip(ref, got):
             np.testing.assert_array_equal(np.asarray(a), b.numpy())
 
@@ -212,24 +212,174 @@ def test_config_from_jax_dict_and_geometry():
     jcfg = _jax_cfg(1e-5)
     tcfg = compat.solver_config_from_dict(dataclasses.asdict(jcfg))
     assert tcfg.max_ls_evals == jcfg.max_ls_evals == 6
+    wolfe = dataclasses.replace(jcfg, line_search="wolfe", max_ls_evals=None)
+    assert compat.solver_config_from_dict(dataclasses.asdict(wolfe)).max_ls_evals == 10
+    assert wolfe.max_ls_evals == 10
     assert tcfg.handover_opt_maxiters == jcfg.handover_opt_maxiters
     assert [tcfg.level_shape(l) for l in range(3)] == [(4, 4), (2, 2), (1, 1)]
     assert tp.SolverConfig(1, SENSOR, tcfg.params, (5,)).theta_ftol is None
 
 
-@pytest.mark.parametrize(
-    "kw",
-    [
-        dict(line_search="wolfe"),
-        dict(collect_intermediate=True),
-        dict(progress_heartbeat=True),
-        dict(compute_prior_loss=True),
-        dict(armijo_interpolate=True),
-    ],
-)
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        tp.SolverConfig(1, SENSOR, tp.LossParams(1.0, 1.0), (5,), **kw)
+OPT_SENSOR = (24, 32)
+# tests/test_solver_config_matrix.py's joint configurations (two levels),
+# with more iterations so that every option does real work
+OPTION_COMBOS = {
+    "wolfe_clip_retry": dict(
+        line_search="wolfe",
+        max_ls_evals=10,
+        n_extra_attempts={0: 1},
+        handover=jp.HandoverSettings(
+            use_handover=True,
+            solve_handover_for_levels=(0, 1),
+            clip_solved_handover=True,
+            clip_solved_handover_limits=(0.2, 0.9),
+        ),
+        collect_intermediate=True,
+    ),
+    "armijo_all_on": dict(
+        line_search="armijo",
+        armijo_interpolate=True,
+        max_ls_evals=4,
+        handover=jp.HandoverSettings(
+            use_handover=True, solve_handover_for_levels=(0,), handover_grid_probes=4
+        ),
+        collect_intermediate=True,
+        compute_prior_loss=True,
+    ),
+}
+
+
+def _option_window(seed=1234, n=400):
+    """A random float64 window (tests/test_solver_config_matrix.py's form)
+    and a random prior pyramid of two levels."""
+    rng = np.random.default_rng(seed)
+    H, W = OPT_SENSOR
+    arrays = [
+        rng.integers(0, W, n).astype(np.float64),
+        rng.integers(0, H, n).astype(np.float64),
+        np.sort(rng.uniform(0, 1, n)),
+        rng.uniform(0, 1, (2, H, W)),
+        np.array([0.0, 1.0]),
+    ]
+    prior = [rng.normal(0, 1, (2, 2, 2)), rng.normal(0, 1, (1, 1, 2))]
+    return arrays, prior
+
+
+def _option_cfg(**kw):
+    # gamma = 0: the jitted JAX solve counts the event-masked TV's nonzero
+    # gradients on XLA's fused stencil, whose contracted products leave
+    # residues where the flow is flat (740 pixels here against 732 eager,
+    # a 1.4e-4 loss difference at level 0); the port's TV is JAX's eager one
+    # (test_torch_loss.py)
+    return jp.SolverConfig(
+        n_pyr_lvls=2, sensor_size=OPT_SENSOR,
+        params=JLossParams(alpha=20.0, beta=35.0, gamma=0.0, delta=0.0),
+        theta_opt_maxiters=(8, 6), theta_gtol=1e-6, **kw,
+    )
+
+
+def _hist(h, atol=1e-6):
+    return (int(h.n), np.asarray(h.xs), np.asarray(h.fs))
+
+
+@pytest.mark.parametrize("combo", sorted(OPTION_COMBOS))
+def test_solver_options_window_f64_matches_jax(combo):
+    """A handover window in float64 under the joint configurations: per
+    level the same iterations, evaluations and statuses, the same
+    trajectories and golden-section probes (within 1e-6), the same prior
+    loss; the port's host syncs are its reads through `to_host`."""
+    arrays, prior = _option_window()
+    jcfg = _option_cfg(**OPTION_COMBOS[combo])
+    with jax.enable_x64(True):
+        jres = jp.make_window_solver(jcfg)(
+            jp.WindowSample(*[jnp.asarray(a) for a in arrays]),
+            tuple(jnp.asarray(p) for p in prior), False,
+        )
+        jstats = [(*st, int(s.n_fun_evals)) for st, s in zip(_stats(jres), jres.theta_opt_states)]
+        jhists = [_hist(h) for h in jres.theta_histories]
+        jho = [None if h is None else _hist(h) for h in jres.handover_histories]
+        jprior_loss = float(jres.prior_loss_lvl0)
+        jtheta = np.asarray(jres.final_theta_pyr[0])
+    tcfg = compat.solver_config_from_dict(dataclasses.asdict(jcfg))
+    assert tcfg.max_ls_evals == jcfg.max_ls_evals
+    tres = tp.make_window_solver(tcfg, "cpu")(
+        compat.window_sample_from_numpy(*arrays, device="cpu"),
+        compat.theta_pyramid_from_numpy(prior), False,
+    )
+    assert [(*st, s.n_fun_evals) for st, s in zip(_stats(tres), tres.theta_opt_states)] == jstats
+    assert sum(s.total_iters for s in tres.theta_opt_states) > 4
+    for j, t in zip(jhists, tres.theta_histories):
+        assert t.n == j[0]
+        np.testing.assert_allclose(t.xs.numpy(), j[1], rtol=0, atol=1e-6)
+        np.testing.assert_allclose(t.fs.numpy(), j[2], rtol=0, atol=1e-6)
+    for lvl, (j, t) in enumerate(zip(jho, tres.handover_histories)):
+        assert (j is None) == (t is None) == (lvl not in tcfg.handover.solve_handover_for_levels)
+        if t is not None:
+            assert t.n == j[0] > 0
+            np.testing.assert_allclose(t.xs.numpy(), j[1], rtol=0, atol=1e-6)
+            np.testing.assert_allclose(t.fs.numpy(), j[2], rtol=0, atol=1e-6)
+    if tcfg.compute_prior_loss:
+        np.testing.assert_allclose(float(tres.prior_loss_lvl0), jprior_loss, rtol=1e-12)
+    else:
+        assert float(tres.prior_loss_lvl0) == jprior_loss == float("inf")
+    np.testing.assert_allclose(tres.final_theta_pyr[0].numpy(), jtheta, rtol=0, atol=1e-6)
+
+
+def test_every_option_on_solves_and_counts_its_host_reads(monkeypatch, capsys):
+    """Wolfe with every option on constructs and solves a window; the
+    heartbeat prints JAX's line per iteration and level; n_host_syncs
+    equals the reads through `utils/host.py:to_host` (the single place the
+    port reads a tensor on the host) and is trials + iterations + 1 per
+    level; no other op reads a value on the host (`item`, a 0-dim tensor
+    index, a boolean mask), which on the card would wait for the device."""
+    from eincm_tpu_torch.utils import host
+
+    calls = []
+    real = host.to_host
+    monkeypatch.setattr(host, "to_host", lambda t: calls.append(1) or real(t))
+    arrays, prior = _option_window(seed=7)
+    cfg = tp.SolverConfig(
+        n_pyr_lvls=2, sensor_size=OPT_SENSOR, params=tp.LossParams(20.0, 35.0),
+        theta_opt_maxiters=(5, 4), line_search="wolfe", collect_intermediate=True,
+        progress_heartbeat=True, compute_prior_loss=True, armijo_interpolate=True,
+        handover=tp.HandoverSettings(solve_handover_for_levels=(0,)),
+    )
+    assert cfg.max_ls_evals == 10
+    with torch.autograd.profiler.profile() as prof:
+        res = tp.make_window_solver(cfg, "cpu")(
+            compat.window_sample_from_numpy(*arrays, device="cpu"),
+            compat.theta_pyramid_from_numpy(prior), False,
+        )
+    host_reads = {"aten::_local_scalar_dense", "aten::nonzero"}
+    assert [e.name for e in prof.function_events if e.name in host_reads] == []
+    assert res.n_host_syncs == len(calls) == sum(
+        (s.n_fun_evals - 1) + s.total_iters + 1 for s in res.theta_opt_states)
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == sum(s.total_iters for s in res.theta_opt_states)
+    last = res.theta_histories[0]
+    assert lines[-1] == f"  [lvl 0] iter {last.n:3d}  loss {float(last.fs[last.n - 1]):.6f}"
+    assert float(last.fs[last.n - 1]) == float(res.theta_opt_states[0].fun_val)
+    assert np.isfinite(float(res.prior_loss_lvl0))
+    assert res.handover_histories[1] is None and res.handover_histories[0].n == 4 + 15
+
+
+def test_first_window_gets_empty_histories_and_no_prior_loss():
+    """A first window: +inf prior loss, and an empty (n = 0) handover
+    history of the solved one's shape where a weight would be solved."""
+    arrays, prior = _option_window(seed=8)
+    jcfg = _option_cfg(**OPTION_COMBOS["armijo_all_on"])
+    cfg = compat.solver_config_from_dict(dataclasses.asdict(jcfg))
+    res = tp.make_window_solver(cfg, "cpu")(
+        compat.window_sample_from_numpy(*arrays, device="cpu"),
+        cfg.zero_pyramid(torch.float64, device="cpu"), True,
+    )
+    assert float(res.prior_loss_lvl0) == float("inf")
+    h = res.handover_histories[0]
+    cap = 4 + 2 + cfg.handover_opt_maxiters[0]
+    assert h.n == 0 and h.xs.shape == h.fs.shape == (cap,)
+    assert h.xs.dtype == torch.float32 and h.fs.dtype == torch.float64
+    assert res.handover_histories[1] is None
+    assert [t.n for t in res.theta_histories] == [s.total_iters for s in res.theta_opt_states]
 
 
 def test_solver_refuses_a_sample_on_another_device():
