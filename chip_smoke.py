@@ -58,7 +58,21 @@ Phases, each failing loudly (any failure exits non-zero):
    at DSEC (GT + noise theta, as phase 5) and on each Wolfe window's final
    theta, on the card against the CPU: every value of `evals`, the counts
    exactly, the splat forward launched once to prepare and twice per
-   evaluation, the eval's ms per call and its host syncs.
+   evaluation, the eval's ms per call and its host syncs;
+8. [experiment] the port's experiment CLI (`python -m
+   eincm_tpu_torch.experiments`'s `main`) on `configs/mvsec_indoor.yaml`,
+   read by the port's YAML-free loader, with its own tuning (edge
+   preprocessing and the armijo rescue on; IEDT edges) over a synthetic
+   sequence at the config's 256x336 and 30k events: 8 windows at |V| =
+   5 px, checkpoints every 25%, SOLVE and EVAL (no PLOT: the card's
+   machine has no matplotlib), the launch counters read around it; the artifacts
+   validated, the mean AEE of windows 1-7 against the JAX package's reading
+   of the same experiment and every window's against zero flow; then a run
+   resumed from the first checkpoint (only the later windows solved, the
+   restored records bitwise the checkpoint's) and an EVAL-only run from the
+   saved `opt_results.npz`, whose scores.txt equals the first run's (the
+   flow-error lines exactly; the IWE metrics within the splat's float
+   atomics, TOL_SCORES relative).
 
 Every kernel's time stands beside its bound: the least time the card could
 take for the same work, the longer of the bytes it must move (each input
@@ -74,6 +88,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import sys
 import time
 
@@ -118,6 +133,28 @@ OK_STATUSES = {0, 1, 2, 4}
 # threshold and a pixel within the last bits of one may count on one side
 # and not on the other (a rate of 0 has no relative room); the AEE within:
 TOL_EVAL_AEE = 1e-5  # relative
+# px, mean over the [experiment] phase's windows 1..7: the JAX package's
+# reading of the same experiment (float32 on CPU,
+# tests/test_torch_experiment.py::test_chip_experiment_reading) plus the
+# 0.05 px band; zero flow scores |V| = 5 px at every window
+EXPERIMENT_JAX_AEE = 0.0759  # the port's own: 0.0765 px
+MAX_EXPERIMENT_AEE = EXPERIMENT_JAX_AEE + 0.05
+EXPERIMENT_SPEED = 5.0
+# The config's tuning stays (5 levels, alpha 20, beta 35, its Canny
+# thresholds, extra attempts, handover at level 0, preprocessing, the armijo
+# rescue). Its edges are smoothed with the EINCM IEDT, as the repo's MVSEC
+# workloads do: with the default Gaussian blur of one-pixel Canny edges the
+# beta term holds theta near zero on these dot scenes, in the JAX package
+# as in the port (AEE above zero flow's; the [gaussian] reading of the same
+# test)
+EXPERIMENT_OVERRIDES = (
+    "dataset.kind=synthetic", "dataset.n_windows=8", "dataset.velocity=[4.0, -3.0]",
+    "edge.smoothen_method=eincm_iedt", "phases.checkpoint_every_percent=25",
+    "phases.delete_checkpoints_at_end=false", "phases.plot=false",
+)
+# the EVAL-only rerun's scores against the first run's: the IWE metrics
+# sum the splat forward's float atomics, whose order differs run to run
+TOL_SCORES = 1e-5  # relative
 
 CHAIN_KERNELS = ("interp_fwd", "interp_bwd", "splat_fwd", "splat_bwd")
 BENCH_KERNELS = ("fused_warp_splat", "fully_fused_warp_splat", "interp_dense")
@@ -963,6 +1000,132 @@ def wolfe_chain(cfg, windows, vels, device):
     return results, launches, evals, row
 
 
+def _scores(path):
+    """scores.txt -> {metric: its line}."""
+    lines = [l for l in path.read_text().splitlines() if l and not l.startswith("#")]
+    return {l.split(":")[0]: l for l in lines}
+
+
+def _score_values(line):
+    return [float(v) for v in re.findall(r"-?\d+\.\d+", line.split(":", 1)[1])]
+
+
+def experiment_phase(card, device):
+    """Phase 8 (see the module docstring). Returns (record, launches)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from eincm_tpu_torch.experiments.__main__ import main as experiment_main
+    from eincm_tpu_torch.experiments.outputs import EINCMOutputLoader, validate_opt_results
+    from eincm_tpu_torch.ops import _build
+
+    config = Path(__file__).resolve().parent / "configs" / "mvsec_indoor.yaml"
+    base = ["--device", str(device), "--config", str(config), *EXPERIMENT_OVERRIDES]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _build.reset_launch_counts()
+        exp = experiment_main([*base, f"output_dir={tmp}/first"])
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+        first_s = time.perf_counter() - t0
+        loader = EINCMOutputLoader()
+        opt = loader.load_opt_results(exp.out_dir / "opt_results.npz")  # validates
+        validate_opt_results(opt, exp.solver_cfg.n_pyr_lvls)
+        loader.load_eval_results(exp.out_dir / "eval_results.npz")  # validates
+        n = len(exp.stats)
+        aees = [float(exp.eval_results[f"datasample_idx_{i}"]["evals"]["AEE"]) for i in range(n)]
+        solve_ms = [exp.stats[i]["solve_ms"] for i in range(n)]
+        rec = {
+            "card": card, "config": str(config.relative_to(config.parent.parent)),
+            "overrides": list(EXPERIMENT_OVERRIDES), "windows": n, "wall_s": first_s,
+            "stage_s": [exp.stats[i]["stage_s"] for i in range(n)],
+            "solve_ms": solve_ms,
+            "solve_ms_median_1_7": float(np.median(solve_ms[1:])),
+            "solve_ms_p90_1_7": float(np.percentile(solve_ms[1:], 90)),
+            "eval_ms": [exp.stats[i]["eval_ms"] for i in range(n)],
+            "host_syncs": [exp.stats[i]["host_syncs"] for i in range(n)],
+            "evals": [exp.stats[i]["evals"] for i in range(n)],
+            "rescue_attempts": exp.n_rescue_attempts, "rescued": exp.n_rescued,
+            "launches": {k: launches[k] for k in CHAIN_KERNELS},
+            "aee": aees, "mean_aee_1_7": float(np.mean(aees[1:])),
+        }
+        print(f"[experiment] {card}: {config.name} {' '.join(EXPERIMENT_OVERRIDES)}, "
+              f"{n} windows in {first_s:.2f} s")
+        print(f"[experiment] {card}: staging s per window "
+              f"{[round(s, 3) for s in rec['stage_s']]}")
+        print(f"[experiment] {card}: solve ms per window {[round(m, 1) for m in solve_ms]}; "
+              f"windows 1-7 median {rec['solve_ms_median_1_7']:.1f}, p90 "
+              f"{rec['solve_ms_p90_1_7']:.1f}")
+        print(f"[experiment] {card}: EVAL ms per window "
+              f"{[round(m, 2) for m in rec['eval_ms']]}")
+        print(f"[experiment] {card}: host syncs per window {rec['host_syncs']}; armijo "
+              f"rescue: {exp.n_rescue_attempts} attempts, {exp.n_rescued} replaced")
+        n_evals = sum(rec["evals"])
+        print(f"[experiment] {card}: kernel launches {rec['launches']}; {n_evals} BFGS loss "
+              f"evaluations ({rec['evals']} per window): per evaluation "
+              f"{ {k: round(v / n_evals, 4) for k, v in rec['launches'].items()} }")
+        print(f"[experiment] {card}: AEE per window {[round(a, 4) for a in aees]}; mean of "
+              f"windows 1-7 {rec['mean_aee_1_7']:.4f} px (limit {MAX_EXPERIMENT_AEE}; JAX on "
+              f"CPU {EXPERIMENT_JAX_AEE}; zero flow {EXPERIMENT_SPEED} px)")
+        missing = [k for k in CHAIN_KERNELS if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"[experiment] kernels not launched: {missing}")
+        if not rec["mean_aee_1_7"] <= MAX_EXPERIMENT_AEE:
+            raise AssertionError(f"[experiment] mean AEE {rec['mean_aee_1_7']} > "
+                                 f"{MAX_EXPERIMENT_AEE}")
+        if not max(aees) < EXPERIMENT_SPEED:
+            raise AssertionError(f"[experiment] a window's AEE is not below zero flow's: {aees}")
+
+        # resumed from the first checkpoint: only the later windows solve
+        ckpts = sorted(exp.ckpt_dir.glob("checkpoint_*.npz"))
+        if len(ckpts) != 4:
+            raise AssertionError(f"[experiment] checkpoints {[c.name for c in ckpts]}, not 4")
+        ck = np.load(ckpts[0], allow_pickle=True)["opt_results"].item()
+        resumed = experiment_main([*base, f"output_dir={tmp}/resumed", "phases.eval=false",
+                                   f"phases.run_from_checkpoint={ckpts[0]}"])
+        solved = sorted(i for i, s in resumed.stats.items() if "solve_ms" in s)
+        if solved != list(range(len(ck), n)) or len(resumed.opt_results) != n:
+            raise AssertionError(f"[experiment] resumed from {ckpts[0].name} "
+                                 f"({len(ck)} windows) solved {solved}")
+        for key, r in ck.items():
+            for group, levels in r["solver_final_results"].items():
+                for lvl, v in levels.items():
+                    got = resumed.opt_results[key]["solver_final_results"][group][lvl]
+                    if isinstance(v, np.ndarray) and not np.array_equal(got, v):
+                        raise AssertionError(f"[experiment] resumed {key} {group} {lvl} "
+                                             "differs from the checkpoint")
+        print(f"[experiment] {card}: resumed from {ckpts[0].name}: windows {solved} "
+              f"solved, the {len(ck)} restored records bitwise the checkpoint's")
+
+        # EVAL only, from the saved opt_results.npz
+        only_dir = Path(tmp) / "eval_only" / exp.out_dir.name
+        only_dir.mkdir(parents=True)
+        shutil.copy(exp.out_dir / "opt_results.npz", only_dir / "opt_results.npz")
+        only = experiment_main([*base, f"output_dir={only_dir.parent}", "phases.solve=false"])
+        a, b = _scores(exp.out_dir / "scores.txt"), _scores(only.out_dir / "scores.txt")
+        if list(a) != list(b):
+            raise AssertionError(f"[experiment] EVAL-only metrics {list(b)}, first {list(a)}")
+        worst = 0.0
+        for key in a:
+            if key.startswith(("AEE", "AREE", "n_")) or re.fullmatch(r"A\d+PE", key):
+                if a[key] != b[key]:
+                    raise AssertionError(f"[experiment] EVAL-only {b[key]!r}, first {a[key]!r}")
+                continue
+            for x, y in zip(_score_values(a[key]), _score_values(b[key])):
+                worst = max(worst, abs(x - y) / max(abs(x), 1e-30))
+        if not worst <= TOL_SCORES:
+            raise AssertionError(f"[experiment] EVAL-only scores differ by {worst:.3e}")
+        identical = (exp.out_dir / "scores.txt").read_text() == (
+            only.out_dir / "scores.txt").read_text()
+        print(f"[experiment] {card}: EVAL-only run from opt_results.npz: scores.txt "
+              f"{'identical' if identical else 'equal'} (flow errors exactly, IWE metrics "
+              f"worst {worst:.3e} relative)")
+        rec.update(resumed_solved=solved, eval_only_identical=identical,
+                   eval_only_worst_rel=worst)
+    return rec, launches
+
+
 def gt_theta(vel, shape, device):
     th = torch.empty((*shape, 2), dtype=torch.float32, device=device)
     th[..., 0], th[..., 1] = vel
@@ -1193,6 +1356,9 @@ def main(argv=None) -> int:
     print(f"[eval] MVSEC Wolfe windows: eval AEE {[round(a, 4) for a in eval_rows['mvsec']['aee']]}"
           f", ms per evaluation {[round(m, 3) for m in eval_rows['mvsec']['ms']]}")
 
+    # ---- 8. [experiment] the experiment CLI over a config file --------------
+    exp_row, exp_launches = experiment_phase(card, device)
+
     launches = {**{k: chain_launches[k] for k in CHAIN_KERNELS},
                 **{k: bench_launches[k] for k in BENCH_KERNELS},
                 **{k: f64_launches[k] + wrap_launches[k] for k in DIRECT_KERNELS}}
@@ -1211,6 +1377,7 @@ def main(argv=None) -> int:
             entry["dsec_loss_launches"] = dsec_launches[name]
             entry["wolfe_launches"] = wolfe_launches[name]
             entry["wolfe_launches_per_loss_eval"] = wolfe_launches[name] / wevals
+            entry["experiment_launches"] = exp_launches[name]
         if name == "splat_fwd":
             entry["eval_launches_per_call"] = 2
             entry["eval_prepare_launches"] = 1
@@ -1222,7 +1389,7 @@ def main(argv=None) -> int:
         kernels.append(entry)
     paths = {"card": card, "armijo": {"windows": chain_recs, "mean_aee": mean_aee,
                                       "median_ms": float(np.median([r["ms"] for r in chain_recs[1:]]))},
-             "wolfe": wolfe_row, "eval": eval_rows}
+             "wolfe": wolfe_row, "eval": eval_rows, "experiment": exp_row}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"kernels": kernels, **paths}, f, indent=1)

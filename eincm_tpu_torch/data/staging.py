@@ -48,7 +48,7 @@ def stage_datasample(
     datasample: Dict,
     device,
     edge_fn: Optional[Callable] = None,
-    preprocess: bool = False,
+    preprocess: bool = True,
     pad_to: Optional[int] = None,
     dtype: torch.dtype = torch.float32,
 ) -> StagedSample:
@@ -62,9 +62,8 @@ def stage_datasample(
         edge_fn: images -> (n_imgs, H, W) edge maps; defaults to Canny with
             Gaussian smoothing.
         preprocess: the default edge function's frame preprocessing
-            (NL-means, CLAHE, bilateral). False by default, where the JAX
-            package defaults to True: the preprocessing is not ported yet
-            and True raises.
+            (NL-means, CLAHE, sharpening, bilateral), on by default as in
+            the JAX package.
         pad_to: pad events to this fixed count with NaNs.
     """
     ev = datasample["events"]

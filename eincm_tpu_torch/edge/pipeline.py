@@ -1,9 +1,15 @@
-"""The edge-extraction pipeline: Canny -> smoothen/IEDT, on the host.
+"""The edge-extraction pipeline: preprocess -> Canny -> smoothen/IEDT, on the host.
 
 Carried over from eincm_tpu/edge/pipeline.py (reference staging:
-src/experiments/e00/exp_mgr.py:335-350) in numpy and scipy. The frame
-preprocessing (NL-means, CLAHE, sharpening, bilateral filter) is not
-carried over yet: `extract_edges(preprocess=True)` raises.
+src/experiments/e00/exp_mgr.py:335-350) in numpy and scipy. Per frame:
+  1. preprocess_image: NL-means denoise -> CLAHE -> unsharp sharpen ->
+     bilateral filter (src/utils/img_utils.py:131-189)
+  2. image_to_edge: Canny (src/utils/img_utils.py:192-208)
+  3. smoothen: Gaussian edge blunting (img_utils.py:210-220) or an IEDT
+     surface (img_utils.py:223-233)
+with unit-range normalization around each stage. The JAX package's C++
+backend (eincm_tpu/native) is not carried over: the numpy filters it
+falls back to are what the port runs.
 """
 
 from __future__ import annotations
@@ -12,10 +18,13 @@ import sys
 from typing import Callable, Optional
 
 import numpy as np
-from scipy.ndimage import convolve1d
 
+from eincm_tpu_torch.edge import filters_np
 from eincm_tpu_torch.edge.canny import canny
-from eincm_tpu_torch.edge.iedt import eincm_inv_exp_dist_transform
+from eincm_tpu_torch.edge.iedt import (  # noqa: F401  (re-exported)
+    eincm_inv_exp_dist_transform,
+    rtef_inv_exp_dist_transform,
+)
 
 EPSN = sys.float_info.epsilon
 
@@ -28,21 +37,46 @@ def _to_uint8(img: np.ndarray) -> np.ndarray:
     return np.round((img - lo) / (hi - lo + EPSN) * 255).astype(np.uint8)
 
 
+def preprocess_image(
+    img: np.ndarray,
+    denoise_h: float = 4,
+    denoise_template_win_size: int = 3,
+    denoise_search_win_size: int = 11,
+    clahe_clip_limit: float = 5,
+    clahe_tile_grid_size: tuple = (10, 10),
+    sharpen_kernel_size: int = 3,
+    sharpen_sigma_x: float = 2,
+    sharpen_alpha: float = 1.5,
+    sharpen_beta: float = -0.5,
+    bilateral_filter_neigh_diameter: int = 5,
+    bilateral_filter_sigma_color: float = 15,
+    bilateral_filter_sigma_space: float = 15,
+) -> np.ndarray:
+    """Frame-quality pipeline ahead of edge detection (img_utils.py:131-189)."""
+    img = _to_uint8(img)
+    denoised = filters_np.nl_means_denoise(
+        img, denoise_h, denoise_template_win_size, denoise_search_win_size
+    )
+    equalized = filters_np.clahe(
+        denoised, clahe_clip_limit, tuple(clahe_tile_grid_size)
+    )
+    blurred = filters_np.gaussian_blur(equalized, sharpen_sigma_x)
+    sharpened = filters_np.add_weighted(
+        equalized, sharpen_alpha, blurred, sharpen_beta
+    )
+    return filters_np.bilateral_filter(
+        _to_uint8(sharpened),
+        bilateral_filter_neigh_diameter,
+        bilateral_filter_sigma_color,
+        bilateral_filter_sigma_space,
+    )
+
+
 def image_to_edge(
     img: np.ndarray, apert_size: int = 3, th1: float = 30, th2: float = 80
 ) -> np.ndarray:
     """Canny edges, L2 gradient (img_utils.py:192-208)."""
     return canny(_to_uint8(img), th1, th2, apert_size, True)
-
-
-def _gaussian_blur(img: np.ndarray, sigma: float) -> np.ndarray:
-    """Separable Gaussian blur with reflected borders (cv BORDER_REFLECT_101)."""
-    radius = max(1, int(np.ceil(3.0 * sigma)))
-    x = np.arange(-radius, radius + 1, dtype=np.float64)
-    k = np.exp(-0.5 * (x / sigma) ** 2)
-    k = k / k.sum()
-    out = convolve1d(img.astype(np.float64), k, axis=0, mode="mirror")
-    return convolve1d(out, k, axis=1, mode="mirror")
 
 
 def smoothen_edges(edge_img: np.ndarray, k_size: float = 1, sigma: float = 1
@@ -51,7 +85,7 @@ def smoothen_edges(edge_img: np.ndarray, k_size: float = 1, sigma: float = 1
     otherwise it follows OpenCV's rule from the kernel size."""
     if sigma <= 0:
         sigma = 0.3 * ((float(k_size) - 1) * 0.5 - 1) + 0.8
-    return _gaussian_blur(edge_img.astype(np.float64), max(sigma, 0.8))
+    return filters_np.gaussian_blur(edge_img.astype(np.float64), max(sigma, 0.8))
 
 
 def extract_edges(
@@ -61,16 +95,16 @@ def extract_edges(
     canny_th1: float = 30,
     canny_th2: float = 80,
     canny_aperture: int = 3,
+    preprocess_kwargs: Optional[dict] = None,
 ) -> np.ndarray:
     """Per-frame pipeline over a stack of grayscale images -> (N, H, W):
-    canny -> normalize(smoothen(edges)) (exp_mgr.py:335-350)."""
-    if preprocess:
-        raise NotImplementedError(
-            "edge preprocessing (NL-means, CLAHE, bilateral) is not ported"
-        )
+    normalize(preprocess) -> canny -> normalize(smoothen(edges))
+    (exp_mgr.py:335-350)."""
     smoothen_fn = smoothen_fn or smoothen_edges
     out = []
     for img in images:
+        if preprocess:
+            img = preprocess_image(img, **(preprocess_kwargs or {}))
         edges = image_to_edge(img, canny_aperture, canny_th1, canny_th2)
         sm = np.asarray(smoothen_fn(edges), np.float64)
         out.append((sm - sm.min()) / (sm.max() - sm.min() + EPSN))

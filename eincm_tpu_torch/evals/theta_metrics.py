@@ -20,7 +20,6 @@ from __future__ import annotations
 import time
 from typing import Dict, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from eincm_tpu_torch.evals.flow_metrics import sparse_flow_error
@@ -36,8 +35,6 @@ from eincm_tpu_torch.ops.splat import events_to_pdf_frame
 from eincm_tpu_torch.utils import host
 
 _BUCKET = 8192
-
-_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64, torch.int64: np.int64}
 
 
 def _eval_bundle(
@@ -96,33 +93,6 @@ def _eval_bundle(
         pred_flow = per_pix_theta_to_flow(theta_array, xs, ys, ts)
         small["flow_errors"] = sparse_flow_error(pred_flow, gt_flow, err_mask)
     return small, objs
-
-
-def _leaves(tree, path=()):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaves(v, path + (k,))
-    else:
-        yield path, tree
-
-
-def _to_host(small: Dict) -> Dict:
-    """The bundle as numpy arrays of each tensor's dtype and shape, in one
-    device -> host transfer (every value exact in float64)."""
-    leaves = list(_leaves(small))
-    flat = torch.cat([t.reshape(-1).to(torch.float64) for _, t in leaves])
-    vals = host.to_host(flat)
-    out: Dict = {}
-    i = 0
-    for path, t in leaves:
-        n = t.numel()
-        arr = np.asarray(vals[i : i + n], _NP_DTYPES[t.dtype]).reshape(tuple(t.shape))
-        i += n
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = arr
-    return out
 
 
 @torch.no_grad()
@@ -259,6 +229,6 @@ def evaluate_theta_array(
         theta_array, eval_xs, eval_ys, eval_ts, edges, edge_ts,
         gt_flow, err_eval_event_mask, pvec, window_statics, sensor_size,
     )
-    small = _to_host(small)
+    small = host.tree_to_host(small)
     time_str, eval_str, evals = format_eval_result(small, sensor_size, gt_flow is not None)
     return time_str, eval_str, evals, loss_obj

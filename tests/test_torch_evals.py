@@ -481,7 +481,7 @@ def test_staged_sample_matches_jax(units):
         sample["events"] = dict(sample["events"], t=sample["events"]["t"] * 1e6)
         sample["image_ts"] = sample["image_ts"] * 1e6
     ref = jax_stage(sample, preprocess=False, pad_to=4096)
-    got = stage_datasample(sample, "cpu", pad_to=4096)
+    got = stage_datasample(sample, "cpu", preprocess=False, pad_to=4096)
     for a, b in zip(ref.window, got.window):
         assert b.device.type == "cpu" and b.dtype == torch.float32
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
@@ -496,5 +496,8 @@ def test_staged_sample_matches_jax(units):
     for field in ("t_ref", "eval_ts", "eval_ts_units", "file_idx", "n_event_deficiency"):
         assert getattr(got, field) == getattr(ref, field), field
     assert got.eval_ts_units == units and got.file_idx == 7
-    with pytest.raises(NotImplementedError):
-        stage_datasample(sample, "cpu", preprocess=True)
+    # the default preprocesses the frames, as the JAX package's does (held
+    # to JAX in tests/test_torch_edge_preprocess.py)
+    default = stage_datasample(sample, "cpu", pad_to=4096)
+    pre = stage_datasample(sample, "cpu", preprocess=True, pad_to=4096)
+    np.testing.assert_array_equal(default.window.edges.numpy(), pre.window.edges.numpy())

@@ -1,5 +1,7 @@
 """eincm_tpu_torch runs where JAX and PyYAML are not installed, as on the
-GPU machine; chip_smoke.py refuses to report without a CUDA device."""
+GPU machine, and imports matplotlib, PIL and h5py (which that machine
+lacks too) only inside the functions that use them; the shipped configs
+load there. chip_smoke.py refuses to report without a CUDA device."""
 
 import os
 import shutil
@@ -13,6 +15,11 @@ _BLOCKED = """
 import sys
 sys.modules["jax"] = None
 sys.modules["yaml"] = None
+# the card's machine has none of these: the port imports them in the
+# functions that use them
+sys.modules["matplotlib"] = None
+sys.modules["PIL"] = None
+sys.modules["h5py"] = None
 import importlib, pkgutil
 import eincm_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(eincm_tpu_torch.__path__, "eincm_tpu_torch.")]
@@ -33,9 +40,16 @@ loss = solver_loss(theta, xs, ys, ts, edges, edge_ts, LossParams(20.0, 35.0),
                    0, LossStatics((24, 32), 3), ws)
 loss.backward()
 assert torch.isfinite(loss) and torch.isfinite(theta.grad).all()
-assert not any(m == "jax" or m.startswith(("jax.", "eincm_tpu."))
+# the shipped configs load without PyYAML
+import pathlib
+from eincm_tpu_torch.experiments.config import load_config
+configs = sorted(pathlib.Path("configs").glob("*.yaml"))
+assert len(configs) == 5
+for path in configs:
+    load_config(str(path)).solver_config()
+assert not any(m == "jax" or m.startswith(("jax.", "eincm_tpu.", "matplotlib", "PIL", "h5py"))
                for m in sys.modules if sys.modules[m] is not None)
-print("imported", len(names), "modules")
+print("imported", len(names), "modules; loaded", len(configs), "configs")
 """
 
 
