@@ -1,8 +1,8 @@
 """Inverse exponential distance transforms (IEDT) of edge maps.
 
-Carried over from eincm_tpu/edge/iedt.py, with scipy's exact Euclidean
-distance transform (the native C++ transform is not carried over; the EDT
-is unique, so both give the same map):
+Carried over from eincm_tpu/edge/iedt.py. The exact Euclidean distance
+transform is the native C++ one (Meijster) where the library is built, as
+in the JAX package, and scipy's otherwise (the EDT is unique):
 - `eincm_inv_exp_dist_transform` (src/utils/img_utils.py:229-233):
   exponential saturation of the EDT, then inverted unit-range
   normalization.
@@ -18,7 +18,16 @@ import sys
 import numpy as np
 from scipy.ndimage import distance_transform_edt
 
+from eincm_tpu_torch.native import vision as _native
+
 EPSN = sys.float_info.epsilon
+
+
+def _exact_edt(not_edge: np.ndarray) -> np.ndarray:
+    """Exact Euclidean distance to the nearest edge pixel."""
+    if _native.available():
+        return _native.exact_edt(~not_edge)
+    return distance_transform_edt(not_edge)
 
 
 def _normalize(arr: np.ndarray) -> np.ndarray:
@@ -27,7 +36,7 @@ def _normalize(arr: np.ndarray) -> np.ndarray:
 
 def eincm_inv_exp_dist_transform(edge_img: np.ndarray, alpha: float = 6) -> np.ndarray:
     """1 - normalize(1 - exp(-EDT / alpha)): 1 on edges, decaying away."""
-    edt = distance_transform_edt(~edge_img.astype(bool))
+    edt = _exact_edt(~edge_img.astype(bool))
     exp_dt = 1.0 - np.exp(-edt / alpha)
     return 1.0 - _normalize(exp_dt)
 
@@ -56,7 +65,7 @@ def rtef_iedt(
     )
     a = alpha if alpha is not None else d_sat / 5.541
 
-    surf = distance_transform_edt(~edge_img.astype(bool)).astype(np.float64)
+    surf = _exact_edt(~edge_img.astype(bool)).astype(np.float64)
     if formulation == "linear":
         pass
     elif formulation == "linear-bound":

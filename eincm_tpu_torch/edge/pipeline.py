@@ -7,9 +7,14 @@ src/experiments/e00/exp_mgr.py:335-350) in numpy and scipy. Per frame:
   2. image_to_edge: Canny (src/utils/img_utils.py:192-208)
   3. smoothen: Gaussian edge blunting (img_utils.py:210-220) or an IEDT
      surface (img_utils.py:223-233)
-with unit-range normalization around each stage. The JAX package's C++
-backend (eincm_tpu/native) is not carried over: the numpy filters it
-falls back to are what the port runs.
+with unit-range normalization around each stage.
+
+As in the JAX package, NL-means, CLAHE, the bilateral filter and Canny
+(Sobel-3) run the C++ filters of `eincm_tpu_torch/native` when g++ has
+built them, and the numpy filters otherwise; the two NL-means and CLAHE
+differ by one grey level on a few pixels, so the choice is the JAX
+package's. An error inside a native filter is raised, never answered by
+the numpy one.
 """
 
 from __future__ import annotations
@@ -25,8 +30,17 @@ from eincm_tpu_torch.edge.iedt import (  # noqa: F401  (re-exported)
     eincm_inv_exp_dist_transform,
     rtef_inv_exp_dist_transform,
 )
+from eincm_tpu_torch.native import vision as _native
 
 EPSN = sys.float_info.epsilon
+
+
+def _native_or(fallback):
+    """The native filter named as `fallback` where the library is built,
+    else `fallback` (eincm_tpu/edge/pipeline.py:_native_or)."""
+    if _native.available() and hasattr(_native, fallback.__name__):
+        return getattr(_native, fallback.__name__)
+    return fallback
 
 
 def _to_uint8(img: np.ndarray) -> np.ndarray:
@@ -54,17 +68,19 @@ def preprocess_image(
 ) -> np.ndarray:
     """Frame-quality pipeline ahead of edge detection (img_utils.py:131-189)."""
     img = _to_uint8(img)
-    denoised = filters_np.nl_means_denoise(
+    nl_means = _native_or(filters_np.nl_means_denoise)
+    clahe_fn = _native_or(filters_np.clahe)
+    bilateral = _native_or(filters_np.bilateral_filter)
+
+    denoised = nl_means(
         img, denoise_h, denoise_template_win_size, denoise_search_win_size
     )
-    equalized = filters_np.clahe(
-        denoised, clahe_clip_limit, tuple(clahe_tile_grid_size)
-    )
+    equalized = clahe_fn(denoised, clahe_clip_limit, tuple(clahe_tile_grid_size))
     blurred = filters_np.gaussian_blur(equalized, sharpen_sigma_x)
     sharpened = filters_np.add_weighted(
         equalized, sharpen_alpha, blurred, sharpen_beta
     )
-    return filters_np.bilateral_filter(
+    return bilateral(
         _to_uint8(sharpened),
         bilateral_filter_neigh_diameter,
         bilateral_filter_sigma_color,
@@ -75,8 +91,10 @@ def preprocess_image(
 def image_to_edge(
     img: np.ndarray, apert_size: int = 3, th1: float = 30, th2: float = 80
 ) -> np.ndarray:
-    """Canny edges, L2 gradient (img_utils.py:192-208)."""
-    return canny(_to_uint8(img), th1, th2, apert_size, True)
+    """Canny edges, L2 gradient (img_utils.py:192-208); the native kernel's
+    gradients are Sobel-3 only, so other apertures take numpy."""
+    canny_fn = _native_or(canny) if apert_size == 3 else canny
+    return canny_fn(_to_uint8(img), th1, th2, apert_size, True)
 
 
 def smoothen_edges(edge_img: np.ndarray, k_size: float = 1, sigma: float = 1

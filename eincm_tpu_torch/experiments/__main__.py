@@ -9,7 +9,7 @@ src/experiments/e00/__main__.py:25-38), with the same arguments plus
     python -m eincm_tpu_torch.experiments --device cpu --config configs/synthetic.yaml
 
 The config raises for the settings the port does not run (distributed,
-jax_config, compilation_cache_dir, the real-data loaders).
+jax_config, compilation_cache_dir).
 """
 
 from __future__ import annotations

@@ -7,9 +7,8 @@ keys and values and each package reads the other's artifacts. YAML is read
 by `utils/yaml_lite.py` (no PyYAML on the card's machine).
 
 What the port does not run raises `NotImplementedError` instead of giving
-a different run: the real-data loaders (`ecd`, `mvsec`, `dsec`),
-`distributed.enable`, `jax_config` and `compilation_cache_dir` (XLA
-settings have no meaning in PyTorch). The solver switches `splat_impl`,
+a different run: `distributed.enable`, `jax_config` and
+`compilation_cache_dir` (XLA settings have no meaning in PyTorch). The solver switches `splat_impl`,
 `interp_impl`, `splat_multiref_stacked` and `scan_levels` choose between
 implementations of one function in the JAX package; the port has one of
 each, so they are accepted and ignored.
@@ -26,8 +25,6 @@ import numpy as np
 from eincm_tpu_torch.models.loss import LossParams
 from eincm_tpu_torch.models.pyramid import HandoverSettings, SolverConfig
 from eincm_tpu_torch.utils import yaml_lite
-
-_LOADERS_ITEM = "ROADMAP.md, Queue 1, item 5 (the DSEC, MVSEC and ECD loaders)"
 
 
 @dataclass(frozen=True)
@@ -75,9 +72,28 @@ class DatasetConfig:
                 seed=self.seed,
                 shear=self.shear,
             )
-        if self.kind in ("ecd", "mvsec", "dsec"):
-            raise NotImplementedError(
-                f"the {self.kind} loader is not ported yet: {_LOADERS_ITEM}"
+        if self.kind == "ecd":
+            from eincm_tpu_torch.data.ecd import ECDDataLoader
+
+            return ECDDataLoader(
+                self.root_dir, self.sequence_name, self.des_n_events,
+                self.delta_idx, self.prefer_latest_events,
+            )
+        if self.kind == "mvsec":
+            from eincm_tpu_torch.data.mvsec import MVSECDataLoader
+
+            return MVSECDataLoader(
+                self.root_dir, self.sequence_name, self.delta_idx,
+                self.des_n_events, self.load_more_images,
+                self.use_new_pruning_limits, self.prefer_latest_events,
+            )
+        if self.kind == "dsec":
+            from eincm_tpu_torch.data.dsec import DSECDataLoader
+
+            return DSECDataLoader(
+                self.root_dir, self.sequence_name, self.des_n_events,
+                self.data_split, self.extended, self.prefer_latest_events,
+                sensor_size=tuple(self.sensor_size),
             )
         raise ValueError(f"unknown dataset kind {self.kind!r}")
 

@@ -3,9 +3,12 @@
 The DSEC submission format is 16-bit 3-channel PNG
 (src/dsec_npz_to_png.py:94-101 writes via imageio's FreeImage plugin, which
 needs a downloaded binary). This codec handles exactly that subset: 8- or
-16-bit, greyscale or RGB, no interlacing, filter type 0.
+16-bit, greyscale or RGB, no interlacing; it writes filter type 0 and reads
+all five filter types.
 
-Carried over unchanged from eincm_tpu/utils/png16.py.
+Carried over from eincm_tpu/utils/png16.py; the reader's per-byte loops
+are vectorized (rows of None, Sub and Up filters row by row, images with
+Average or Paeth rows along anti-diagonals of pixels), bitwise the same.
 """
 
 from __future__ import annotations
@@ -80,44 +83,73 @@ def read_png16(path) -> np.ndarray:
         elif tag == b"IEND":
             break
     w, h, depth, color_type, _, _, interlace = ihdr
-    assert interlace == 0, "interlaced PNG unsupported"
+    if interlace != 0:
+        raise ValueError(f"{path}: an interlaced PNG is not supported")
+    if color_type not in (0, 2) or depth not in (8, 16):
+        kind = {0: "greyscale", 2: "RGB", 3: "palette", 4: "greyscale + alpha",
+                6: "RGBA"}.get(color_type, "unknown")
+        raise ValueError(f"{path}: PNG colour type {color_type} ({kind}) at "
+                         f"{depth} bits is not supported (8/16-bit grey or RGB)")
     c = {0: 1, 2: 3}[color_type]
     bypp = c * (depth // 8)  # bytes per pixel
     stride = w * bypp
 
-    raw = zlib.decompress(idat)
-    out = bytearray(h * stride)
-    prev = bytearray(stride)
-    pos = 0
-    for y in range(h):
-        ftype = raw[pos]
-        line = bytearray(raw[pos + 1 : pos + 1 + stride])
-        pos += 1 + stride
-        if ftype == 1:  # sub
-            for i in range(bypp, stride):
-                line[i] = (line[i] + line[i - bypp]) & 0xFF
-        elif ftype == 2:  # up
-            for i in range(stride):
-                line[i] = (line[i] + prev[i]) & 0xFF
-        elif ftype == 3:  # average
-            for i in range(stride):
-                left = line[i - bypp] if i >= bypp else 0
-                line[i] = (line[i] + ((left + prev[i]) >> 1)) & 0xFF
-        elif ftype == 4:  # paeth
-            for i in range(stride):
-                a = line[i - bypp] if i >= bypp else 0
-                b = prev[i]
-                cc = prev[i - bypp] if i >= bypp else 0
-                p = a + b - cc
-                pa, pb, pc = abs(p - a), abs(p - b), abs(p - cc)
-                pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else cc)
-                line[i] = (line[i] + pred) & 0xFF
-        elif ftype != 0:
-            raise ValueError(f"unsupported filter {ftype}")
-        out[y * stride : (y + 1) * stride] = line
-        prev = line
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8)
+    if raw.size != h * (stride + 1):
+        raise ValueError(f"{path}: {raw.size} bytes of image data, not {h * (stride + 1)}")
+    raw = raw.reshape(h, stride + 1)
+    ftypes, lines = raw[:, 0], raw[:, 1:].reshape(h, w, bypp)
+    if ftypes.max(initial=0) > 4:
+        raise ValueError(f"{path}: unsupported filter {int(ftypes.max())}")
+    out = _unfilter_rows(ftypes, lines) if ftypes.max(initial=0) <= 2 else (
+        _unfilter_diagonals(ftypes, lines))
 
     dtype = np.dtype(">u2") if depth == 16 else np.uint8
-    arr = np.frombuffer(bytes(out), dtype).reshape(h, w, c)
+    arr = np.frombuffer(out.tobytes(), dtype).reshape(h, w, c)
     arr = arr.astype(np.uint16 if depth == 16 else np.uint8)
     return arr[..., 0] if c == 1 else arr
+
+
+def _unfilter_rows(ftypes: np.ndarray, lines: np.ndarray) -> np.ndarray:
+    """None, Sub and Up rows (h, w, bytes per pixel), one row at a time: Sub
+    is a running sum along the row, Up a sum with the row above, mod 256."""
+    out = np.empty_like(lines)
+    prev = np.zeros_like(lines[0])
+    for y, f in enumerate(ftypes):
+        line = lines[y]
+        if f == 1:
+            line = np.cumsum(line, axis=0, dtype=np.uint8)
+        elif f == 2:
+            line = line + prev
+        out[y] = line
+        prev = out[y]
+    return out
+
+
+def _unfilter_diagonals(ftypes: np.ndarray, lines: np.ndarray) -> np.ndarray:
+    """Rows of any filter, along the anti-diagonals y + x = d. A pixel needs
+    its left, upper and upper-left neighbours, which lie on the two earlier
+    diagonals, so each diagonal is one vector step over all rows. The image
+    is skewed so a diagonal is one row of `rec`: rec[d + 2, y + 1] holds
+    pixel (y, d - y); pixels left of the image stay 0 (their data is 0 and
+    so are their neighbours), those right of it are never read."""
+    h, w, bypp = lines.shape
+    ys, ds = np.arange(h)[None, :], np.arange(h + w - 1)[:, None]
+    xs = ds - ys
+    inside = (xs >= 0) & (xs < w)
+    data = np.where(inside[..., None], lines[ys, np.clip(xs, 0, w - 1)], 0).astype(np.int16)
+    rec = np.zeros((h + w + 1, h + 1, bypp), np.int16)
+    f = ftypes[:, None]
+    sub, up, avg, paeth = ((f == k).astype(np.int16) for k in (1, 2, 3, 4))
+    any_avg, any_paeth = bool(avg.any()), bool(paeth.any())
+    for d in range(h + w - 1):
+        a, b, c = rec[d + 1, 1:], rec[d + 1, :-1], rec[d, :-1]
+        pred = sub * a + up * b
+        if any_avg:
+            pred += avg * ((a + b) >> 1)
+        if any_paeth:
+            pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+            pred += paeth * np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        rec[d + 2, 1:] = (data[d] + pred) & 0xFF
+    ry = np.arange(h)[:, None]
+    return rec[ry + np.arange(w)[None, :] + 2, ry + 1].astype(np.uint8)

@@ -1,15 +1,17 @@
 """A reader for the subset of YAML that the experiment configs use.
 
 The card's machine has no PyYAML. This reader gives what `yaml.safe_load`
-gives (YAML 1.1 resolution) for what `configs/*.yaml` and command-line
-overrides use: nested block mappings, `#` comments, one-line flow lists
-(`[480, 640]`) and flow maps (`{0: 2, 1: 2}`), plain and quoted scalars
-resolved as ints, floats, bools (`on`/`off`/`yes`/`no` too), `null`/`~`
-and strings. It never guesses: valid YAML outside the subset (anchors,
-aliases, tags, block scalars `|` and `>`, `- ` block lists, multi-line
-flow collections or plain scalars, several documents, timestamps, merge
-keys) raises `UnsupportedYAML`, and input that `yaml.safe_load` rejects
-too raises `YAMLSyntaxError`; both are `ValueError`s naming the line.
+gives (YAML 1.1 resolution) for what `configs/*.yaml`, command-line
+overrides and DSEC's `cam_to_cam.yaml` use: nested block mappings, block
+sequences (`- x`, nested as `- - x`, holding mappings as `- k: v`, and at
+their key's indent as `yaml.safe_dump` writes them), `#` comments,
+one-line flow lists (`[480, 640]`) and flow maps (`{0: 2, 1: 2}`), plain
+and quoted scalars resolved as ints, floats, bools (`on`/`off`/`yes`/`no`
+too), `null`/`~` and strings. It never guesses: valid YAML outside the
+subset (anchors, aliases, tags, block scalars `|` and `>`, multi-line flow
+collections or plain scalars, several documents, timestamps, merge keys)
+raises `UnsupportedYAML`, and input that `yaml.safe_load` rejects too
+raises `YAMLSyntaxError`; both are `ValueError`s naming the line.
 """
 
 from __future__ import annotations
@@ -301,17 +303,48 @@ def loads(text: str) -> Any:
     return node
 
 
+def _is_item(content: str) -> bool:
+    """Whether a line's content is a block sequence entry ('- ...')."""
+    return content == "-" or content[:2] in ("- ", "-\t")
+
+
 def _block(lines, i: int, indent: int) -> Tuple[Any, int]:
     lineno, _, content = lines[i]
+    if _is_item(content):
+        return _sequence(lines, i, indent)
     if _key_split(content) >= 0:
         return _mapping(lines, i, indent)
     line = _Line(content, lineno, more_lines=i + 1 < len(lines))
     node = line.node(flow=False)
     line.rest("a node")
-    if i + 1 < len(lines):
+    if i + 1 < len(lines) and lines[i + 1][1] >= indent:
         raise UnsupportedYAML(f"line {lines[i + 1][0]}: a scalar over several lines "
                               "is not supported")
     return node, i + 1
+
+
+def _sequence(lines, i: int, indent: int) -> Tuple[list, int]:
+    """A block sequence whose '-' stand at `indent`. An entry's node starts
+    after its '- ' and is read as a block at that column, so '- - x' nests a
+    sequence and '- k: v' (with its further keys below 'k') holds a mapping."""
+    out: list = []
+    while i < len(lines) and lines[i][1] == indent and _is_item(lines[i][2]):
+        lineno, _, content = lines[i]
+        rest = content[1:].lstrip(_SPACE)
+        if not rest:  # '-' alone: the entry is the block below it, or null
+            i += 1
+            if i < len(lines) and lines[i][1] > indent:
+                value, i = _block(lines, i, lines[i][1])
+            else:
+                value = None
+        else:
+            column = indent + len(content) - len(rest)
+            lines[i] = (lineno, column, rest)
+            value, i = _block(lines, i, column)
+        out.append(value)
+    if i < len(lines) and lines[i][1] > indent:
+        raise YAMLSyntaxError(f"line {lines[i][0]}: bad indentation: {lines[i][2]!r}")
+    return out, i
 
 
 def _mapping(lines, i: int, indent: int) -> Tuple[dict, int]:
@@ -323,10 +356,10 @@ def _mapping(lines, i: int, indent: int) -> Tuple[dict, int]:
         if ind > indent:
             raise YAMLSyntaxError(f"line {lineno}: bad indentation: {content!r}")
         colon = _key_split(content)
+        if _is_item(content):
+            raise YAMLSyntaxError(f"line {lineno}: a block sequence entry among "
+                                  f"a mapping's keys: {content!r}")
         if colon < 0:
-            if content == "-" or content.startswith(("- ", "-\t")):
-                raise UnsupportedYAML(f"line {lineno}: a block sequence is not "
-                                      f"supported: {content!r}")
             raise YAMLSyntaxError(f"line {lineno}: expected 'key: value': {content!r}")
         key_line = _Line(content[:colon].rstrip(), lineno, more_lines=False)
         if key_line.peek() in "[{?":
@@ -335,10 +368,13 @@ def _mapping(lines, i: int, indent: int) -> Tuple[dict, int]:
         key_line.rest("a key")
         value_text = content[colon + 1 :].strip()
         nested = i + 1 < len(lines) and lines[i + 1][1] > indent
+        # a block sequence may stand at its key's indent ('key:' then '- x')
+        sequence = (i + 1 < len(lines) and lines[i + 1][1] == indent
+                    and _is_item(lines[i + 1][2]))
         i += 1
         if not value_text:
             value = None
-            if nested:
+            if nested or sequence:
                 value, i = _block(lines, i, lines[i][1])
         else:
             line = _Line(value_text, lineno, more_lines=i < len(lines))

@@ -1,15 +1,16 @@
 """The port's edge preprocessing (eincm_tpu_torch/edge/) against the JAX
-package's numpy filters, bitwise, on seeded uint8 frames. The JAX package
-prefers its C++ backend (eincm_tpu/native) where it is built; the port
-carries only the numpy filters, so the pipeline comparisons turn the
-backend off in the JAX package for the test (monkeypatch), as if it were
-not built."""
+package's numpy filters, bitwise, on seeded uint8 frames. Both packages
+prefer their C++ filters (eincm_tpu/native, eincm_tpu_torch/native) where
+they are built; these comparisons turn the C++ filters off in both for the
+test (monkeypatch), as if they were not built, so the numpy filters are
+held to each other (tests/test_torch_native.py holds the C++ ones)."""
 
 import numpy as np
 import pytest
 import torch
 
 import eincm_tpu.native.vision as jax_native
+import eincm_tpu_torch.native.vision as port_native
 from eincm_tpu.data.staging import stage_datasample as jax_stage
 from eincm_tpu.edge import filters_np as jf
 from eincm_tpu.edge import iedt as jiedt
@@ -29,6 +30,7 @@ SHAPES = [(24, 32), (37, 29)]
 @pytest.fixture
 def no_native(monkeypatch):
     monkeypatch.setattr(jax_native, "available", lambda: False)
+    monkeypatch.setattr(port_native, "available", lambda: False)
 
 
 def _frame(seed, shape):

@@ -22,6 +22,7 @@ import yaml
 
 import eincm_tpu.experiments.config as jcfg
 import eincm_tpu.native.vision as jax_native
+import eincm_tpu_torch.native.vision as port_native
 from eincm_tpu.experiments.manager import EINCMExperiment as JaxExperiment
 from eincm_tpu.experiments.outputs import EINCMOutputLoader as JaxOutputLoader
 from eincm_tpu.experiments.outputs import validate_eval_results as jax_validate_eval
@@ -150,10 +151,43 @@ def test_override_value_parses_as_jax(raw):
 
 
 UNSUPPORTED = [
-    "a: &x 1", "a: *x", "a: !!str 1", "a: |\n  text", "a: >\n  text", "- 1\n- 2",
-    "a:\n  - 1", "---\na: 1", "a: 1\n---\nb: 2", "a: 2001-12-14", "<<: {a: 1}",
+    "a: &x 1", "a: *x", "a: !!str 1", "a: |\n  text", "a: >\n  text", "- &a 1",
+    "- 1\n  - 2", "---\na: 1", "a: 1\n---\nb: 2", "a: 2001-12-14", "<<: {a: 1}",
     "a: [1,\n  2]", "a: b\n  c", "%YAML 1.1\na: 1",
 ]
+
+
+BLOCK_SEQUENCES = [
+    "- 1\n- 2", "a:\n  - 1\n  - x y", "a:\n- 1\n- 2\nb: on",
+    "R:\n- - 0.99  # c\n  - -0.01\n- - 1.0e-05\n  - 2\nT: [1, 2]",
+    "- - - 1\n    - 2\n  - 3\n- 4", "-\n  k: v\n- \n- x: 1\n  y:\n  - 2\n  z: null",
+    "a:\n  b:\n  - {c: 1}\n  - [d, e]\n  - 'q: r'\nf: 1",
+]
+
+
+@pytest.mark.parametrize("text", BLOCK_SEQUENCES)
+def test_block_sequences_match_pyyaml(text):
+    assert _same(yaml_lite.loads(text), yaml.safe_load(text))
+
+
+def test_cam_to_cam_matches_pyyaml(tmp_path):
+    """DSEC's calibration as `yaml.safe_dump` writes it (block sequences),
+    as tests/dataset_fixtures.py writes it, and as the port's tree writer
+    does."""
+    from dataset_fixtures import make_dsec_tree
+
+    from eincm_tpu_torch.utils import dataset_trees
+
+    root, seq = make_dsec_tree(tmp_path / "a", geometry="warped", sensor=(12, 16), n_ev=100)
+    tree = dataset_trees.write_dsec_tree(tmp_path / "b", sensor=(24, 32), n_windows=1,
+                                         events_per_window=50, n_features=2)
+    for path in (root / f"Train/train_calibration/{seq}/calibration/cam_to_cam.yaml",
+                 tree["root"] / f"Train/train_calibration/{tree['sequence']}/calibration"
+                 / "cam_to_cam.yaml"):
+        with open(path) as f:
+            ref = yaml.safe_load(f)
+        assert _same(yaml_lite.load(path), ref)
+        assert isinstance(ref["extrinsics"]["T_10"][0], list)
 
 
 @pytest.mark.parametrize("text", UNSUPPORTED)
@@ -604,8 +638,20 @@ def test_eager_plot_and_plotter_extras(tmp_path, rng):
 
 @pytest.mark.parametrize("kind", ["ecd", "mvsec", "dsec"])
 def test_real_data_loaders_raise(kind):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-        tcfg.DatasetConfig(kind=kind).make_loader()
+    """The real-data loaders are ported: make_loader builds each with the
+    JAX package's arguments (its attributes equal the JAX loader's); an
+    unknown kind still raises."""
+    kw = dict(kind=kind, root_dir="/data", sequence_name="indoor_flying1",
+              des_n_events=1234, delta_idx=2, data_split="train", extended=True,
+              load_more_images=True, use_new_pruning_limits=True,
+              prefer_latest_events=False, sensor_size=(240, 320))
+    got = vars(tcfg.DatasetConfig(**kw).make_loader())
+    ref = vars(jcfg.DatasetConfig(**kw).make_loader())
+    assert sorted(got) == sorted(ref)
+    for key, value in ref.items():
+        if key == "dataset":  # DSEC's path holder: compare its paths
+            got[key], value = vars(got[key]), vars(value)
+        assert str(got[key]) == str(value), key
     with pytest.raises(ValueError):
         tcfg.DatasetConfig(kind="nope").make_loader()
 
@@ -671,9 +717,10 @@ def test_chip_experiment_reading(tmp_path, monkeypatch, smoothen):
     `edge.smoothen_method=eincm_iedt`) the JAX package's mean AEE over
     windows 1-7 plus TOL_AEE is chip_smoke.py's MAX_EXPERIMENT_AEE. With the
     config's default Gaussian edges the readings are printed only: on these
-    dot scenes neither package recovers the flow. The JAX package's C++
-    filters are turned off: the port runs their numpy versions."""
+    dot scenes neither package recovers the flow. Both packages' C++
+    filters are turned off: their numpy versions run."""
     monkeypatch.setattr(jax_native, "available", lambda: False)
+    monkeypatch.setattr(port_native, "available", lambda: False)
     path = str(REPO / "configs" / "mvsec_indoor.yaml")
     ovs = [*CHIP_OVERRIDES, f"edge.smoothen_method={smoothen}"]
     jax_exp = JaxExperiment(jcfg.load_config(path, [*ovs, f"output_dir={tmp_path}/j"]))

@@ -1,7 +1,10 @@
 """eincm_tpu_torch runs where JAX and PyYAML are not installed, as on the
-GPU machine, and imports matplotlib, PIL and h5py (which that machine
-lacks too) only inside the functions that use them; the shipped configs
-load there. chip_smoke.py refuses to report without a CUDA device."""
+GPU machine, and imports matplotlib, PIL, imageio and h5py (which that
+machine lacks too) only inside the functions that use them, or not at all;
+the shipped configs load there, and the DSEC, MVSEC and ECD loaders read a
+tree each (written here by tests/dataset_fixtures.py, with h5py, PIL and
+PyYAML) and stage one window. chip_smoke.py refuses to report without a
+CUDA device."""
 
 import os
 import shutil
@@ -20,6 +23,7 @@ sys.modules["yaml"] = None
 sys.modules["matplotlib"] = None
 sys.modules["PIL"] = None
 sys.modules["h5py"] = None
+sys.modules["imageio"] = None
 import importlib, pkgutil
 import eincm_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(eincm_tpu_torch.__path__, "eincm_tpu_torch.")]
@@ -47,9 +51,25 @@ configs = sorted(pathlib.Path("configs").glob("*.yaml"))
 assert len(configs) == 5
 for path in configs:
     load_config(str(path)).solver_config()
-assert not any(m == "jax" or m.startswith(("jax.", "eincm_tpu.", "matplotlib", "PIL", "h5py"))
+# the real-data loaders: one tree each, through the config, one window staged
+from eincm_tpu_torch.data.staging import stage_datasample
+from eincm_tpu_torch.experiments.config import DatasetConfig
+trees = pathlib.Path(sys.argv[1])
+for kw in (dict(kind="dsec", root_dir=str(trees / "dsec"), sequence_name="mini_seq",
+                data_split="train", sensor_size=(120, 160), des_n_events=4000),
+           dict(kind="mvsec", root_dir=str(trees / "mvsec"), sequence_name="outdoor_day2",
+                des_n_events=2000),
+           dict(kind="ecd", root_dir=str(trees / "ecd"), sequence_name="slider_mini",
+                des_n_events=500)):
+    loader = DatasetConfig(**kw).make_loader()
+    loader.get_ready()
+    staged = stage_datasample(loader[0], "cpu")
+    assert 0 < staged.window.xs.shape[0] <= kw["des_n_events"], kw
+    assert torch.isfinite(staged.window.edges).all()
+assert not any(m == "jax" or m.startswith(("jax.", "eincm_tpu.", "matplotlib", "PIL", "h5py",
+                                            "imageio", "yaml"))
                for m in sys.modules if sys.modules[m] is not None)
-print("imported", len(names), "modules; loaded", len(configs), "configs")
+print("imported", len(names), "modules; loaded", len(configs), "configs and 3 trees")
 """
 
 
@@ -61,9 +81,14 @@ def _env():
     return env
 
 
-def test_port_imports_and_runs_without_jax_or_yaml():
+def test_port_imports_and_runs_without_jax_or_yaml(tmp_path):
+    from dataset_fixtures import make_dsec_tree, make_ecd_tree, make_mvsec_tree
+
+    make_dsec_tree(tmp_path / "dsec", sensor=(120, 160), n_ev=20000, geometry="warped")
+    make_mvsec_tree(tmp_path / "mvsec", gt_margin=0.05)
+    make_ecd_tree(tmp_path / "ecd")
     out = subprocess.run(
-        [sys.executable, "-c", _BLOCKED], cwd=REPO, env=_env(),
+        [sys.executable, "-c", _BLOCKED, str(tmp_path)], cwd=REPO, env=_env(),
         capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr
