@@ -96,7 +96,31 @@ Phases, each failing loudly (any failure exits non-zero):
    varying GT) and `configs/mvsec_indoor.yaml` over 3 windows, scored
    against the loader's GT; 12. [ecd] an ECD tree (240x180) and
    `configs/ecd_slider.yaml` over 3 windows, scored against the scene's
-   velocity (ECD has no GT); both with the printouts and checks of [dsec].
+   velocity (ECD has no GT); both with the printouts and checks of [dsec];
+13. [parallel] the window mesh of `eincm_tpu_torch/parallel/` on one
+   member, the launch counters read around each run: on the 6 staged MVSEC
+   windows `solve_window_batch_sharded` (each window's AEE within 0.05 px
+   of its lone first-sample solve), `two_pass_sequence_solve` (mean AEE of
+   windows 1-5 <= MAX_MEAN_AEE) and `sequence_shard_solve` (the exact chain:
+   within 0.05 px of [chain]'s mean), then `eval_batch_sharded` of those
+   thetas against `evaluate_theta_array` window by window (counts exact,
+   values within [eval]'s tolerances, the splat fwd 3 a window); the CLI at
+   DSEC's full size on [dsec]'s tree (run right after [dsec]) in
+   sequence_shard with the sharded EVAL (mean AEE of windows 1-3 under
+   [dsec]'s bound and within 0.05 px of [dsec]'s reading); and the
+   [experiment] sequence in two_pass with a super-step checkpoint at 50%,
+   then a run resumed from it (only the second super-step solved, the
+   restored records bitwise the checkpoint's);
+14. [ranks] the [experiment] sequence in sequence_shard with the sharded
+   EVAL, first on one member in this process, then over two CLI processes
+   on this one card (`distributed.enable`, gloo on a free 127.0.0.1 port,
+   `local_device_ids=[0]`; each process this script again with
+   `--rank-cli`, reporting its own launch counts in a JSON line): both
+   exit 0 in RANKS_TIMEOUT_S (a survivor of a failed rank is killed), rank
+   0 writes the 8 windows' artifacts and rank 1 no file, rank 0's chunk
+   within 0.05 px of the one-member run, every window below zero flow,
+   the mean of windows 1-7 <= MAX_EXPERIMENT_AEE, kernels 1-4 launched in
+   both ranks.
 
 Every kernel's time stands beside its bound: the least time the card could
 take for the same work, the longer of the bytes it must move (each input
@@ -962,11 +986,19 @@ def eval_both(tag, theta_full, staged, params, sensor, device):
               f"splat_fwd, evaluation {dict((n, c) for n, c in eval_launches.items() if c)}; "
               f"{syncs} host sync(s) per evaluation")
         first = (evals, eval_s * 1e3, prep_s * 1e3, syncs)
-    k, p = out
+    compare_evals("[eval]", tag, out[0], out[1], "card vs CPU")
+    return first
+
+
+def compare_evals(phase, tag, k, p, what):
+    """Hold one window's `evals` `k` to `p`: the counts equal, every value
+    within TOL_DSEC_LOSS relative (the A{n}PE rates also within one pixel's
+    share), the AEE within TOL_EVAL_AEE relative. Returns the worst
+    relative difference."""
     counts = ("n_ee", "n_pred", "n_gt", "n_pixels")
     for key in counts:
         if int(k[key]) != int(p[key]):
-            raise AssertionError(f"[eval] {tag}: {key} card {k[key]}, CPU {p[key]}")
+            raise AssertionError(f"{phase} {tag}: {key} {k[key]}, {p[key]} ({what})")
     worst = 0.0
     for key, ref in p.items():
         if key in counts:
@@ -975,15 +1007,15 @@ def eval_both(tag, theta_full, staged, params, sensor, device):
         atol = 100.0 / max(int(p["n_ee"]), 1) if key[0] == "A" and key.endswith("PE") else 0.0
         err = np.abs(got - ref)
         if not np.all(err <= TOL_DSEC_LOSS * np.abs(ref) + atol):
-            raise AssertionError(f"[eval] {tag}: {key} card {got}, CPU {ref}")
+            raise AssertionError(f"{phase} {tag}: {key} {got}, {ref} ({what})")
         worst = max(worst, float(np.max(err / np.maximum(np.abs(ref), 1e-30))))
     aee_rel = abs(float(k["AEE"]) - float(p["AEE"])) / max(abs(float(p["AEE"])), 1e-30)
     if not aee_rel <= TOL_EVAL_AEE:
-        raise AssertionError(f"[eval] {tag}: AEE card {k['AEE']}, CPU {p['AEE']}")
-    print(f"[eval] {tag}: card vs CPU, every value within {TOL_DSEC_LOSS:.0e} relative "
+        raise AssertionError(f"{phase} {tag}: AEE {k['AEE']}, {p['AEE']} ({what})")
+    print(f"{phase} {tag}: {what}, every value within {TOL_DSEC_LOSS:.0e} relative "
           f"(worst {worst:.3e}), AEE rel {aee_rel:.3e}, counts equal "
           f"(n_ee {int(k['n_ee'])}, n_pred {int(k['n_pred'])}, n_gt {int(k['n_gt'])})")
-    return first
+    return worst
 
 
 def wolfe_chain(cfg, windows, vels, device):
@@ -1193,6 +1225,401 @@ def experiment_phase(card, device):
     return rec, launches
 
 
+# ---- 13-14. the window mesh: [parallel] on one member, [ranks] over two ---
+
+# the parallel CLI runs: sequence_shard (one member: the exact chain) with
+# the sharded EVAL
+PARALLEL_OVERRIDES = ("phases.parallel_windows=true", "phases.parallel_mode=sequence_shard",
+                      "phases.parallel_eval=true")
+PARALLEL_AEE_BAND = 0.05  # px, a schedule's AEE against its reference's
+RANKS_TIMEOUT_S = 300
+
+
+def _solve_record(stats, launches):
+    """The per-solve records a schedule noted (`window_stats`) and the
+    launch counts of its run, as one phase record."""
+    evals = sum(s["evals"] for s in stats)
+    return {
+        "solves": [[s["window"], s["pass"]] for s in stats],
+        "solve_ms": [s["ms"] for s in stats], "host_syncs": [s["host_syncs"] for s in stats],
+        "evals": evals, "launches": {k: launches[k] for k in CHAIN_KERNELS},
+        "launches_per_eval": {k: launches[k] / max(evals, 1) for k in CHAIN_KERNELS},
+    }
+
+
+def parallel_mvsec_phase(card, device, cfg, staged, vels, chain_mean_aee):
+    """[parallel] on the 6 staged MVSEC windows, on a one-member mesh: the
+    three schedules, each with the launch counters read around it, then
+    `eval_batch_sharded` against `evaluate_theta_array`. Returns (record,
+    {schedule: launches})."""
+    from eincm_tpu_torch.evals.theta_metrics import evaluate_theta_array, format_eval_result
+    from eincm_tpu_torch.models.pyramid import make_window_solver
+    from eincm_tpu_torch.ops import _build
+    from eincm_tpu_torch.ops.resize import scale_theta_to_sensor_size
+    from eincm_tpu_torch.parallel import batch as pb
+    from eincm_tpu_torch.utils import workloads as wl
+
+    windows = [s.window for s in staged]
+    n, sensor = len(windows), tuple(cfg.sensor_size)
+    batch = pb.stack_windows(windows)
+    mesh = pb.make_window_mesh(1, device=device)
+    rec, launches = {"card": card}, {}
+
+    def aees(theta0):
+        return [wl.aee_at_events(theta0[k], windows[k], vels[k], sensor) for k in range(n)]
+
+    # the reference of the batched solve: each window alone, first-sample
+    solver = make_window_solver(cfg, device)
+    ref_aee = [wl.aee_at_events(
+        solver(windows[k], cfg.zero_pyramid(device=device), True).final_theta_pyr[0],
+        windows[k], vels[k], sensor) for k in range(n)]
+
+    schedules = {
+        "batch_sharded": lambda st: pb.solve_window_batch_sharded(cfg, batch, mesh,
+                                                                  window_stats=st),
+        "two_pass": lambda st: pb.two_pass_sequence_solve(cfg, batch, mesh, window_stats=st)[0],
+        "sequence_shard": lambda st: pb.sequence_shard_solve(cfg, batch, mesh,
+                                                             window_stats=st)[0],
+    }
+    results = {}
+    for name, run in schedules.items():
+        stats = []
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run(stats)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches[name] = _build.launch_counts()
+        r = {"wall_s": wall_s, "aee": aees(res.final_theta_pyr[0]), **_solve_record(stats, launches[name])}
+        results[name], rec[name] = res, r
+        print(f"[parallel] {card}: MVSEC {name}, {n} windows in {wall_s:.2f} s; solves (window, "
+              f"pass) {r['solves']}, ms {[round(m, 1) for m in r['solve_ms']]}, host syncs "
+              f"{r['host_syncs']}; AEE per window {[round(a, 4) for a in r['aee']]}; launches "
+              f"{r['launches']}, per evaluation "
+              f"{ {k: round(v, 4) for k, v in r['launches_per_eval'].items()} }")
+        missing = [k for k in CHAIN_KERNELS if launches[name][k] == 0]
+        if missing:
+            raise AssertionError(f"[parallel] {name}: kernels not launched: {missing}")
+    gap = [abs(a - b) for a, b in zip(rec["batch_sharded"]["aee"], ref_aee)]
+    print(f"[parallel] batch_sharded against each window solved alone: AEE "
+          f"{[round(a, 4) for a in ref_aee]}, worst gap {max(gap):.4f} px (limit "
+          f"{PARALLEL_AEE_BAND})")
+    if not max(gap) <= PARALLEL_AEE_BAND:
+        raise AssertionError(f"[parallel] batch_sharded AEE off the lone solves by {gap}")
+    rec["batch_sharded"]["reference_aee"] = ref_aee
+    tp = float(np.mean(rec["two_pass"]["aee"][1:]))
+    ss = float(np.mean(rec["sequence_shard"]["aee"][1:]))
+    print(f"[parallel] mean AEE windows 1-5: two_pass {tp:.4f} px (limit {MAX_MEAN_AEE}), "
+          f"sequence_shard {ss:.4f} px ([chain] {chain_mean_aee:.4f} +- {PARALLEL_AEE_BAND})")
+    if not tp <= MAX_MEAN_AEE:
+        raise AssertionError(f"[parallel] two_pass mean AEE {tp} > {MAX_MEAN_AEE}")
+    if not abs(ss - chain_mean_aee) <= PARALLEL_AEE_BAND:
+        raise AssertionError(f"[parallel] sequence_shard mean AEE {ss}, [chain] {chain_mean_aee}")
+    rec["two_pass"]["mean_aee_1_5"], rec["sequence_shard"]["mean_aee_1_5"] = tp, ss
+
+    # the sharded EVAL of sequence_shard's thetas against evaluate_theta_array
+    theta = results["sequence_shard"].final_theta_pyr[0]
+    lens = [len(s.eval_events["x"]) for s in staged]
+    pad_e = max(8192, -(-max(lens) // 8192) * 8192)
+    ev = np.full((n, 3, pad_e), np.nan, np.float32)
+    for k, s in enumerate(staged):
+        ev[k, :, : lens[k]] = [s.eval_events["x"], s.eval_events["y"], s.eval_events["t"]]
+    ev = torch.as_tensor(ev, device=device)
+    gt = torch.as_tensor(np.stack([s.gt_flow for s in staged]), dtype=torch.float32,
+                         device=device)
+    p = cfg.params
+    pvec = torch.tensor([p.alpha, p.beta, p.gamma, p.delta], dtype=torch.float32, device=device)
+    method = cfg.scale_to_sensor_size_method
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    small = pb.eval_batch_sharded(theta, ev[:, 0], ev[:, 1], ev[:, 2], batch.edges,
+                                  batch.edge_ts, gt, None, pvec, mesh, sensor, method)
+    eval_s = time.perf_counter() - t0
+    launches["eval"] = _build.launch_counts()
+    if launches["eval"]["splat_fwd"] != 3 * n:
+        raise AssertionError(f"[parallel] eval: splat_fwd launched {launches['eval']}, "
+                             f"not 3 per window")
+    worst = 0.0
+    for k, s in enumerate(staged):
+        _, _, got = format_eval_result(pb.bundle_at(small, k), sensor, True)
+        _, _, ref, _ = evaluate_theta_array(
+            scale_theta_to_sensor_size(theta[k], sensor, method), ev[k, 0, : lens[k]],
+            ev[k, 1, : lens[k]], ev[k, 2, : lens[k]], batch.edges[k], batch.edge_ts[k],
+            gt[k], p, sensor)
+        worst = max(worst, compare_evals("[parallel]", f"MVSEC window {k}", got, ref,
+                                         "eval_batch_sharded vs evaluate_theta_array"))
+    rec["eval"] = {"ms_per_window": eval_s * 1e3 / n, "worst_rel": worst,
+                   "launches": {k: launches["eval"][k] for k in CHAIN_KERNELS}}
+    print(f"[parallel] {card}: eval_batch_sharded of {n} windows in {eval_s * 1e3:.1f} ms "
+          f"({eval_s * 1e3 / n:.2f} ms a window), splat_fwd launched 3 a window")
+    return rec, launches
+
+
+def parallel_cli(device, config, overrides):
+    """The experiment CLI in this process, the launch counters read around
+    it. Returns (experiment, launches, wall seconds)."""
+    from eincm_tpu_torch.experiments.__main__ import main as experiment_main
+    from eincm_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    exp = experiment_main(["--device", str(device), "--config", str(config), *overrides])
+    torch.cuda.synchronize()
+    return exp, _build.launch_counts(), time.perf_counter() - t0
+
+
+def _stats_record(exp, launches, wall_s):
+    n = len(exp.opt_results)
+    stats = [exp.stats.get(i, {}) for i in range(n)]
+    evals = sum(st.get("evals", 0) for st in stats)
+    return {
+        "windows": n, "wall_s": wall_s, "stage_s": [st.get("stage_s") for st in stats],
+        "solve_ms": [st.get("solve_ms") for st in stats],
+        "passes": [st.get("passes") for st in stats],
+        "host_syncs": [st.get("host_syncs") for st in stats],
+        "eval_ms": [st.get("eval_ms") for st in stats], "evals": evals,
+        "launches": {k: launches[k] for k in CHAIN_KERNELS},
+        "launches_per_eval": {k: launches[k] / max(evals, 1) for k in CHAIN_KERNELS},
+    }
+
+
+def _print_stats(phase, card, what, r):
+    rnd = lambda xs, d: [None if x is None else round(x, d) for x in xs]
+    print(f"[{phase}] {card}: {what}: {r['windows']} windows in {r['wall_s']:.2f} s; staging s "
+          f"{rnd(r['stage_s'], 3)}; solve ms {rnd(r['solve_ms'], 1)} (passes {r['passes']}); "
+          f"host syncs {r['host_syncs']}; EVAL ms {rnd(r['eval_ms'], 2)}; launches "
+          f"{r['launches']}, per evaluation "
+          f"{ {k: round(v, 4) for k, v in r['launches_per_eval'].items()} }")
+
+
+def parallel_dsec_phase(card, device, tree, serial):
+    """[parallel] at DSEC's full size: the CLI on [dsec]'s tree and config
+    in sequence_shard with the sharded EVAL; its mean AEE of windows 1-3
+    under [dsec]'s bound and within PARALLEL_AEE_BAND of [dsec]'s serial
+    reading. Returns (record, launches)."""
+    from pathlib import Path
+
+    config = Path(__file__).resolve().parent / "configs" / REAL_CASES["dsec"][0]
+    exp, launches, wall_s = parallel_cli(
+        device, config, [*real_args("dsec", tree, tree["root"].parent / "out_parallel"),
+                         *PARALLEL_OVERRIDES])
+    aee, zero, mean_aee = score(exp, tree, device)
+    r = {"card": card, "overrides": list(PARALLEL_OVERRIDES), **_stats_record(exp, launches, wall_s),
+         "aee": aee, "mean_aee": mean_aee, "serial_mean_aee": serial["mean_aee"],
+         "max_aee": serial["max_aee"]}
+    _print_stats("parallel", card, f"DSEC {' '.join(PARALLEL_OVERRIDES)}", r)
+    print(f"[parallel] {card}: DSEC AEE per window {[round(a, 4) for a in aee]}; mean of "
+          f"windows 1-3 {mean_aee:.4f} px (limit {serial['max_aee']}; [dsec] serial "
+          f"{serial['mean_aee']:.4f} +- {PARALLEL_AEE_BAND})")
+    missing = [k for k in CHAIN_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"[parallel] DSEC: kernels not launched: {missing}")
+    if not (mean_aee <= serial["max_aee"]
+            and abs(mean_aee - serial["mean_aee"]) <= PARALLEL_AEE_BAND):
+        raise AssertionError(f"[parallel] DSEC mean AEE {mean_aee}, serial {serial['mean_aee']}")
+    if not all(a < z for a, z in zip(aee, zero)):
+        raise AssertionError(f"[parallel] DSEC: a window's AEE is not below zero flow's: {aee}")
+    return r, launches
+
+
+def parallel_experiment_phase(card, device):
+    """[parallel] the [experiment] sequence in two_pass with super-step
+    checkpoints every 50% and the sharded EVAL, then a run resumed from its
+    checkpoint: only the second super-step solved, the restored records
+    bitwise the checkpoint's. Returns (record, launches)."""
+    import tempfile
+    from pathlib import Path
+
+    config = Path(__file__).resolve().parent / "configs" / "mvsec_indoor.yaml"
+    base = [*EXPERIMENT_OVERRIDES, "phases.parallel_windows=true",
+            "phases.parallel_mode=two_pass", "phases.parallel_eval=true",
+            "phases.parallel_checkpoint_every_percent=50"]
+    with tempfile.TemporaryDirectory() as tmp:
+        exp, launches, wall_s = parallel_cli(device, config, [*base, f"output_dir={tmp}/first"])
+        n = len(exp.opt_results)
+        aees = [float(exp.eval_results[f"datasample_idx_{i}"]["evals"]["AEE"]) for i in range(n)]
+        r = {"card": card, **_stats_record(exp, launches, wall_s), "aee": aees,
+             "mean_aee_1_7": float(np.mean(aees[1:]))}
+        _print_stats("parallel", card, "[experiment] sequence, two_pass, checkpoints every 50%", r)
+        print(f"[parallel] {card}: two_pass AEE per window {[round(a, 4) for a in aees]}; mean "
+              f"of windows 1-7 {r['mean_aee_1_7']:.4f} px (zero flow {EXPERIMENT_SPEED})")
+        missing = [k for k in CHAIN_KERNELS if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"[parallel] two_pass: kernels not launched: {missing}")
+        if not max(aees) < EXPERIMENT_SPEED:
+            raise AssertionError(f"[parallel] two_pass: a window's AEE is not below zero "
+                                 f"flow's: {aees}")
+        ckpts = sorted(exp.ckpt_dir.glob("checkpoint_*.npz"))
+        if [c.name for c in ckpts] != [f"checkpoint_{n // 2 - 1}_{n}.npz"]:
+            raise AssertionError(f"[parallel] checkpoints {[c.name for c in ckpts]}")
+        ck = np.load(ckpts[0], allow_pickle=True)["opt_results"].item()
+        resumed, _, resumed_s = parallel_cli(device, config, [
+            *base, f"output_dir={tmp}/resumed", "phases.eval=false",
+            f"phases.run_from_checkpoint={ckpts[0]}"])
+        solved = sorted(i for i, st in resumed.stats.items() if "solve_ms" in st)
+        if solved != list(range(len(ck), n)) or len(resumed.opt_results) != n:
+            raise AssertionError(f"[parallel] resumed from {ckpts[0].name} ({len(ck)} windows) "
+                                 f"solved {solved}")
+        for key, rk in ck.items():
+            for group, levels in rk["solver_final_results"].items():
+                for lvl, v in levels.items():
+                    got = resumed.opt_results[key]["solver_final_results"][group][lvl]
+                    if isinstance(v, np.ndarray) and not np.array_equal(got, v):
+                        raise AssertionError(f"[parallel] resumed {key} {group} {lvl} differs "
+                                             "from the checkpoint")
+        print(f"[parallel] {card}: resumed from {ckpts[0].name} in {resumed_s:.2f} s: windows "
+              f"{solved} solved, the {len(ck)} restored records bitwise the checkpoint's")
+        r.update(resumed_solved=solved, resumed_wall_s=resumed_s)
+    return r, launches
+
+
+def rank_cli_worker(device, config, overrides) -> int:
+    """One rank of [ranks]: the experiment CLI on `device` (a bare "cuda":
+    the rank's device from `distributed.local_device_ids`) and `config`
+    with `overrides`, then one JSON line of this process's launch counts
+    and per-window stats."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    exp, launches, wall_s = parallel_cli(device, config, overrides)
+    rank = torch.distributed.get_rank()
+    print(json.dumps({"rank_cli": {
+        "rank": rank, "wall_s": wall_s, "records": len(exp.opt_results),
+        "launches": {k: launches[k] for k in CHAIN_KERNELS},
+        "stats": {str(i): st for i, st in exp.stats.items()}}}))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def ranks_phase(card, device):
+    """[ranks] (see the module docstring): the [experiment] sequence in
+    sequence_shard with the sharded EVAL, first on one member in this
+    process, then over two CLI processes on this one card, joined by gloo.
+    Returns (record, {"one_member": launches, "rank0": ..., "rank1": ...})."""
+    import os
+    import socket
+    import subprocess
+    import tempfile
+    from pathlib import Path
+
+    from eincm_tpu_torch.experiments.outputs import EINCMOutputLoader
+
+    here = Path(__file__).resolve().parent
+    config = here / "configs" / "mvsec_indoor.yaml"
+    base = [*EXPERIMENT_OVERRIDES, *PARALLEL_OVERRIDES]
+    rec, launches = {"card": card}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        one, launches["one_member"], wall_s = parallel_cli(
+            device, config, [*base, f"output_dir={tmp}/one"])
+        n = len(one.opt_results)
+        one_aee = [float(one.eval_results[f"datasample_idx_{i}"]["evals"]["AEE"])
+                   for i in range(n)]
+        rec["one_member"] = {**_stats_record(one, launches["one_member"], wall_s), "aee": one_aee}
+        _print_stats("ranks", card, "one member, sequence_shard", rec["one_member"])
+        name = one.out_dir.name
+        del one
+        torch.cuda.empty_cache()
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        procs, logs = [], []
+        t0 = time.perf_counter()
+        for r in (0, 1):
+            argv = [sys.executable, str(here / "chip_smoke.py"), "--rank-cli", device.type,
+                    str(config), *base, "distributed.enable=true",
+                    f"distributed.coordinator_address=127.0.0.1:{port}",
+                    "distributed.num_processes=2", f"distributed.process_id={r}",
+                    "distributed.local_device_ids=[0]", f"output_dir={tmp}/rank{r}"]
+            out, err = open(f"{tmp}/rank{r}.out", "w"), open(f"{tmp}/rank{r}.err", "w")
+            logs.append((out, err))
+            procs.append(subprocess.Popen(argv, cwd=here, stdout=out, stderr=err,
+                                          env=dict(os.environ)))
+        try:
+            # a rank that fails makes the phase kill the other at once
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs):
+                    break
+                if time.perf_counter() - t0 > RANKS_TIMEOUT_S:
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            for out, err in logs:
+                out.close()
+                err.close()
+        wall_s = time.perf_counter() - t0
+        codes = [p.returncode for p in procs]
+        if codes != [0, 0]:
+            tails = [Path(f"{tmp}/rank{r}.err").read_text()[-3000:] for r in (0, 1)]
+            raise AssertionError(f"[ranks] exit codes {codes} after {wall_s:.1f} s:\n"
+                                 + "\n".join(tails))
+        reports = []
+        for r in (0, 1):
+            lines = [l for l in Path(f"{tmp}/rank{r}.out").read_text().splitlines()
+                     if l.startswith('{"rank_cli"')]
+            reports.append(json.loads(lines[-1])["rank_cli"])
+        files = [sorted(str(p.relative_to(tmp)) for p in Path(tmp, f"rank{r}").rglob("*")
+                        if p.is_file()) for r in (0, 1)]
+        if files[1]:
+            raise AssertionError(f"[ranks] rank 1 wrote {files[1]}")
+        out_dir = Path(tmp, "rank0", name)
+        opt = EINCMOutputLoader().load_opt_results(out_dir / "opt_results.npz")
+        ev = EINCMOutputLoader().load_eval_results(out_dir / "eval_results.npz")
+        if sorted(opt) != [f"datasample_idx_{i}" for i in range(n)] or len(ev) != n:
+            raise AssertionError(f"[ranks] rank 0 wrote {len(opt)} records, {len(ev)} evals")
+        aees = [float(ev[f"datasample_idx_{i}"]["evals"]["AEE"]) for i in range(n)]
+        for r, report in enumerate(reports):
+            launches[f"rank{r}"] = report["launches"]
+            st = [report["stats"].get(str(i), {}) for i in range(n)]
+            mine = [i for i in range(n) if "solve_ms" in st[i]]
+            evals = sum(st[i]["evals"] for i in mine)
+            rec[f"rank{r}"] = {
+                "wall_s": report["wall_s"], "windows_solved": mine,
+                "stage_s": [st[i].get("stage_s") for i in mine],
+                "solve_ms": [st[i]["solve_ms"] for i in mine],
+                "passes": [st[i]["passes"] for i in mine],
+                "host_syncs": [st[i]["host_syncs"] for i in mine],
+                "eval_ms": [st[i].get("eval_ms") for i in mine], "evals": evals,
+                "launches": report["launches"],
+                "launches_per_eval": {k: report["launches"][k] / max(evals, 1)
+                                      for k in CHAIN_KERNELS},
+            }
+            rr = rec[f"rank{r}"]
+            print(f"[ranks] {card}: rank {r}: windows {mine} in {rr['wall_s']:.2f} s (CLI, "
+                  f"process start not counted); staging s "
+                  f"{[round(x, 3) for x in rr['stage_s'] if x is not None]}; solve ms "
+                  f"{[round(x, 1) for x in rr['solve_ms']]} (passes {rr['passes']}); host syncs "
+                  f"{rr['host_syncs']}; EVAL ms {[round(x, 2) for x in rr['eval_ms'] if x]}; "
+                  f"launches {rr['launches']}, per evaluation "
+                  f"{ {k: round(v, 4) for k, v in rr['launches_per_eval'].items()} }")
+            missing = [k for k in CHAIN_KERNELS if report["launches"][k] == 0]
+            if missing:
+                raise AssertionError(f"[ranks] rank {r}: kernels not launched: {missing}")
+        gap = [abs(a - b) for a, b in zip(aees[: n // 2], one_aee[: n // 2])]
+        mean = float(np.mean(aees[1:]))
+        rec.update(wall_s=wall_s, aee=aees, mean_aee_1_7=mean, files_rank0=files[0],
+                   chunk0_gap=gap)
+        print(f"[ranks] {card}: two ranks on one card in {wall_s:.2f} s (processes started "
+              f"to exit), rank 0 wrote {files[0]}, rank 1 nothing; AEE per window "
+              f"{[round(a, 4) for a in aees]} (one member {[round(a, 4) for a in one_aee]}); "
+              f"rank 0's chunk within {max(gap):.4f} px of one member (limit "
+              f"{PARALLEL_AEE_BAND}); mean of windows 1-7 {mean:.4f} px (limit "
+              f"{MAX_EXPERIMENT_AEE}; zero flow {EXPERIMENT_SPEED})")
+        if not max(gap) <= PARALLEL_AEE_BAND:
+            raise AssertionError(f"[ranks] rank 0's chunk off the one-member run: {gap}")
+        if not mean <= MAX_EXPERIMENT_AEE:
+            raise AssertionError(f"[ranks] mean AEE {mean} > {MAX_EXPERIMENT_AEE}")
+        if not max(aees) < EXPERIMENT_SPEED:
+            raise AssertionError(f"[ranks] a window's AEE is not below zero flow's: {aees}")
+    return rec, launches
+
+
 # ---- 9-12. the real-data path: trees on disk through the CLI -------------
 
 def _median_p90(values):
@@ -1395,7 +1822,11 @@ def real_data_phases(card, device):
               f"{[round(a, 4) for a in rec['aee'][:2]]}; zero flow "
               f"{rec['zero_flow_aee'][0]:.4f})")
         recs["dsec"] = rec
-        del exp
+        del exp, gauss
+        torch.cuda.empty_cache()
+        # 13. [parallel] at DSEC's full size, on the same tree
+        recs["parallel_dsec"], launches["parallel_dsec"] = parallel_dsec_phase(
+            card, device, tree, rec)
         torch.cuda.empty_cache()
         shutil.rmtree(tree["root"])
 
@@ -1513,11 +1944,15 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the results as JSON here")
+    # one rank of [ranks]: DEVICE CONFIG OVERRIDE...
+    ap.add_argument("--rank-cli", nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs one GPU",
               file=sys.stderr)
         return 2
+    if args.rank_cli:
+        return rank_cli_worker(args.rank_cli[0], args.rank_cli[1], args.rank_cli[2:])
     from eincm_tpu_torch.experimental import fused_splat_bench as fb
     from eincm_tpu_torch.experimental import interp_proto as ip
     from eincm_tpu_torch.models.loss import (
@@ -1736,7 +2171,22 @@ def main(argv=None) -> int:
     exp_row, exp_launches = experiment_phase(card, device)
 
     # ---- 9-12. the real-data path: DSEC, submission, MVSEC, ECD trees ------
+    # (and 13. [parallel] at DSEC's size on the [dsec] tree)
     real_rows, real_launches = real_data_phases(card, device)
+
+    # ---- 13. [parallel] one member: the schedules, the sharded EVAL, the
+    # parallel experiment with its super-step checkpoint and resume --------
+    t0 = time.perf_counter()
+    par_row, par_launches = parallel_mvsec_phase(card, device, cfg, mvsec_staged, vels, mean_aee)
+    par_row["experiment"], par_launches["experiment"] = parallel_experiment_phase(card, device)
+    par_row["dsec"] = real_rows.pop("parallel_dsec")
+    par_launches["dsec"] = real_launches.pop("parallel_dsec")
+    par_row["wall_s"] = time.perf_counter() - t0
+    print(f"[parallel] {card}: MVSEC schedules, eval and experiment in "
+          f"{par_row['wall_s']:.2f} s; DSEC in {par_row['dsec']['wall_s']:.2f} s")
+
+    # ---- 14. [ranks] two processes on this one card, joined by gloo -------
+    ranks_row, ranks_launches = ranks_phase(card, device)
 
     launches = {**{k: chain_launches[k] for k in CHAIN_KERNELS},
                 **{k: bench_launches[k] for k in BENCH_KERNELS},
@@ -1760,6 +2210,8 @@ def main(argv=None) -> int:
             for tag, counts in real_launches.items():
                 entry[f"{tag}_launches"] = counts[name]
             entry["dsec_launches_per_loss_eval"] = real_rows["dsec"]["launches_per_eval"][name]
+            entry["parallel_launches"] = {k: c[name] for k, c in par_launches.items()}
+            entry["ranks_launches"] = {k: c[name] for k, c in ranks_launches.items()}
         if name == "splat_fwd":
             entry["eval_launches_per_call"] = 2
             entry["eval_prepare_launches"] = 1
@@ -1771,7 +2223,8 @@ def main(argv=None) -> int:
         kernels.append(entry)
     paths = {"card": card, "armijo": {"windows": chain_recs, "mean_aee": mean_aee,
                                       "median_ms": float(np.median([r["ms"] for r in chain_recs[1:]]))},
-             "wolfe": wolfe_row, "eval": eval_rows, "experiment": exp_row, **real_rows}
+             "wolfe": wolfe_row, "eval": eval_rows, "experiment": exp_row, **real_rows,
+             "parallel": par_row, "ranks": ranks_row}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"kernels": kernels, **paths}, f, indent=1)

@@ -7,8 +7,9 @@ keys and values and each package reads the other's artifacts. YAML is read
 by `utils/yaml_lite.py` (no PyYAML on the card's machine).
 
 What the port does not run raises `NotImplementedError` instead of giving
-a different run: `distributed.enable`, `jax_config` and
-`compilation_cache_dir` (XLA settings have no meaning in PyTorch). The solver switches `splat_impl`,
+a different run: `jax_config` and `compilation_cache_dir` (XLA settings
+have no meaning in PyTorch), and more than one `distributed.
+local_device_ids` (one device per process). The solver switches `splat_impl`,
 `interp_impl`, `splat_multiref_stacked` and `scan_levels` choose between
 implementations of one function in the JAX package; the port has one of
 each, so they are accepted and ignored.
@@ -24,20 +25,8 @@ import numpy as np
 
 from eincm_tpu_torch.models.loss import LossParams
 from eincm_tpu_torch.models.pyramid import HandoverSettings, SolverConfig
+from eincm_tpu_torch.parallel.distributed import DistributedConfig, check_local_device_ids
 from eincm_tpu_torch.utils import yaml_lite
-
-
-@dataclass(frozen=True)
-class DistributedConfig:
-    """Multi-process runtime settings; the fields of the JAX package's
-    (eincm_tpu/parallel/distributed.py). The port runs one process:
-    `enable=True` raises."""
-
-    enable: bool = False
-    coordinator_address: Optional[str] = None
-    num_processes: Optional[int] = None
-    process_id: Optional[int] = None
-    local_device_ids: Optional[tuple] = None
 
 
 @dataclass
@@ -218,14 +207,20 @@ class PhaseSettings:
     run_idx_ranges: Optional[Tuple[Tuple[int, int], ...]] = None
     # mid-sequence checkpoint cadence; 0 (or >= 100) disables
     checkpoint_every_percent: float = 25.0
-    # the parallel modes (parallel_windows, parallel_checkpoint_every_percent,
-    # parallel_mode, parallel_eval, parallel_eval_windows_per_device) are
-    # ROADMAP.md Queue 1 item 7: the port raises for parallel_windows and
-    # parallel_eval
+    # parallel-mode super-step checkpointing cadence. None (default) keeps
+    # the whole-sequence single-batch schedule. Enabling it changes the
+    # parallel solve's numerics slightly, toward the sequential schedule:
+    # each super-step's first window gets the previous super-step's exact
+    # final theta as its prior (a knob of its own for that reason)
     parallel_checkpoint_every_percent: Optional[float] = None
     delete_checkpoints_at_end: bool = True
     run_from_checkpoint: Optional[str] = None
+    # solve all windows over the window mesh (parallel/batch.py: the ranks
+    # of the process group, or this process alone)
     parallel_windows: bool = False
+    # 'two_pass': all windows without priors, then re-solved with the
+    # neighbour's pass-1 result; 'sequence_shard': contiguous chunks per rank
+    # with the exact in-chunk handover chain and a boundary prior exchange
     parallel_mode: str = "two_pass"
     # evaluate every recorded level-0 BFGS iterate during EVAL (reference
     # callbacks.py:140-149); needs solver.collect_intermediate
@@ -236,7 +231,10 @@ class PhaseSettings:
     eager_eval_every: int = 1
     eager_plot: bool = False
     eager_plot_every: int = 1
+    # the EVAL phase over the window mesh (no prior chain at eval time);
+    # serial when eval_intermediate is set
     parallel_eval: bool = False
+    # windows evaluated per rank per chunk (bounds device memory)
     parallel_eval_windows_per_device: int = 4
 
 
@@ -268,11 +266,7 @@ class ExperimentConfig:
 
     def check_runnable(self):
         """Raise for settings the port does not run."""
-        if self.distributed.enable:
-            raise NotImplementedError(
-                "distributed.enable: the port runs one process (multi-process "
-                "runs are ROADMAP.md Queue 1 item 7)"
-            )
+        check_local_device_ids(self.distributed)
         if self.jax_config:
             raise NotImplementedError(
                 f"jax_config {self.jax_config!r}: JAX flags have no meaning in "

@@ -13,7 +13,13 @@ readback lag (dispatch window i+1 before checking window i) buys nothing
 here: each window is solved, checked, rescued if anomalous and recorded
 before the next starts. The chain of solves and priors is the JAX
 manager's: a rescued window's successor starts from the rescued prior.
-The parallel modes are ROADMAP.md Queue 1 item 7 and raise.
+
+The parallel modes (`phases.parallel_windows`, `phases.parallel_eval`)
+run over the window mesh of `parallel/batch.py`: the ranks of the process
+group (`distributed.enable`, one process per device), or this process
+alone. Each rank stages only its own windows; every rank ends with every
+window's records, and rank 0 alone writes files (opt_results.npz,
+checkpoints, eval_results.npz, scores.txt, plots).
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from eincm_tpu_torch.experiments.outputs import (
 )
 from eincm_tpu_torch.models.pyramid import make_window_solver
 from eincm_tpu_torch.ops.resize import scale_theta_to_sensor_size
+from eincm_tpu_torch.parallel.distributed import process_rank
 from eincm_tpu_torch.utils import host
 from eincm_tpu_torch.utils.console import log, ok, warn
 
@@ -48,7 +55,8 @@ from eincm_tpu_torch.utils.console import log, ok, warn
 # (exp_mgr.py:706-714): every 5th window, skipping the first.
 _EXTENDED_SUBSET = slice(None, None, 5)
 
-_PARALLEL_ITEM = "ROADMAP.md, Queue 1, item 7 (parallel/ on torch.distributed)"
+# the parallel EVAL pads each chunk's eval events to a multiple of this
+_EVAL_PAD_BUCKET = 8192
 
 
 def _n_evals(res) -> int:
@@ -97,7 +105,8 @@ class EINCMExperiment:
 
         self.out_dir = Path(cfg.output_dir) / cfg.experiment_name
         self.ckpt_dir = self.out_dir / "checkpoints"
-        os.makedirs(self.ckpt_dir, exist_ok=True)
+        if self._writes:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
 
         self.opt_results: Dict = {}
         self.eval_results: Dict = {}
@@ -109,6 +118,11 @@ class EINCMExperiment:
         self._rescue_solver = None  # built on the first rescue
         self.n_rescue_attempts = 0  # anomalies that triggered a wolfe re-solve
         self.n_rescued = 0  # re-solves that actually replaced the result
+
+    @property
+    def _writes(self) -> bool:
+        """Rank 0 of a process group (or the only process) writes files."""
+        return process_rank() == 0
 
     # ------------------------------------------------------------------ prep
 
@@ -160,8 +174,9 @@ class EINCMExperiment:
             pad_to=self.cfg.dataset.des_n_events,
         )
 
-    def _prefetch(self, indices):
-        """(idx, staged) over `indices`, staged ahead in worker threads. A
+    def _prefetch(self, indices, stage_fn=None):
+        """(idx, staged) over `indices`, staged ahead in worker threads
+        (by `stage_fn`, default `self.stage`). A
         new thread's current stream is the device's default stream, not
         necessarily this thread's: the worker's host -> device copies go
         onto this thread's current stream, so the solve and the evaluation
@@ -176,7 +191,7 @@ class EINCMExperiment:
             t0 = time.perf_counter()
             ctx = torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
             with ctx:
-                staged = self.stage(ds)
+                staged = (stage_fn or self.stage)(ds)
             return staged, time.perf_counter() - t0
 
         for idx, (staged, stage_s) in StagingPrefetcher(dl, indices, stage, depth=2):
@@ -246,23 +261,169 @@ class EINCMExperiment:
                 "replaced by the Wolfe result"
             )
 
-        validate_opt_results(self.opt_results, self.solver_cfg.n_pyr_lvls)
-        save_opt_results(
-            self.out_dir / "opt_results.npz", self.opt_results, self.cfg.to_dict()
-        )
-        ok(f"opt_results.npz saved ({len(self.opt_results)} windows)")
-        self._delete_checkpoints_if_configured()
+        self._finish_solve(f"{len(self.opt_results)} windows")
         return self.opt_results
 
-    def run_solver_parallel(self):
-        raise NotImplementedError(
-            f"phases.parallel_windows is not ported yet: {_PARALLEL_ITEM}"
-        )
+    def _finish_solve(self, what: str):
+        validate_opt_results(self.opt_results, self.solver_cfg.n_pyr_lvls)
+        if self._writes:
+            save_opt_results(
+                self.out_dir / "opt_results.npz", self.opt_results, self.cfg.to_dict()
+            )
+            ok(f"opt_results.npz saved ({what})")
+        self._delete_checkpoints_if_configured()
 
     def _stream_sharded_batch(self, dl, indices, mesh):
-        raise NotImplementedError(
-            f"the sharded batch of the parallel modes is not ported yet: {_PARALLEL_ITEM}"
+        """Stage THIS rank's windows of `indices` through the prefetcher and
+        stack them on its device (the ranks' windows are never staged
+        here).
+
+        The window count is padded to a multiple of the mesh size by
+        repeating the last window (its results are discarded after the
+        solve); rank r takes positions [r * per, (r + 1) * per) of the padded
+        list. Every window is NaN-padded to `dataset.des_n_events` (padded
+        events contribute nothing), so windows stack: a rank never sees the
+        whole sequence, so it cannot discover a global maximum.
+
+        Returns:
+            (this rank's WindowSample batch, padded global batch size).
+        """
+        from eincm_tpu_torch.parallel.batch import stack_windows
+
+        n = len(indices)
+        batch_n = -(-n // mesh.size) * mesh.size
+        per = batch_n // mesh.size
+        padded = list(indices) + [indices[-1]] * (batch_n - n)
+        mine = padded[mesh.rank * per : (mesh.rank + 1) * per]
+
+        pad_to = self.cfg.dataset.des_n_events
+        if not pad_to:
+            raise ValueError(
+                "parallel windows mode requires dataset.des_n_events: the "
+                "streamed batch pads every window to that fixed event count "
+                "(ragged windows cannot stack)"
+            )
+
+        def stage_padded(ds):
+            actual = len(ds["events"]["x"])
+            if actual > pad_to:
+                raise ValueError(
+                    f"window has {actual} events > des_n_events={pad_to}; "
+                    "the loader must truncate to des_n_events in parallel "
+                    "windows mode"
+                )
+            return self.stage(ds)
+
+        # a repeated window is staged once
+        staged = dict(self._prefetch(list(dict.fromkeys(mine)), stage_padded))
+        return stack_windows([staged[i].window for i in mine]), batch_n
+
+    def run_solver_parallel(self):
+        """Whole-sequence solve over the window mesh (every rank of the
+        process group, or this process alone).
+
+        Two schedules for the sequential handover prior chain
+        (src/eincm/solver.py:254-255):
+
+        - 'two_pass' (default): pass 1 solves every window without a prior;
+          pass 2 re-solves each with its predecessor's pass-1 result;
+        - 'sequence_shard': contiguous chunks per rank with the exact
+          in-chunk handover chain; chunk-boundary priors pass between
+          neighbouring ranks (parallel.batch.sequence_shard_solve).
+
+        No armijo rescue and no prior loss, as in the JAX package's parallel
+        path.
+        """
+        from eincm_tpu_torch.parallel.batch import (
+            make_window_mesh,
+            result_at,
+            sequence_shard_solve,
+            two_pass_sequence_solve,
         )
+
+        dl = self._prepare_dataloader()
+        # checkpoint resume: restores solved records, skips their indices,
+        # and carries the last solved window's final pyramid as the boundary
+        # prior of the first remaining super-step (every rank reads it)
+        self._maybe_resume()
+        boundary = None if self._is_first else self._prior_pyr
+        indices = [i for i in range(len(dl)) if not self._skip_idx(i)]
+        mesh = make_window_mesh(device=self.device)
+        n_dev, n = mesh.size, len(indices)
+
+        mode = self.cfg.phases.parallel_mode
+        if mode not in ("sequence_shard", "two_pass"):
+            raise ValueError(f"unknown parallel_mode {mode!r}")
+        solve = sequence_shard_solve if mode == "sequence_shard" else two_pass_sequence_solve
+
+        # mid-sequence checkpoints (exp_mgr.py:511-519 for the parallel
+        # path): super-steps of ~pct% of the windows, rounded up to a
+        # multiple of the mesh size, the prior chain carried across them by
+        # `boundary`, a checkpoint after each. A knob of its own: chunking
+        # moves each super-step's first-window prior to the exact carry.
+        pct = self.cfg.phases.parallel_checkpoint_every_percent
+        if pct is None and self.cfg.phases.checkpoint_every_percent != 25.0:  # the default
+            log(
+                "NOTE: phases.checkpoint_every_percent is customized but "
+                "only applies to the serial path; parallel runs checkpoint "
+                "via phases.parallel_checkpoint_every_percent (unset: no "
+                "mid-sequence checkpoints this run)"
+            )
+        total = len(dl)
+        if pct and 0 < pct < 100 and n > n_dev:
+            log(
+                f"parallel super-step checkpointing every ~{pct}% of "
+                "windows (prior chain carried exactly across super-steps)"
+            )
+            # sized from the n windows solved this run (resume or
+            # run_idx_range can leave n << len(dl))
+            step = max(n_dev, -(-int(np.ceil(n * pct / 100.0)) // n_dev) * n_dev)
+        else:
+            step = max(n, 1)
+
+        t_begin = time.perf_counter()
+        for start in range(0, n, step):
+            chunk_idx = indices[start : start + step]
+            batch, _ = self._stream_sharded_batch(dl, chunk_idx, mesh)
+            window_stats: list = []
+            res, _ = solve(
+                self.solver_cfg, batch, mesh, boundary_prior=boundary,
+                window_stats=window_stats,
+            )
+            del batch
+            for rec in window_stats:  # this rank's solves; padded repeats dropped
+                if rec["window"] < len(chunk_idx):
+                    st = self.stats.setdefault(chunk_idx[rec["window"]], {})
+                    st["solve_ms"] = st.get("solve_ms", 0.0) + rec["ms"]
+                    st["passes"] = st.get("passes", 0) + 1
+                    # + the record's transfer
+                    st["host_syncs"] = st.get("host_syncs", 1) + rec["host_syncs"]
+                    st["evals"] = st.get("evals", 0) + rec["evals"]
+                    st["rescued"] = False
+            for i, ds_idx in enumerate(chunk_idx):
+                rec = solve_result_to_record(result_at(res, i))
+                self.opt_results[f"datasample_idx_{ds_idx}"] = rec
+                if self._writes:
+                    states = rec["solver_final_results"]["theta_opt_state_pyr"]
+                    iters = [int(states[f"pyr_lvl_{l}"]["iter_num"]) for l in range(len(states))]
+                    log(
+                        f"[{ds_idx + 1}/{total}] solved (f="
+                        f"{float(states['pyr_lvl_0']['fun_val']):.4f}, iters={iters})"
+                    )
+            # the prior-chain carry: the final pyramid of the last REAL
+            # window, as its record holds it (a resume reads the same)
+            pyr = self.opt_results[f"datasample_idx_{chunk_idx[-1]}"][
+                "solver_final_results"]["final_theta_pyr"]
+            boundary = tuple(
+                torch.as_tensor(pyr[f"pyr_lvl_{l}"], device=self.device)
+                for l in range(self.solver_cfg.n_pyr_lvls)
+            )
+            if start + step < n:
+                self.save_checkpoint(chunk_idx[-1], total)
+        log(f"parallel solve: {n} windows, {mode} over {n_dev} rank(s), "
+            f"{time.perf_counter() - t_begin:.2f} s")
+        self._finish_solve(f"{n} windows, {mode} over {n_dev} rank(s)")
+        return self.opt_results
 
     def _solve_one(self, solver, staged, prior, is_first):
         """Run one window (incl. n_repeat_solve repeats).
@@ -328,11 +489,13 @@ class EINCMExperiment:
         return armijo_res
 
     def _delete_checkpoints_if_configured(self):
-        if self.cfg.phases.delete_checkpoints_at_end:
+        if self.cfg.phases.delete_checkpoints_at_end and self._writes:
             for p in self.ckpt_dir.glob("checkpoint_*.npz"):
                 p.unlink()
 
     def save_checkpoint(self, idx: int, total: int):
+        if not self._writes:
+            return
         path = self.ckpt_dir / f"checkpoint_{idx}_{total}.npz"
         save_opt_results(path, self.opt_results, self.cfg.to_dict())
         log(f"checkpoint saved: {path}")
@@ -382,17 +545,114 @@ class EINCMExperiment:
                 inter = self._eval_intermediate(key, staged, gt, mask, eval_inputs)
                 if inter is not None:
                     self.eval_results[key]["intermediate"] = inter
-
-        save_eval_results(
-            self.out_dir / "eval_results.npz", self.eval_results, self.cfg.to_dict()
-        )
-        self.write_scores(self.extract_scores())
+        self._finish_eval()
         return self.eval_results
 
+    def _finish_eval(self):
+        if self._writes:
+            save_eval_results(
+                self.out_dir / "eval_results.npz", self.eval_results, self.cfg.to_dict()
+            )
+            self.write_scores(self.extract_scores())
+
     def run_eval_parallel(self):
-        raise NotImplementedError(
-            f"phases.parallel_eval is not ported yet: {_PARALLEL_ITEM}"
-        )
+        """EVAL over the window mesh. Windows are independent at eval time
+        (no prior chain): staged windows stream through the prefetcher into
+        chunks of n_dev * parallel_eval_windows_per_device, each rank
+        staging and evaluating its share of a chunk
+        (parallel.batch.eval_batch_sharded: the serial path's per-window
+        computation), the bundles gathered to every rank. Reference scope:
+        exp_mgr.py:662-714 (a serial loop)."""
+        from eincm_tpu_torch.evals.theta_metrics import format_eval_result
+        from eincm_tpu_torch.parallel.batch import bundle_at, eval_batch_sharded, make_window_mesh
+
+        indices = sorted(int(k.replace("datasample_idx_", "")) for k in self.opt_results)
+        mesh = make_window_mesh(device=self.device)
+        n_dev = mesh.size
+        chunk = n_dev * max(1, self.cfg.phases.parallel_eval_windows_per_device)
+        sensor = tuple(self.cfg.dataset.sensor_size)
+        p = self.cfg.loss_params
+        pvec = torch.tensor([p.alpha, p.beta, p.gamma, p.delta], dtype=torch.float32,
+                            device=self.device)
+        # the same on every rank
+        mask = self._hood_mask()
+        mask = None if mask is None else torch.as_tensor(mask, device=self.device)
+        des = self.cfg.dataset.des_n_events
+        if not des:
+            raise ValueError(
+                "phases.parallel_eval requires dataset.des_n_events (eval "
+                "event windows pad to one length per chunk)"
+            )
+        bucket = _EVAL_PAD_BUCKET
+        base_pad_e = max(bucket, -(-int(des) // bucket) * bucket)
+
+        for start in range(0, len(indices), chunk):
+            idxs = indices[start : start + chunk]
+            b_pad = -(-len(idxs) // n_dev) * n_dev
+            per = b_pad // n_dev
+            # pad to a multiple of the mesh size by repeating the last
+            # window (its results are discarded)
+            mine = (idxs + [idxs[-1]] * (b_pad - len(idxs)))[mesh.rank * per : (mesh.rank + 1) * per]
+            by_idx = dict(self._prefetch(list(dict.fromkeys(mine))))
+            staged_list = [by_idx[i] for i in mine]
+
+            # eval_events are boundary-sliced from the raw stream and NOT
+            # capped by des_n_events, so a busy window can exceed the
+            # des-derived pad: grow it to the chunk's maximum in buckets
+            info = mesh.all_gather((
+                max(len(s.eval_events["x"]) for s in staged_list),
+                sorted({s.gt_flow is not None for s in staged_list}),
+            ))
+            gts = {g for _, flags in info for g in flags}
+            if len(gts) != 1:
+                raise ValueError(
+                    "parallel_eval chunk mixes windows with and without "
+                    "gt_flow; GT presence must be uniform per sequence"
+                )
+            has_gt = gts.pop()
+            pad_e = max(base_pad_e, -(-max(m for m, _ in info) // bucket) * bucket)
+
+            def padded_events(s):
+                ev = s.eval_events
+                e = len(ev["x"])
+                out = np.full((3, pad_e), np.nan, np.float32)
+                out[0, :e], out[1, :e], out[2, :e] = ev["x"], ev["y"], ev["t"]
+                return out
+
+            evs = self._f32(np.stack([padded_events(s) for s in staged_list]))
+            theta = self._f32(np.stack([
+                np.asarray(self.opt_results[f"datasample_idx_{i}"]["solver_final_results"][
+                    "final_theta_pyr"]["pyr_lvl_0"], np.float32)
+                for i in mine
+            ]))
+            gt = self._f32(np.stack([s.gt_flow for s in staged_list])) if has_gt else None
+            t0 = time.perf_counter()
+            small = eval_batch_sharded(
+                theta, evs[:, 0], evs[:, 1], evs[:, 2],
+                torch.stack([s.window.edges for s in staged_list]),
+                torch.stack([s.window.edge_ts for s in staged_list]),
+                gt, mask, pvec, mesh, sensor,
+                self.cfg.solver.scale_theta_to_sensor_size_method,
+            )
+            ms = (time.perf_counter() - t0) * 1e3 / per
+            for i in set(mine) & set(idxs):
+                self.stats.setdefault(i, {})["eval_ms"] = ms
+            meta = [m for part in mesh.all_gather(
+                [(np.asarray(s.eval_ts), s.eval_ts_units) for s in staged_list]) for m in part]
+            for pos, idx in enumerate(idxs):
+                key = f"datasample_idx_{idx}"
+                time_str, eval_str, evals = format_eval_result(bundle_at(small, pos), sensor, has_gt)
+                self.eval_results[key] = {
+                    "evals": _as_jax_dtypes(evals),
+                    "eval_ts": meta[pos][0],
+                    "eval_ts_units": meta[pos][1],
+                }
+                if self._writes:
+                    log(f"{time_str} {key}: {eval_str.strip()}")
+
+        self._finish_eval()
+        ok(f"parallel eval: {len(indices)} windows over {n_dev} rank(s), chunks of {chunk}")
+        return self.eval_results
 
     def _f32(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=self.device)
@@ -433,7 +693,7 @@ class EINCMExperiment:
         ph = self.cfg.phases
         if ph.eager_eval and idx % max(1, ph.eager_eval_every) == 0:
             self._eval_one_window(idx, staged)
-        if ph.eager_plot and idx % max(1, ph.eager_plot_every) == 0:
+        if ph.eager_plot and self._writes and idx % max(1, ph.eager_plot_every) == 0:
             if getattr(self, "_eager_plotter", None) is None:
                 from eincm_tpu_torch.experiments.plotters import EINCMExperimentPlotter
 
@@ -603,6 +863,6 @@ class EINCMExperiment:
             self.run_solver()
         if self.cfg.phases.eval:
             self.run_eval()
-        if self.cfg.phases.plot:
+        if self.cfg.phases.plot and self._writes:
             self.run_plot()
         return self

@@ -88,10 +88,13 @@ def _aees(eval_results):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """One JAX and one port experiment on the same configuration, then a
-    JAX EVAL of the port's opt_results.npz."""
+    JAX EVAL of the port's opt_results.npz. Both keep their checkpoints
+    (one after each window): the port resumes from the JAX package's."""
     jax_exp = JaxExperiment(tiny_cfg(jcfg, tmp_path_factory.mktemp("jax")))
+    jax_exp.cfg.phases.delete_checkpoints_at_end = False
     jax_exp.run()
     port = EINCMExperiment(tiny_cfg(tcfg, tmp_path_factory.mktemp("port")), device=CPU)
+    port.cfg.phases.delete_checkpoints_at_end = False
     port.run()
     cross = JaxExperiment(tiny_cfg(jcfg, tmp_path_factory.mktemp("cross")))
     cross.run_eval(str(port.out_dir / "opt_results.npz"))
@@ -634,6 +637,212 @@ def test_eager_plot_and_plotter_extras(tmp_path, rng):
     assert not np.array_equal(pair, blend_image_events_and_gt_flow(img, xs, ys, gt, True))
 
 
+# ---- the parallel modes (tests/test_experiment.py:419-435, 480-570, 700-770) --
+
+@pytest.mark.parametrize("mode,n_windows", [("two_pass", 4), ("sequence_shard", 6)])
+def test_parallel_windows_mode(tmp_path, capsys, mode, n_windows):
+    """Both schedules through the manager on a one-member mesh: valid
+    artifacts, every window solved and evaluated, the JAX tests' AEE band;
+    the note that checkpoint_every_percent is the serial path's."""
+    exp = port_exp(tmp_path)
+    exp.cfg.dataset.n_windows = n_windows
+    exp.cfg.phases.parallel_windows = True
+    exp.cfg.phases.parallel_mode = mode
+    exp.cfg.phases.checkpoint_every_percent = 10.0
+    exp.run()
+    assert "only applies to the serial path" in capsys.readouterr().out
+    assert len(exp.opt_results) == n_windows
+    validate_opt_results(exp.opt_results, exp.cfg.solver.n_pyr_lvls)
+    validate_eval_results(EINCMOutputLoader().load_eval_results(exp.out_dir / "eval_results.npz"))
+    assert np.mean(_aees(exp.eval_results)) < 1.6, _aees(exp.eval_results)
+    passes = [exp.stats[i]["passes"] for i in range(n_windows)]
+    assert passes == ([1] + [2] * (n_windows - 1) if mode == "two_pass" else [1] * n_windows)
+    assert not list(exp.ckpt_dir.glob("checkpoint_*.npz"))
+
+
+def test_parallel_sequence_shard_is_the_serial_chain(tmp_path):
+    """On one member, sequence_shard solves the exact chain: the serial
+    path's records (without its armijo rescue, which the parallel path does
+    not run), bitwise on the CPU."""
+    serial = port_exp(tmp_path / "serial")
+    serial.cfg.solver.armijo_rescue = False
+    serial = EINCMExperiment(serial.cfg, device=CPU)
+    serial.run_solver()
+    par = port_exp(tmp_path / "parallel")
+    par.cfg.phases.parallel_windows = True
+    par.cfg.phases.parallel_mode = "sequence_shard"
+    par.run_solver()
+    for key, rec in serial.opt_results.items():
+        for group, levels in rec["solver_final_results"].items():
+            for lvl, v in levels.items():
+                if isinstance(v, np.ndarray):
+                    np.testing.assert_array_equal(
+                        par.opt_results[key]["solver_final_results"][group][lvl], v,
+                        err_msg=f"{key} {group} {lvl}")
+
+
+def test_parallel_eval_matches_serial(tmp_path):
+    """5 windows in chunks of 4 (the last chunk one window): per-window
+    metrics equal the serial EVAL's, with the same dtypes."""
+    exp = port_exp(tmp_path)
+    exp.cfg.dataset.n_windows = 5
+    exp.run_solver()
+    exp.run_eval()
+    serial = {k: r["evals"] for k, r in exp.eval_results.items()}
+    exp.eval_results = {}
+    exp.cfg.phases.parallel_eval = True
+    exp.run_eval()
+    assert set(exp.eval_results) == set(serial)
+    for key, ref in serial.items():
+        got = exp.eval_results[key]["evals"]
+        assert set(got) == set(ref)
+        for m, v in ref.items():
+            assert np.asarray(got[m]).dtype == np.asarray(v).dtype, (key, m)
+            np.testing.assert_allclose(np.asarray(got[m]), np.asarray(v), rtol=2e-5,
+                                       atol=1e-6, err_msg=f"{key}/{m}")
+    assert (exp.out_dir / "eval_results.npz").exists()
+    assert (exp.out_dir / "scores.txt").exists()
+
+
+def test_parallel_eval_pad_grows_beyond_des(tmp_path):
+    """eval_events are not capped by des_n_events: the pad grows to the
+    chunk's maximum (8192 + 100 events here) instead of raising."""
+    exp = port_exp(tmp_path)
+    exp.cfg.dataset.n_windows = 2
+    exp.run_solver()
+    orig_stage = exp.stage
+    big_n = 8192 + 100  # past the first 8192 bucket for des_n_events=1024
+
+    def stage(sample):
+        s = orig_stage(sample)
+        ev = s.eval_events
+        reps = -(-big_n // len(ev["x"]))
+        return s._replace(eval_events={k: np.tile(np.asarray(v), reps)[:big_n]
+                                       for k, v in ev.items()})
+
+    exp.stage = stage
+    exp.cfg.phases.parallel_eval = True
+    exp.run_eval()
+    assert len(exp.eval_results) == 2
+    for aee in _aees(exp.eval_results):
+        assert np.isfinite(aee)
+
+
+def test_parallel_eval_rejects_mixed_gt(tmp_path):
+    exp = port_exp(tmp_path)
+    exp.cfg.dataset.n_windows = 2
+    exp.run_solver()
+    orig_stage = exp.stage
+    exp.stage = lambda smp: (lambda s: s._replace(gt_flow=None) if s.eval_ts[0] > 0 else s)(
+        orig_stage(smp))
+    exp.cfg.phases.parallel_eval = True
+    with pytest.raises(ValueError, match="mixes windows with and without"):
+        exp.run_eval()
+
+
+def _parallel_cfg(tmp_path, n_windows, **phases):
+    cfg = tiny_cfg(tcfg, tmp_path)
+    cfg.dataset.n_windows = n_windows
+    cfg.dataset.velocity = (0.5, -0.25)  # 16-24 windows must fit the sensor
+    cfg.phases.parallel_windows = True
+    cfg.phases.eval = False
+    for k, v in phases.items():
+        setattr(cfg.phases, k, v)
+    return cfg
+
+
+def test_parallel_checkpoint_step_sized_from_solved_windows(tmp_path):
+    """The super-step comes from the windows solved this run (16 of 24),
+    not the loader's length: 50% is one checkpoint of 8 windows."""
+    exp = EINCMExperiment(_parallel_cfg(
+        tmp_path, 24, run_idx_range=(0, 16), parallel_checkpoint_every_percent=50.0,
+        delete_checkpoints_at_end=False), device=CPU)
+    exp.run_solver()
+    assert len(exp.opt_results) == 16
+    ckpts = sorted(exp.ckpt_dir.glob("checkpoint_*.npz"))
+    assert [c.name for c in ckpts] == ["checkpoint_7_24.npz"]
+    assert len(np.load(ckpts[0], allow_pickle=True)["opt_results"].item()) == 8
+
+
+@pytest.mark.parametrize("mode", ["sequence_shard", "two_pass"])
+def test_parallel_windows_checkpoint_resume(tmp_path, mode):
+    """Super-steps with the prior chain carried across them, a checkpoint
+    after each; a run resumed from the first checkpoint solves only the
+    second super-step's windows, from the checkpoint's last pyramid, and
+    reproduces the straight run bitwise. The resumed run sizes its own
+    super-steps from its 8 windows (50%: two of 4), so under two_pass
+    window 12 starts from window 11's exact carry instead of its pass-1
+    result: there the straight run is reproduced up to window 11; one-member
+    sequence_shard is the exact chain whatever the super-steps."""
+    exp = EINCMExperiment(_parallel_cfg(
+        tmp_path, 16, parallel_checkpoint_every_percent=50.0, parallel_mode=mode,
+        delete_checkpoints_at_end=False), device=CPU)
+    exp.run_solver()
+    assert len(exp.opt_results) == 16
+    ckpts = sorted(exp.ckpt_dir.glob("checkpoint_*.npz"))
+    assert len(ckpts) == 1
+    ck = np.load(ckpts[0], allow_pickle=True)["opt_results"].item()
+    assert len(ck) == 8
+
+    exp2 = EINCMExperiment(_parallel_cfg(
+        tmp_path / "resumed", 16, parallel_checkpoint_every_percent=50.0, parallel_mode=mode,
+        run_from_checkpoint=str(ckpts[0])), device=CPU)
+    exp2.run_solver()
+    assert sorted(i for i, st in exp2.stats.items() if "solve_ms" in st) == list(range(8, 16))
+    same = 16 if mode == "sequence_shard" else 12
+    for key, rec in list(exp.opt_results.items())[:same]:
+        for group, levels in rec["solver_final_results"].items():
+            for lvl, v in levels.items():
+                if isinstance(v, np.ndarray):
+                    np.testing.assert_array_equal(
+                        exp2.opt_results[key]["solver_final_results"][group][lvl], v,
+                        err_msg=f"{key} {group} {lvl}")
+
+
+@pytest.mark.parametrize("mode", ["two_pass", "sequence_shard"])
+def test_jax_serial_checkpoint_resumed_by_port_parallel(runs, tmp_path, mode):
+    """A checkpoint of the JAX package's serial manager (after window 0)
+    resumed by the port's parallel path: its record restored bitwise, its
+    last pyramid carried in as the boundary prior (window 1's prior)."""
+    jax_exp, _, _ = runs
+    ckpt = jax_exp.ckpt_dir / "checkpoint_0_3.npz"
+    ck = np.load(ckpt, allow_pickle=True)["opt_results"].item()
+    assert list(ck) == ["datasample_idx_0"]
+    exp = port_exp(tmp_path)
+    exp.cfg.phases.parallel_windows = True
+    exp.cfg.phases.parallel_mode = mode
+    exp.cfg.phases.eval = False
+    exp.cfg.phases.run_from_checkpoint = str(ckpt)
+    exp.run_solver()
+    assert sorted(exp.opt_results) == [f"datasample_idx_{i}" for i in range(3)]
+    assert sorted(i for i, st in exp.stats.items() if "solve_ms" in st) == [1, 2]
+    last = ck["datasample_idx_0"]["solver_final_results"]
+    for group, levels in last.items():
+        for lvl, v in levels.items():
+            if isinstance(v, np.ndarray):
+                np.testing.assert_array_equal(
+                    exp.opt_results["datasample_idx_0"]["solver_final_results"][group][lvl], v)
+    prior = exp.opt_results["datasample_idx_1"]["solver_final_results"]["prior_theta_pyr"]
+    np.testing.assert_array_equal(prior["pyr_lvl_0"], last["final_theta_pyr"]["pyr_lvl_0"])
+    validate_opt_results(exp.opt_results, exp.cfg.solver.n_pyr_lvls)
+    jax_validate_opt(EINCMOutputLoader().load_opt_results(exp.out_dir / "opt_results.npz"), 3)
+
+
+def test_only_rank_zero_writes(tmp_path, monkeypatch):
+    """A rank other than 0 writes no file: no checkpoint directory, no npz,
+    no scores."""
+    import eincm_tpu_torch.experiments.manager as mgr
+
+    monkeypatch.setattr(mgr, "process_rank", lambda: 1)
+    exp = port_exp(tmp_path)
+    exp.cfg.phases.parallel_windows = True
+    exp.cfg.phases.parallel_eval = True
+    exp.cfg.phases.parallel_checkpoint_every_percent = 50.0
+    exp.run()
+    assert len(exp.opt_results) == 3 and len(exp.eval_results) == 3
+    assert not [p for p in tmp_path.rglob("*") if p.is_file()]
+
+
 # ---- what the port does not run: it raises ------------------------------------
 
 @pytest.mark.parametrize("kind", ["ecd", "mvsec", "dsec"])
@@ -657,7 +866,7 @@ def test_real_data_loaders_raise(kind):
 
 
 @pytest.mark.parametrize("override", [
-    "distributed.enable=true", "jax_config={jax_enable_x64: true}",
+    "distributed.local_device_ids=[0, 1]", "jax_config={jax_enable_x64: true}",
     "compilation_cache_dir=/tmp/cache",
 ])
 def test_unrun_settings_raise(override):
@@ -666,7 +875,7 @@ def test_unrun_settings_raise(override):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("distributed", tcfg.DistributedConfig(enable=True)),
+    ("distributed", tcfg.DistributedConfig(enable=True, local_device_ids=(0, 1))),
     ("jax_config", {"jax_enable_x64": True}),
     ("compilation_cache_dir", "/tmp/cache"),
 ])
@@ -678,13 +887,20 @@ def test_unrun_settings_raise_in_the_experiment(tmp_path, field, value):
 
 
 def test_parallel_modes_raise(tmp_path):
+    """The parallel modes run (above); what they cannot run raises: an
+    unknown schedule, and windows without one fixed event count."""
     exp = port_exp(tmp_path)
     exp.cfg.phases.parallel_windows = True
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
+    exp.cfg.phases.parallel_mode = "ring"
+    with pytest.raises(ValueError, match="unknown parallel_mode 'ring'"):
+        exp.run_solver()
+    exp.cfg.phases.parallel_mode = "two_pass"
+    exp.cfg.dataset.des_n_events = 0
+    with pytest.raises(ValueError, match="requires dataset.des_n_events"):
         exp.run_solver()
     exp.cfg.phases.parallel_eval = True
     exp.opt_results = {"datasample_idx_0": {}}
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
+    with pytest.raises(ValueError, match="requires dataset.des_n_events"):
         exp.run_eval()
 
 

@@ -1,6 +1,7 @@
-"""eincm_tpu_torch runs where JAX and PyYAML are not installed, as on the
-GPU machine, and imports matplotlib, PIL, imageio and h5py (which that
-machine lacks too) only inside the functions that use them, or not at all;
+"""eincm_tpu_torch (every module, parallel/ and the examples included)
+runs where JAX and PyYAML are not installed, as on the GPU machine, and
+imports matplotlib, PIL, imageio and h5py (which that machine lacks too)
+only inside the functions that use them, or not at all;
 the shipped configs load there, and the DSEC, MVSEC and ECD loaders read a
 tree each (written here by tests/dataset_fixtures.py, with h5py, PIL and
 PyYAML) and stage one window. chip_smoke.py refuses to report without a
@@ -29,6 +30,10 @@ import eincm_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(eincm_tpu_torch.__path__, "eincm_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+# among them the window mesh's modules and the examples
+assert {"eincm_tpu_torch.parallel", "eincm_tpu_torch.parallel.batch",
+        "eincm_tpu_torch.parallel.distributed", "eincm_tpu_torch.examples.synthetic_recovery",
+        "eincm_tpu_torch.examples.sequence_sharding"} <= set(names), names
 import torch
 from eincm_tpu_torch.models.loss import (
     LossParams, LossStatics, compute_window_statics, solver_loss)
