@@ -102,12 +102,17 @@ Phases, each failing loudly (any failure exits non-zero):
    windows `solve_window_batch_sharded` (each window's AEE within 0.05 px
    of its lone first-sample solve), `two_pass_sequence_solve` (mean AEE of
    windows 1-5 <= MAX_MEAN_AEE) and `sequence_shard_solve` (the exact chain:
-   within 0.05 px of [chain]'s mean), then `eval_batch_sharded` of those
+   within 0.05 px of [chain]'s mean, one solve a window, each window's
+   level-0 prior bitwise its predecessor's final), each schedule's (window,
+   pass) solves as expected, `python -m eincm_tpu_torch.examples.
+   sequence_sharding` with its default bare cuda device (exit 0: every
+   schedule recovered the flow), then `eval_batch_sharded` of those
    thetas against `evaluate_theta_array` window by window (counts exact,
    values within [eval]'s tolerances, the splat fwd 3 a window); the CLI at
-   DSEC's full size on [dsec]'s tree (run right after [dsec]) in
-   sequence_shard with the sharded EVAL (mean AEE of windows 1-3 under
-   [dsec]'s bound and within 0.05 px of [dsec]'s reading); and the
+   DSEC's full size on [dsec]'s tree (run right after [dsec]) with the
+   CLI's default bare cuda device in sequence_shard with the sharded EVAL
+   (mean AEE of windows 1-3 under [dsec]'s bound and within 0.05 px of
+   [dsec]'s reading; one solve a window, the chain's priors bitwise); and the
    [experiment] sequence in two_pass with a super-step checkpoint at 50%,
    then a run resumed from it (only the second super-step solved, the
    restored records bitwise the checkpoint's);
@@ -117,7 +122,10 @@ Phases, each failing loudly (any failure exits non-zero):
    `local_device_ids=[0]`; each process this script again with
    `--rank-cli`, reporting its own launch counts in a JSON line): both
    exit 0 in RANKS_TIMEOUT_S (a survivor of a failed rank is killed), rank
-   0 writes the 8 windows' artifacts and rank 1 no file, rank 0's chunk
+   0 writes the 8 windows' artifacts and rank 1 no file, each rank solves
+   its 4 windows once (rank 1 only its pass 2), every window's level-0
+   prior in rank 0's opt_results.npz bitwise its predecessor's final
+   (window 4's crossed ranks; the one-member run's too), rank 0's chunk
    within 0.05 px of the one-member run, every window below zero flow,
    the mean of windows 1-7 <= MAX_EXPERIMENT_AEE, kernels 1-4 launched in
    both ranks.
@@ -1247,6 +1255,22 @@ def _solve_record(stats, launches):
     }
 
 
+def check_chain(phase, priors, finals):
+    """The exact handover chain, whatever the card's run-to-run noise: each
+    window's level-0 prior is its predecessor's kept level-0 final, bit for
+    bit (across a rank boundary too: gloo carries the bits)."""
+    for k in range(1, len(finals)):
+        if not np.array_equal(np.asarray(priors[k]), np.asarray(finals[k - 1])):
+            raise AssertionError(f"{phase}: window {k}'s prior is not window {k - 1}'s final")
+
+
+def record_chain(phase, records, n):
+    """`check_chain` on an experiment's records (opt_results.npz layout)."""
+    sfr = [records[f"datasample_idx_{k}"]["solver_final_results"] for k in range(n)]
+    check_chain(phase, [r["prior_theta_pyr"]["pyr_lvl_0"] for r in sfr],
+                [r["final_theta_pyr"]["pyr_lvl_0"] for r in sfr])
+
+
 def parallel_mvsec_phase(card, device, cfg, staged, vels, chain_mean_aee):
     """[parallel] on the 6 staged MVSEC windows, on a one-member mesh: the
     three schedules, each with the launch counters read around it, then
@@ -1317,6 +1341,23 @@ def parallel_mvsec_phase(card, device, cfg, staged, vels, chain_mean_aee):
     if not abs(ss - chain_mean_aee) <= PARALLEL_AEE_BAND:
         raise AssertionError(f"[parallel] sequence_shard mean AEE {ss}, [chain] {chain_mean_aee}")
     rec["two_pass"]["mean_aee_1_5"], rec["sequence_shard"]["mean_aee_1_5"] = tp, ss
+    # the schedules' structure: sequence_shard solves each window once,
+    # seeded by its predecessor's final; two_pass skips window 0's pass 2
+    # and the last window's pass 1
+    expect = {"batch_sharded": [[k, 1] for k in range(n)],
+              "two_pass": [[k, 1] for k in range(n - 1)] + [[k, 2] for k in range(1, n)],
+              "sequence_shard": [[k, 1] for k in range(n)]}
+    for name, solves in expect.items():
+        if rec[name]["solves"] != solves:
+            raise AssertionError(f"[parallel] {name} solved {rec[name]['solves']}, not {solves}")
+    ss_res = results["sequence_shard"]
+    check_chain("[parallel] sequence_shard", ss_res.prior_theta_pyr[0].cpu(),
+                ss_res.final_theta_pyr[0].cpu())
+    print(f"[parallel] solves as expected ({', '.join(expect)}); sequence_shard: every prior "
+          f"bitwise its predecessor's final")
+
+    # the example, run as its docstring gives it (the default bare cuda)
+    rec["example"] = run_example(card)
 
     # the sharded EVAL of sequence_shard's thetas against evaluate_theta_array
     theta = results["sequence_shard"].final_theta_pyr[0]
@@ -1355,6 +1396,30 @@ def parallel_mvsec_phase(card, device, cfg, staged, vels, chain_mean_aee):
     print(f"[parallel] {card}: eval_batch_sharded of {n} windows in {eval_s * 1e3:.1f} ms "
           f"({eval_s * 1e3 / n:.2f} ms a window), splat_fwd launched 3 a window")
     return rec, launches
+
+
+EXAMPLE_TIMEOUT_S = 300
+
+
+def run_example(card):
+    """`python -m eincm_tpu_torch.examples.sequence_sharding` with no
+    arguments (device cuda, one member): it exits 0 only if every schedule
+    recovered the flow. Killed at EXAMPLE_TIMEOUT_S."""
+    import subprocess
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "eincm_tpu_torch.examples.sequence_sharding"],
+                          cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                          timeout=EXAMPLE_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[parallel] the sequence_sharding example exited "
+                             f"{proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    lines = [l for l in proc.stdout.splitlines() if "AEE" in l]
+    print(f"[parallel] {card}: examples.sequence_sharding (bare cuda) in {wall_s:.2f} s: "
+          + "; ".join(l.strip() for l in lines))
+    return {"wall_s": wall_s, "lines": lines}
 
 
 def parallel_cli(device, config, overrides):
@@ -1403,8 +1468,9 @@ def parallel_dsec_phase(card, device, tree, serial):
     from pathlib import Path
 
     config = Path(__file__).resolve().parent / "configs" / REAL_CASES["dsec"][0]
+    # the CLI's default device, as the README runs it: a bare cuda
     exp, launches, wall_s = parallel_cli(
-        device, config, [*real_args("dsec", tree, tree["root"].parent / "out_parallel"),
+        "cuda", config, [*real_args("dsec", tree, tree["root"].parent / "out_parallel"),
                          *PARALLEL_OVERRIDES])
     aee, zero, mean_aee = score(exp, tree, device)
     r = {"card": card, "overrides": list(PARALLEL_OVERRIDES), **_stats_record(exp, launches, wall_s),
@@ -1422,6 +1488,10 @@ def parallel_dsec_phase(card, device, tree, serial):
         raise AssertionError(f"[parallel] DSEC mean AEE {mean_aee}, serial {serial['mean_aee']}")
     if not all(a < z for a, z in zip(aee, zero)):
         raise AssertionError(f"[parallel] DSEC: a window's AEE is not below zero flow's: {aee}")
+    if r["passes"] != [1] * r["windows"]:
+        raise AssertionError(f"[parallel] DSEC: passes {r['passes']}, not one a window")
+    record_chain("[parallel] DSEC", exp.opt_results, r["windows"])
+    print(f"[parallel] DSEC: one solve a window, every prior bitwise its predecessor's final")
     return r, launches
 
 
@@ -1518,6 +1588,9 @@ def ranks_phase(card, device):
                    for i in range(n)]
         rec["one_member"] = {**_stats_record(one, launches["one_member"], wall_s), "aee": one_aee}
         _print_stats("ranks", card, "one member, sequence_shard", rec["one_member"])
+        if rec["one_member"]["passes"] != [1] * n:
+            raise AssertionError(f"[ranks] one member: passes {rec['one_member']['passes']}")
+        record_chain("[ranks] one member", one.opt_results, n)
         name = one.out_dir.name
         del one
         torch.cuda.empty_cache()
@@ -1574,6 +1647,9 @@ def ranks_phase(card, device):
         if sorted(opt) != [f"datasample_idx_{i}" for i in range(n)] or len(ev) != n:
             raise AssertionError(f"[ranks] rank 0 wrote {len(opt)} records, {len(ev)} evals")
         aees = [float(ev[f"datasample_idx_{i}"]["evals"]["AEE"]) for i in range(n)]
+        # the exact chain over two ranks: window n/2's prior is window
+        # n/2 - 1's kept pass-1 final, which crossed from rank 0 to rank 1
+        record_chain("[ranks] two ranks (rank 0's opt_results.npz)", opt, n)
         for r, report in enumerate(reports):
             launches[f"rank{r}"] = report["launches"]
             st = [report["stats"].get(str(i), {}) for i in range(n)]
@@ -1601,6 +1677,11 @@ def ranks_phase(card, device):
             missing = [k for k in CHAIN_KERNELS if report["launches"][k] == 0]
             if missing:
                 raise AssertionError(f"[ranks] rank {r}: kernels not launched: {missing}")
+            # rank 0 keeps its pass 1, rank 1 (the last) solves only pass 2
+            half = list(range(r * n // 2, (r + 1) * n // 2))
+            if mine != half or rr["passes"] != [1] * len(half):
+                raise AssertionError(f"[ranks] rank {r} solved windows {mine}, passes "
+                                     f"{rr['passes']}; expected {half} once each")
         gap = [abs(a - b) for a, b in zip(aees[: n // 2], one_aee[: n // 2])]
         mean = float(np.mean(aees[1:]))
         rec.update(wall_s=wall_s, aee=aees, mean_aee_1_7=mean, files_rank0=files[0],

@@ -93,10 +93,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
     args = ap.parse_args(argv)
-    device = torch.device(args.device)
     if "WORLD_SIZE" in os.environ:  # under torchrun
         initialize_distributed(DistributedConfig(enable=True))
-        device = rank_device(DistributedConfig(), device)
+    # a bare cuda takes its index here (set_device needs one)
+    device = rank_device(DistributedConfig(), args.device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")

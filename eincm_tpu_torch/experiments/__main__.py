@@ -53,11 +53,12 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     cfg = load_config(args.config, args.overrides)
-    device = torch.device(args.device)
     if cfg.distributed.enable:
         # before the experiment is built: its mesh is the process group
         initialize_distributed(cfg.distributed)
-        device = rank_device(cfg.distributed, device)
+    # a bare cuda takes its index here (set_device needs one)
+    device = rank_device(cfg.distributed, args.device)
+    if cfg.distributed.enable:
         log(process_info(device))
     if device.type == "cuda" and torch.cuda.is_available():
         torch.cuda.set_device(device)  # the kernels launch on the current device

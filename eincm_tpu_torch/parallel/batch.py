@@ -42,7 +42,11 @@ stack (the structure mismatch of tests/test_parallel.py:140-171 cannot
 recur).
 
 Where the JAX schedules solve a window only to discard it (lockstep SPMD),
-the port skips the solve: the kept results are the same.
+the port skips the solve: the kept results are the same. Rank 0 does not
+re-solve its chunk in pass 2 (sequence_shard) or window 0 (two_pass)
+without a carry; the last rank solves no pass 1 of the window whose final
+pyramid would go to a next rank (its whole chunk under sequence_shard, its
+last window under two_pass).
 """
 
 from __future__ import annotations
@@ -347,7 +351,8 @@ def sequence_shard_solve(
       pass 2: chunks re-solve with the received boundary prior seeding
               their first window's handover. Rank 0 has no predecessor: its
               pass-1 chunk (whose first window is the global first) is kept,
-              and its pass 2 is not solved.
+              and its pass 2 is not solved. The last rank has no successor:
+              it solves no pass 1, only its pass 2 once its boundary came.
 
     `boundary_prior` (one window's theta pyramid, the carry from an earlier
     super-step) seeds the GLOBAL first window: rank 0 then solves pass 2
@@ -367,8 +372,10 @@ def sequence_shard_solve(
         kept = _chain(solver, batch, zero if carry is None else carry, carry is None,
                       off, 1, window_stats)
     else:
-        pass1 = _chain(solver, batch, zero, True, off, 1, window_stats)
-        received = _pass_right(mesh, pass1[-1].final_theta_pyr)
+        # the last rank's pass 1 would feed no one: it only receives
+        last = mesh.rank == mesh.size - 1
+        pass1 = None if last else _chain(solver, batch, zero, True, off, 1, window_stats)
+        received = _pass_right(mesh, zero if last else pass1[-1].final_theta_pyr)
         seed = carry if mesh.rank == 0 else received
         kept = pass1 if seed is None else _chain(solver, batch, seed, False, off, 2, window_stats)
     res = _gather(mesh, stack_results(kept))
@@ -392,8 +399,10 @@ def two_pass_sequence_solve(
     JAX package's pass-2 re-solve of it is discarded, so it is not solved
     here) unless `boundary_prior` (the carry from an earlier checkpointed
     super-step) is given: then it is window 0's pass-2 prior, and its pass-2
-    result is kept like every other window's. Without a mesh the batch is
-    solved on its own device.
+    result is kept like every other window's. The last window's pass-1
+    final feeds only the next rank, so the last rank does not solve it
+    (unless it is the global first window, kept whole). Without a mesh the
+    batch is solved on its own device.
 
     Returns:
         (SolveResult with leading window axis, final theta pyramids).
@@ -403,12 +412,20 @@ def two_pass_sequence_solve(
     solver = make_window_solver(cfg, mesh.device)
     zero = cfg.zero_pyramid(batch.xs.dtype, device=mesh.device)
     off = mesh.rank * n
+    carry = _boundary(boundary_prior, batch, mesh.device) if mesh.rank == 0 else None
+    last = mesh.rank == mesh.size - 1
+    # the last rank's last pass 1 would feed no one: it is solved only as
+    # the global first window without a carry, whose pass 1 is kept
+    keeps_first = mesh.rank == 0 and carry is None
+    n1 = n - 1 if last and not (n == 1 and keeps_first) else n
     pass1 = [
         _solve_one(solver, window_at(batch, i), zero, True, (off + i, 1), window_stats)
-        for i in range(n)
+        for i in range(n1)
     ]
-    received = _pass_right(mesh, pass1[-1].final_theta_pyr) if mesh.size > 1 else None
-    head = _boundary(boundary_prior, batch, mesh.device) if mesh.rank == 0 else received
+    received = None
+    if mesh.size > 1:
+        received = _pass_right(mesh, zero if last else pass1[-1].final_theta_pyr)
+    head = carry if mesh.rank == 0 else received
     kept = []
     for i in range(n):
         prior = head if i == 0 else pass1[i - 1].final_theta_pyr

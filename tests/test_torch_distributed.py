@@ -113,7 +113,8 @@ def worker(coord, world, rank, job):
     res = run_schedule(job["schedule"], local, mesh, stats)
     if rank == 0:
         np.savez(job["out"], **summary(res))
-    print(json.dumps({"rank": rank, "windows": sorted({s["window"] for s in stats})}))
+    print(json.dumps({"rank": rank, "windows": sorted({s["window"] for s in stats}),
+                      "solves": [[s["window"], s["pass"]] for s in stats]}))
 
 
 # ---- launching -------------------------------------------------------------------
@@ -154,14 +155,35 @@ def run_ranks(world, job):
                    for r in range(world)])
 
 
+def expected_solves(schedule, world, b):
+    """(window, pass) of each rank's solves: nothing lockstep SPMD would
+    discard. sequence_shard: rank 0 its chunk's pass 1, the last rank its
+    pass 2 alone, the others both; two_pass: pass 1 of every window but the
+    last, whose final would go to no rank, pass 2 of every window but 0."""
+    per = b // world
+    out = []
+    for r in range(world):
+        mine = range(r * per, (r + 1) * per)
+        if schedule == "batch_sharded":
+            out.append([[w, 1] for w in mine])
+        elif schedule == "sequence_shard":
+            out.append(([[w, 1] for w in mine] if r < world - 1 else [])
+                       + ([[w, 2] for w in mine] if r > 0 else []))
+        else:
+            out.append([[w, 1] for w in mine if w < b - 1] + [[w, 2] for w in mine if w > 0])
+    return out
+
+
 def ranks_result(tmp_path, world, schedule, b=8, seed=0):
     out = tmp_path / "result.npz"
     runs = run_ranks(world, dict(schedule=schedule, b=b, seed=seed, out=str(out)))
     for rc, _, err in runs:
         assert rc == 0, err[-4000:]
-    owned = [json.loads(o.strip().splitlines()[-1])["windows"] for _, o, _ in runs]
+    reports = [json.loads(o.strip().splitlines()[-1]) for _, o, _ in runs]
     per = b // world
-    assert owned == [list(range(r * per, (r + 1) * per)) for r in range(world)]
+    assert [r["windows"] for r in reports] == [list(range(r * per, (r + 1) * per))
+                                               for r in range(world)]
+    assert [r["solves"] for r in reports] == expected_solves(schedule, world, b)
     return dict(np.load(out))
 
 

@@ -656,7 +656,9 @@ def test_parallel_windows_mode(tmp_path, capsys, mode, n_windows):
     validate_eval_results(EINCMOutputLoader().load_eval_results(exp.out_dir / "eval_results.npz"))
     assert np.mean(_aees(exp.eval_results)) < 1.6, _aees(exp.eval_results)
     passes = [exp.stats[i]["passes"] for i in range(n_windows)]
-    assert passes == ([1] + [2] * (n_windows - 1) if mode == "two_pass" else [1] * n_windows)
+    # two_pass: window 0 keeps pass 1, the last window's pass 1 feeds no one
+    assert passes == ([1] + [2] * (n_windows - 2) + [1] if mode == "two_pass"
+                      else [1] * n_windows)
     assert not list(exp.ckpt_dir.glob("checkpoint_*.npz"))
 
 
@@ -913,6 +915,46 @@ def test_no_cpu_fallback(tmp_path):
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main([*CLI_ARGS, f"output_dir={tmp_path}"])
+
+
+class _Built(Exception):
+    """Raised by a stub where the entry point would start its work."""
+
+
+@pytest.mark.parametrize("entry", ["cli", "sequence_sharding"])
+def test_a_bare_cuda_gets_an_index(monkeypatch, tmp_path, entry):
+    """The entry points' default `--device cuda`, with no process group,
+    reaches `torch.cuda.set_device` as cuda:0: torch refuses a CUDA device
+    without an index there. CUDA and set_device are stubbed (this machine
+    may have no card); the work stops where the experiment or the mesh
+    would be built."""
+    import eincm_tpu_torch.examples.sequence_sharding as ex
+    from eincm_tpu_torch.experiments import __main__ as cli
+
+    def set_device(device):
+        device = torch.device(device)
+        if device.index is None:
+            raise ValueError("Expected a torch.device with a specified index")
+        calls.append(device)
+
+    def built(*args, device=None, **kw):
+        raise _Built(device)
+
+    calls = []
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "set_device", set_device)
+    monkeypatch.setattr(cli, "EINCMExperiment", built)
+    monkeypatch.setattr(ex, "make_window_mesh", built)
+    with pytest.raises(_Built) as info:
+        if entry == "cli":
+            cli.main(["--config", str(REPO / "configs/synthetic.yaml"),
+                      f"output_dir={tmp_path}", "phases.parallel_windows=true"])
+        else:
+            ex.main([])
+    assert calls == [torch.device("cuda", 0)]
+    assert info.value.args[0] == torch.device("cuda", 0)
 
 
 # ---- the chip_smoke.py [experiment] bound: the JAX package's reading ----------

@@ -276,10 +276,29 @@ def test_window_stats_record_every_solve():
     _, tb = both_batches(tiny_arrays(3))
     stats = []
     res, _ = pb.two_pass_sequence_solve(tcfg, tb, window_stats=stats)
-    # pass 1 of every window, pass 2 of windows 1-2 (window 0 keeps pass 1)
-    assert [(s["window"], s["pass"]) for s in stats] == [(0, 1), (1, 1), (2, 1), (1, 2), (2, 2)]
-    assert [s["host_syncs"] for s in stats[3:]] == res.n_host_syncs[1:].tolist()
+    # pass 1 of windows 0-1 (window 2's pass-1 final would feed no one),
+    # pass 2 of windows 1-2 (window 0 keeps pass 1)
+    assert [(s["window"], s["pass"]) for s in stats] == [(0, 1), (1, 1), (1, 2), (2, 2)]
+    assert [s["host_syncs"] for s in stats[2:]] == res.n_host_syncs[1:].tolist()
     assert all(s["ms"] > 0 and s["evals"] > 0 for s in stats)
+
+
+@pytest.mark.parametrize("with_boundary", [False, True], ids=["first", "boundary"])
+def test_two_pass_one_window_matches_jax(with_boundary):
+    """One window: without a carry its pass 1 is the whole record; with
+    one, only its pass 2 from the carry is solved."""
+    jcfg, tcfg = tiny_cfgs()
+    jb, tb = both_batches(tiny_arrays(1))
+    bp = boundary_prior(tcfg) if with_boundary else None
+    ref, _ = jpb.two_pass_sequence_solve(
+        jcfg, jb, boundary_prior=None if bp is None else [jnp.asarray(p) for p in bp])
+    stats = []
+    got, _ = pb.two_pass_sequence_solve(
+        tcfg, tb, boundary_prior=None if bp is None else [torch.as_tensor(p) for p in bp],
+        window_stats=stats)
+    assert [(s["window"], s["pass"]) for s in stats] == [(0, 2 if with_boundary else 1)]
+    assert_pyramids_close(ref.final_theta_pyr, got.final_theta_pyr)
+    assert_pyramids_close(ref.prior_theta_pyr, got.prior_theta_pyr)
 
 
 # ---- the mesh and the configuration ------------------------------------------------
