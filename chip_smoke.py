@@ -85,7 +85,12 @@ Phases, each failing loudly (any failure exits non-zero):
    window; the native library built, kernels 1-4 launched, every window
    holding >= 1.5M events, the mean AEE of windows 1-3 against the JAX
    package's reading and every window's against zero flow's; then windows
-   0-1 once more with the config's Gaussian edges, their AEE printed;
+   0-1 once more with the config's Gaussian edges, their AEE printed; and
+   (after [parallel]'s DSEC run) the CLI's SOLVE in a subprocess, SIGKILLed
+   once its first checkpoint loads, resumed here from it with SOLVE and
+   EVAL: every window's record, only the later windows solved, the first
+   of them from a level-0 prior bitwise the checkpoint's last final,
+   kernels 1-4 launched, the mean AEE under [dsec]'s bound;
 10. [submission] a DSEC test-split tree of the same scene, the CLI with
    `dataset.extended=true` (the extended CSV reconstructed by the loader)
    solving 2 windows, `tools.dsec_extended_evals` writing that CSV (equal
@@ -128,7 +133,19 @@ Phases, each failing loudly (any failure exits non-zero):
    (window 4's crossed ranks; the one-member run's too), rank 0's chunk
    within 0.05 px of the one-member run, every window below zero flow,
    the mean of windows 1-7 <= MAX_EXPERIMENT_AEE, kernels 1-4 launched in
-   both ranks.
+   both ranks;
+15. [bench] each `build_*` bench of `eincm_tpu_torch/utils/benchmarks.py` at its
+   full size, BENCH_ROUNDS rounds each: the MVSEC chain (6 windows; its
+   seconds a window beside [chain]'s median), the DSEC chain (4 windows of
+   1.5M events; beside [dsec]'s solve median), the batched solve (8
+   windows on a mesh of this one process) with `solve_diag_str` of each,
+   and the DSEC warp+splat throughput in Mevents/s; kernels 1-4 launched;
+16. [studies] the seven studies of `eincm_tpu_torch/scripts/` at
+   STUDY_WINDOWS windows and one round (the edge study over the 6-window
+   chain with [chain]'s theta_ftol): each finishes with its JSON keys, the
+   mean AEE of each chain it solves with the shipped edges finite and
+   under MAX_MEAN_AEE (the edge study's baseline over windows 1-5: [chain]'s
+   configuration and statistic), kernels 1-4 launched.
 
 Every kernel's time stands beside its bound: the least time the card could
 take for the same work, the longer of the bytes it must move (each input
@@ -1909,6 +1926,9 @@ def real_data_phases(card, device):
         recs["parallel_dsec"], launches["parallel_dsec"] = parallel_dsec_phase(
             card, device, tree, rec)
         torch.cuda.empty_cache()
+        rec["kill_resume"], launches["dsec_resume"] = dsec_kill_resume_phase(
+            card, device, tree, rec)
+        torch.cuda.empty_cache()
         shutil.rmtree(tree["root"])
 
         # ---- 10. [submission] ----------------------------------------------
@@ -2012,6 +2032,237 @@ def submission_phase(card, device, tree):
     print(f"[submission] {card}: {len(pngs)} PNGs {rec['pngs']} in {export_s:.2f} s, each "
           "equal to the upscale and encoding of its window's level-0 theta")
     return rec, launches, exp
+
+
+BENCH_ROUNDS = 3
+STUDY_WINDOWS = 3
+KILL_DEADLINE_S = 300
+
+
+def _loadable(path) -> bool:
+    """A checkpoint counts once it loads: the file may be mid-write."""
+    try:
+        with np.load(path, allow_pickle=True) as z:
+            z["opt_results"].item()
+        return True
+    except Exception:
+        return False
+
+
+def dsec_kill_resume_phase(card, device, tree, serial):
+    """[dsec] killed and resumed: the CLI's SOLVE on [dsec]'s tree in a
+    subprocess, SIGKILLed once its first checkpoint loads, then resumed in
+    this process from it with SOLVE and EVAL, the launch counters read
+    around the resume: every window's record, only the windows after the
+    checkpoint solved, the first of them from a level-0 prior bitwise the
+    checkpoint's last final, kernels 1-4 launched, the mean AEE of windows
+    1-3 under [dsec]'s bound. Returns (record, launches)."""
+    import signal
+    import subprocess
+    from pathlib import Path
+
+    from eincm_tpu_torch.experiments.__main__ import main as experiment_main
+    from eincm_tpu_torch.experiments.config import load_config
+    from eincm_tpu_torch.experiments.outputs import EINCMOutputLoader
+    from eincm_tpu_torch.ops import _build
+
+    here = Path(__file__).resolve().parent
+    config = here / "configs" / REAL_CASES["dsec"][0]
+    out = tree["root"].parent / "out_resume"
+    args = [*real_args("dsec", tree, out), "phases.checkpoint_every_percent=25",
+            "phases.delete_checkpoints_at_end=false"]
+    name = load_config(str(config), args).experiment_name
+    ckpt_dir = out / name / "checkpoints"
+    log = tree["root"].parent / "resume_solve.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "eincm_tpu_torch.experiments", "--device", str(device),
+             "--config", str(config), *args, "phases.eval=false"],
+            cwd=here, stdout=f, stderr=subprocess.STDOUT)
+        ckpt, deadline = None, time.time() + KILL_DEADLINE_S
+        try:
+            while ckpt is None and proc.poll() is None and time.time() < deadline:
+                landed = [c for c in sorted(ckpt_dir.glob("checkpoint_*.npz")) if _loadable(c)]
+                ckpt = landed[0] if landed else None
+                time.sleep(0.05)
+        finally:
+            killed = proc.poll() is None
+            if killed:
+                proc.send_signal(signal.SIGKILL)
+            proc.wait()
+    kill_s = time.perf_counter() - t0
+    if not killed or ckpt is None:
+        raise AssertionError(f"[dsec] the SOLVE was not killed after a checkpoint (rc "
+                             f"{proc.returncode}): {log.read_text()[-3000:]}")
+    saved = EINCMOutputLoader().load_opt_results(str(ckpt))
+    last = max(int(k.rsplit("_", 1)[1]) for k in saved)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _build.reset_launch_counts()
+    exp = experiment_main(["--device", str(device), "--config", str(config), *args,
+                           f"phases.run_from_checkpoint={ckpt}"])
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    resume_s = time.perf_counter() - t1
+    n = len(exp.opt_results)
+    aee, zero, mean_aee = score(exp, tree, device)
+    solved = sorted(i for i, st in exp.stats.items() if "solve_ms" in st)  # EVAL: every window
+    prior = exp.opt_results[f"datasample_idx_{last + 1}"]["solver_final_results"][
+        "prior_theta_pyr"]["pyr_lvl_0"]
+    final = saved[f"datasample_idx_{last}"]["solver_final_results"]["final_theta_pyr"]["pyr_lvl_0"]
+    rec = {"card": card, "killed_after_s": kill_s, "checkpoint": ckpt.name,
+           "checkpoint_windows": last + 1, "resume_s": resume_s, "wall_s": kill_s + resume_s,
+           "solved": solved, "aee": aee, "mean_aee": mean_aee, "max_aee": serial["max_aee"],
+           "launches": {k: launches[k] for k in CHAIN_KERNELS},
+           "prior_bitwise": bool(np.array_equal(prior, final))}
+    print(f"[dsec] {card}: SOLVE killed {kill_s:.2f} s after its start, once {ckpt.name} "
+          f"(windows 0-{last}) loaded; resumed with SOLVE + EVAL in {resume_s:.2f} s (wall "
+          f"{rec['wall_s']:.2f} s): windows solved {solved}, kernel launches {rec['launches']}")
+    print(f"[dsec] {card}: resumed AEE per window {[round(a, 4) for a in aee]}; mean of "
+          f"windows 1-3 {mean_aee:.4f} px (limit {serial['max_aee']}); window {last + 1}'s "
+          f"level-0 prior bitwise window {last}'s final in the checkpoint: "
+          f"{rec['prior_bitwise']}")
+    if n != REAL_CASES["dsec"][2] or solved != list(range(last + 1, n)):
+        raise AssertionError(f"[dsec] resume: {n} records, windows {solved} solved after "
+                             f"checkpoint window {last}")
+    if not rec["prior_bitwise"]:
+        raise AssertionError(f"[dsec] resume: window {last + 1}'s prior is not the checkpoint's")
+    for key, r in saved.items():
+        if not np.array_equal(exp.opt_results[key]["solver_final_results"]["final_theta_pyr"]
+                              ["pyr_lvl_0"], r["solver_final_results"]["final_theta_pyr"]
+                              ["pyr_lvl_0"]):
+            raise AssertionError(f"[dsec] resume: {key} is not the checkpoint's")
+    missing = [k for k in CHAIN_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"[dsec] resume: kernels not launched: {missing}")
+    if not all(math.isfinite(a) for a in aee) or not mean_aee <= serial["max_aee"]:
+        raise AssertionError(f"[dsec] resume: mean AEE {mean_aee} > {serial['max_aee']}")
+    return rec, launches
+
+
+def _finite_theta(res) -> bool:
+    return all(bool(torch.isfinite(t).all()) for t in res.final_theta_pyr)
+
+
+def bench_phase(card, device, chain_median_ms, dsec_median_ms):
+    """[bench] each `build_*` bench of utils/benchmarks.py at its full size,
+    BENCH_ROUNDS rounds each, the launch counters read around them all.
+    Returns (record, launches)."""
+    from eincm_tpu_torch.ops import _build
+    from eincm_tpu_torch.utils import benchmarks as bm
+
+    rec = {"card": card, "rounds": BENCH_ROUNDS}
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    for tag, build in (("mvsec", lambda: bm.build_mvsec_solve_bench(device=device)),
+                       ("dsec", lambda: bm.build_dsec_solve_bench(device=device)),
+                       ("parallel", lambda: bm.build_parallel_solve_bench(device=device))):
+        t1 = time.perf_counter()
+        one_round, res = build()
+        build_s = time.perf_counter() - t1
+        s = [one_round() for _ in range(BENCH_ROUNDS)]
+        diag = bm.solve_diag_str(res)
+        rec[tag] = {"s_per_window": s, "median_s": float(np.median(s)), "build_s": build_s,
+                    "diag": diag}
+        if tag == "mvsec":
+            ref = f"[chain] median {chain_median_ms:.1f} ms"
+        elif tag == "dsec":
+            ref = f"[dsec] solve median {dsec_median_ms:.1f} ms"
+        else:
+            ref = f"mesh of {one_round.mesh.size}, 8 first-sample solves a round"
+        print(f"[bench] {card}: {tag} solve bench: {np.median(s) * 1e3:.1f} ms a window "
+              f"(median of {[round(x * 1e3, 1) for x in s]}; {ref}); built (staging, warm-up "
+              f"solves) in {build_s:.2f} s; {diag}")
+        if not _finite_theta(res) or not all(x > 0 for x in s):
+            raise AssertionError(f"[bench] {tag}: non-finite theta or times {s}")
+    one_round = bm.build_dsec_throughput_bench(device=device)
+    s = [one_round() for _ in range(BENCH_ROUNDS)]
+    mev = bm.DSEC_N_EVENTS * bm.DSEC_N_REFS / float(np.median(s)) / 1e6
+    rec["throughput"] = {"s_per_iter": s, "median_s": float(np.median(s)), "mevents_per_s": mev}
+    print(f"[bench] {card}: DSEC warp+splat throughput {mev:.1f} Mevents/s "
+          f"({bm.DSEC_N_EVENTS} events x {bm.DSEC_N_REFS} refs, {np.median(s) * 1e3:.3f} ms "
+          f"an iteration, median of {[round(x * 1e3, 3) for x in s]})")
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["launches"] = {k: launches[k] for k in CHAIN_KERNELS}
+    print(f"[bench] {card}: kernel launches {rec['launches']}; {rec['wall_s']:.2f} s")
+    missing = [k for k in CHAIN_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"[bench] kernels not launched: {missing}")
+    return rec, launches
+
+
+def studies_phase(card, device):
+    """[studies] each study of eincm_tpu_torch/scripts/ on the card at
+    STUDY_WINDOWS windows and one round (the edge study over the whole
+    6-window chain with [chain]'s theta_ftol), the launch counters read
+    around them all: each
+    finishes with its JSON keys, and the mean AEE of each chain it solves
+    with the shipped edges is finite and under MAX_MEAN_AEE. Returns
+    (record, launches)."""
+    import tempfile
+
+    from eincm_tpu_torch.ops import _build
+    from eincm_tpu_torch.scripts import armijo_interp_probe as aip
+    from eincm_tpu_torch.scripts import armijo_rescue_validation as arv
+    from eincm_tpu_torch.scripts import edge_sensitivity as es
+    from eincm_tpu_torch.scripts import ftol_ab
+    from eincm_tpu_torch.scripts import hessian_warmstart_probe as hwp
+    from eincm_tpu_torch.scripts import ls_evals_ab
+    from eincm_tpu_torch.scripts import mvsec_loss_breakdown as mlb
+
+    n = STUDY_WINDOWS
+    rec = {"card": card}
+
+    def check_aee(name, aee):
+        if not (all(math.isfinite(a) for a in aee) and float(np.mean(aee)) <= MAX_MEAN_AEE):
+            raise AssertionError(f"[studies] {name}: AEE {aee} (mean limit {MAX_MEAN_AEE})")
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {
+            "armijo_rescue_validation": lambda: arv.study(f"{tmp}/rescue", device=device,
+                                                          n_windows=n),
+            "ftol_ab": lambda: ftol_ab.study(f"{tmp}/ftol", device=device, n_windows=n,
+                                             rounds=1, mvsec_windows=n, dsec_rounds=1,
+                                             dsec_windows=2),
+            "ls_evals_ab": lambda: ls_evals_ab.study(f"{tmp}/lscap", device=device,
+                                                     n_windows=n, rounds=1, mvsec_windows=n),
+            "mvsec_loss_breakdown": lambda: mlb.breakdown(device=device, rounds=1, iters=50),
+            # the whole chain with [chain]'s theta_ftol (the JAX script leaves
+            # it unset), so that its baseline is [chain]'s configuration and
+            # statistic, which MAX_MEAN_AEE bounds
+            "edge_sensitivity": lambda: es.study(device=device, n_windows=6,
+                                                 solver_overrides={"theta_ftol": 1e-5}),
+            "armijo_interp_probe": lambda: aip.probe(device=device, n_windows=n, rounds=1,
+                                                     bench_rounds=1),
+            "hessian_warmstart_probe": lambda: hwp.probe(device=device, n_windows=n, rounds=1),
+        }
+        for name, run in runs.items():
+            t1 = time.perf_counter()
+            out = run()
+            rec[name] = {"wall_s": time.perf_counter() - t1, "result": out}
+            print(f"[studies] {card}: {name} in {rec[name]['wall_s']:.2f} s, keys "
+                  f"{sorted(out)}: {json.dumps(out)}")
+            if name in ("armijo_rescue_validation", "ftol_ab", "ls_evals_ab"):
+                for key, v in out.items():
+                    if re.fullmatch(r"aee_(?!mean|worst).*", key):
+                        check_aee(f"{name} {key}", v)
+            elif name == "edge_sensitivity":  # windows 1-5, as [chain]
+                check_aee(name, out["baseline"]["aee_per_window"][1:])
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["launches"] = {k: launches[k] for k in CHAIN_KERNELS}
+    print(f"[studies] {card}: the seven studies in {rec['wall_s']:.2f} s; kernel launches "
+          f"{rec['launches']}")
+    missing = [k for k in CHAIN_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"[studies] kernels not launched: {missing}")
+    return rec, launches
 
 
 def gt_theta(vel, shape, device):
@@ -2268,6 +2519,16 @@ def main(argv=None) -> int:
 
     # ---- 14. [ranks] two processes on this one card, joined by gloo -------
     ranks_row, ranks_launches = ranks_phase(card, device)
+    torch.cuda.empty_cache()
+
+    # ---- 15. [bench] the benches of utils/benchmarks.py at full size --------
+    chain_median_ms = float(np.median([r["ms"] for r in chain_recs[1:]]))
+    bench_row, bench_phase_launches = bench_phase(
+        card, device, chain_median_ms, real_rows["dsec"]["solve_ms_median_1_n"])
+    torch.cuda.empty_cache()
+
+    # ---- 16. [studies] the seven studies at reduced size ------------------
+    studies_row, studies_launches = studies_phase(card, device)
 
     launches = {**{k: chain_launches[k] for k in CHAIN_KERNELS},
                 **{k: bench_launches[k] for k in BENCH_KERNELS},
@@ -2293,6 +2554,8 @@ def main(argv=None) -> int:
             entry["dsec_launches_per_loss_eval"] = real_rows["dsec"]["launches_per_eval"][name]
             entry["parallel_launches"] = {k: c[name] for k, c in par_launches.items()}
             entry["ranks_launches"] = {k: c[name] for k, c in ranks_launches.items()}
+            entry["bench_launches"] = bench_phase_launches[name]
+            entry["studies_launches"] = studies_launches[name]
         if name == "splat_fwd":
             entry["eval_launches_per_call"] = 2
             entry["eval_prepare_launches"] = 1
@@ -2303,9 +2566,10 @@ def main(argv=None) -> int:
             entry["also_replaces"] = ALSO_REPLACES[name]
         kernels.append(entry)
     paths = {"card": card, "armijo": {"windows": chain_recs, "mean_aee": mean_aee,
-                                      "median_ms": float(np.median([r["ms"] for r in chain_recs[1:]]))},
+                                      "median_ms": chain_median_ms},
              "wolfe": wolfe_row, "eval": eval_rows, "experiment": exp_row, **real_rows,
-             "parallel": par_row, "ranks": ranks_row}
+             "parallel": par_row, "ranks": ranks_row, "bench": bench_row,
+             "studies": studies_row}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"kernels": kernels, **paths}, f, indent=1)

@@ -19,7 +19,10 @@ with no other `distributed.*` key, or with explicit keys,
         "distributed.local_device_ids=[0]"
 
 The config raises for the settings the port does not run (jax_config,
-compilation_cache_dir, more than one local device id).
+compilation_cache_dir, more than one local device id), and `phases.plot`
+or `phases.eager_plot` raises before anything is staged where matplotlib
+(or, for the plot's video, PIL) does not import: pass `phases.plot=false`
+on the card's machine.
 """
 
 from __future__ import annotations
@@ -29,10 +32,11 @@ import argparse
 import torch
 
 from eincm_tpu_torch.experiments.config import load_config
-from eincm_tpu_torch.experiments.manager import EINCMExperiment
+from eincm_tpu_torch.experiments.manager import EINCMExperiment, check_plotting
 from eincm_tpu_torch.parallel.distributed import (
     initialize_distributed,
     process_info,
+    process_rank,
     rank_device,
 )
 from eincm_tpu_torch.utils.console import log
@@ -56,6 +60,8 @@ def main(argv=None):
     if cfg.distributed.enable:
         # before the experiment is built: its mesh is the process group
         initialize_distributed(cfg.distributed)
+    if process_rank() == 0:  # rank 0 alone plots
+        check_plotting(cfg)
     # a bare cuda takes its index here (set_device needs one)
     device = rank_device(cfg.distributed, args.device)
     if cfg.distributed.enable:

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 import os
 import time
 from pathlib import Path
@@ -57,6 +58,26 @@ _EXTENDED_SUBSET = slice(None, None, 5)
 
 # the parallel EVAL pads each chunk's eval events to a multiple of this
 _EVAL_PAD_BUCKET = 8192
+
+
+def check_plotting(cfg: ExperimentConfig) -> None:
+    """Raise before anything is solved when a PLOT setting asks for a
+    library that does not import here (the card's machine has neither):
+    `phases.plot` draws with matplotlib and assembles its video with PIL,
+    `phases.eager_plot` draws with matplotlib. Where they import, nothing
+    happens."""
+    needs = [("phases.plot", ("matplotlib", "PIL")), ("phases.eager_plot", ("matplotlib",))]
+    for setting, modules in needs:
+        if not getattr(cfg.phases, setting.split(".")[1]):
+            continue
+        for module in modules:
+            try:
+                importlib.import_module(module)
+            except ImportError as e:
+                raise ImportError(
+                    f"{setting}=true draws with {module}, which does not import here "
+                    f"({e}); set {setting}=false"
+                ) from e
 
 
 def _n_evals(res) -> int:
@@ -859,6 +880,8 @@ class EINCMExperiment:
     # ------------------------------------------------------------------- run
 
     def run(self):
+        if self._writes:  # rank 0 alone plots
+            check_plotting(self.cfg)
         if self.cfg.phases.solve:
             self.run_solver()
         if self.cfg.phases.eval:

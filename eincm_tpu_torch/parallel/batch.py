@@ -41,6 +41,17 @@ history is an empty one (n = 0), never None, so first and later windows
 stack (the structure mismatch of tests/test_parallel.py:140-171 cannot
 recur).
 
+A mesh over some but not all ranks (`make_window_mesh(n)`, 1 < n < world:
+the JAX package's mesh over its first n devices) is a process group of the
+first n ranks, built by every rank in the same order. Its members run the
+schedule among themselves, every collective over that group. A rank
+outside it passes no windows (its batch is not read) and still returns the
+whole batch's result, as the JAX package's single controller does: rank 0
+broadcasts the members' gathered result over the world group, and every
+rank, member or not, takes part in that broadcast. `make_window_mesh(1)`
+stays this process alone: each rank solves what it passes, with no
+collective.
+
 Where the JAX schedules solve a window only to discard it (lockstep SPMD),
 the port skips the solve: the kept results are the same. Rank 0 does not
 re-solve its chunk in pass 2 (sequence_shard) or window 0 (two_pass)
@@ -80,43 +91,56 @@ from eincm_tpu_torch.utils import host
 @dataclass(frozen=True)
 class WindowMesh:
     """The window axis' mesh: `size` ranks of the process group (all of
-    them, or this process alone), this process being `rank`, solving on
-    `device`."""
+    them, the first `size` of them, or this process alone), this process
+    being `rank` among them (None outside them), solving on `device`.
+    `group` is the members' process group (None: the world's); `world`
+    is the number of ranks that take the result (> size for a sub-mesh)."""
 
     size: int
-    rank: int
+    rank: Optional[int]
     device: torch.device
+    group: Optional[object] = None
+    world: int = 1
+
+    @property
+    def member(self) -> bool:
+        return self.rank is not None
 
     def all_gather(self, obj) -> list:
-        """Every rank's `obj` (pickled: host values only), in rank order.
+        """Every member's `obj` (pickled: host values only), in rank order.
         Runs under the process group's timeout."""
         if self.size == 1:
             return [obj]
         out = [None] * self.size
-        dist.all_gather_object(out, obj)
+        dist.all_gather_object(out, obj, group=self.group)
         return out
+
+    def share(self, obj):
+        """The members' `obj` on every rank: on a sub-mesh rank 0 broadcasts
+        it over the world group (host values only); members keep their own."""
+        if self.world <= self.size:
+            return obj
+        box = [obj if process_rank() == 0 else None]
+        dist.broadcast_object_list(box, src=0)
+        return obj if self.member else box[0]
 
 
 def make_window_mesh(n_devices: Optional[int] = None, device=None) -> WindowMesh:
     """1-D mesh over the window (data-parallel) axis.
 
-    Spans every rank of the process group (one member without one);
-    `n_devices=1` gives this process alone. `device` is this rank's device,
-    by default its CUDA device as `distributed.rank_device` picks it (a CUDA
-    device without CUDA raises: nothing falls back to the CPU).
+    Spans every rank of the process group (one member without one) by
+    default; `n_devices=1` gives this process alone; 1 < n_devices < world
+    the first n_devices ranks, whose process group every rank builds here
+    (call it on every rank, in the same order). `device` is this rank's
+    device, by default its CUDA device as `distributed.rank_device` picks
+    it (a CUDA device without CUDA raises: nothing falls back to the CPU).
     """
     world = process_count()
-    if n_devices is not None:
-        if n_devices > world:
-            raise ValueError(
-                f"requested a {n_devices}-device mesh but only {world} "
-                f"rank(s) (one device each) are available"
-            )
-        if n_devices not in (1, world):
-            raise ValueError(
-                f"a window mesh spans this rank alone or all {world} ranks, "
-                f"not {n_devices}"
-            )
+    if n_devices is not None and not 1 <= n_devices <= world:
+        raise ValueError(
+            f"requested a {n_devices}-device mesh but only {world} "
+            f"rank(s) (one device each) are available"
+        )
     size = world if n_devices is None else n_devices
     device = rank_device(DistributedConfig(), "cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -124,7 +148,14 @@ def make_window_mesh(n_devices: Optional[int] = None, device=None) -> WindowMesh
             f"window mesh on {device}, but CUDA is not available "
             "(pass device='cpu' to run on the CPU)"
         )
-    return WindowMesh(size=size, rank=process_rank() if size > 1 else 0, device=device)
+    if size == 1:
+        return WindowMesh(size=1, rank=0, device=device)
+    rank = process_rank()
+    if size == world:
+        return WindowMesh(size=size, rank=rank, device=device, world=world)
+    group = dist.new_group(list(range(size)))
+    return WindowMesh(size=size, rank=rank if rank < size else None, device=device,
+                      group=group, world=world)
 
 
 def _local_mesh(batch: WindowSample) -> WindowMesh:
@@ -201,22 +232,26 @@ def _local_size(batch: WindowSample) -> int:
     return n
 
 
-def _gather(mesh: WindowMesh, local: SolveResult) -> SolveResult:
-    """Every rank's batched result, concatenated in rank order (the global
-    window axis), on this rank's device."""
+def _gather(mesh: WindowMesh, local: Optional[SolveResult]) -> SolveResult:
+    """Every member's batched result, concatenated in rank order (the
+    global window axis), on this rank's device; a rank outside the mesh
+    passes None and receives it."""
     if mesh.size == 1:
         return local
-    # this rank's device tensors cross to the host in one transfer
-    leaves: List[torch.Tensor] = []
-    _tree_map(lambda counter, t: None if counter else leaves.append(t), local)
-    arrays = host.tree_to_host({str(k): t for k, t in enumerate(leaves)})
-    it = iter(torch.from_numpy(arrays[str(k)]) for k in range(len(leaves)))
-    parts = mesh.all_gather(_tree_map(lambda counter, t: t if counter else next(it), local))
-    sizes = [p.final_theta_pyr[0].shape[0] for p in parts]
-    if len(set(sizes)) != 1:
-        raise ValueError(f"every rank must hold the same number of windows, got {sizes}")
+    whole = None
+    if mesh.member:
+        # this rank's device tensors cross to the host in one transfer
+        leaves: List[torch.Tensor] = []
+        _tree_map(lambda counter, t: None if counter else leaves.append(t), local)
+        arrays = host.tree_to_host({str(k): t for k, t in enumerate(leaves)})
+        it = iter(torch.from_numpy(arrays[str(k)]) for k in range(len(leaves)))
+        parts = mesh.all_gather(_tree_map(lambda counter, t: t if counter else next(it), local))
+        sizes = [p.final_theta_pyr[0].shape[0] for p in parts]
+        if len(set(sizes)) != 1:
+            raise ValueError(f"every rank must hold the same number of windows, got {sizes}")
+        whole = concat_results(parts)
     return _tree_map(
-        lambda counter, t: t if counter else t.to(mesh.device), concat_results(parts)
+        lambda counter, t: t if counter else t.to(mesh.device), mesh.share(whole)
     )
 
 
@@ -228,11 +263,11 @@ def _pass_right(mesh: WindowMesh, pyr: Tuple[torch.Tensor, ...]):
     send = None
     if mesh.rank + 1 < mesh.size:
         out = torch.from_numpy(host.tree_to_host({"f": flat})["f"])  # alive until the wait
-        send = dist.isend(out, mesh.rank + 1)
+        send = dist.isend(out, mesh.rank + 1, group=mesh.group)
     recv = None
     if mesh.rank > 0:
         buf = torch.empty(flat.shape, dtype=flat.dtype)
-        dist.recv(buf, mesh.rank - 1)
+        dist.recv(buf, mesh.rank - 1, group=mesh.group)
         buf = buf.to(mesh.device)
         recv, k = [], 0
         for p in pyr:
@@ -315,7 +350,10 @@ def solve_window_batch_sharded(
 ) -> SolveResult:
     """Multi-window solve over `mesh`: each rank solves its chunk (`batch`,
     `prior_pyrs`: this rank's windows) one window after another; windows are
-    independent, so the only collective is the final gather."""
+    independent, so the only collective is the final gather. A rank
+    outside the mesh passes no windows (`batch` is not read)."""
+    if not mesh.member:
+        return _gather(mesh, None)
     n = _local_size(batch)
     solver = make_window_solver(cfg, mesh.device)
     zero = cfg.zero_pyramid(batch.xs.dtype, device=mesh.device)
@@ -363,6 +401,9 @@ def sequence_shard_solve(
     Returns:
         (SolveResult with leading window axis, final theta pyramids).
     """
+    if not mesh.member:
+        res = _gather(mesh, None)
+        return res, res.final_theta_pyr
     n = _local_size(batch)
     solver = make_window_solver(cfg, mesh.device)
     zero = cfg.zero_pyramid(batch.xs.dtype, device=mesh.device)
@@ -408,6 +449,9 @@ def two_pass_sequence_solve(
         (SolveResult with leading window axis, final theta pyramids).
     """
     mesh = _local_mesh(batch) if mesh is None else mesh
+    if not mesh.member:
+        res = _gather(mesh, None)
+        return res, res.final_theta_pyr
     n = _local_size(batch)
     solver = make_window_solver(cfg, mesh.device)
     zero = cfg.zero_pyramid(batch.xs.dtype, device=mesh.device)
@@ -493,6 +537,8 @@ def eval_batch_sharded(
     """
     from eincm_tpu_torch.evals.theta_metrics import eval_window_small
 
+    if not mesh.member:  # passes no windows: its arguments are not read
+        return mesh.share(None)
     b = theta_coarse.shape[0]
     has_gt, has_mask = gt_flow is not None, err_mask is not None
     local = {
@@ -508,4 +554,4 @@ def eval_batch_sharded(
     if len({len(p) for p in parts}) != 1:
         raise ValueError(f"every rank must hold the same number of windows, got "
                          f"{[len(p) for p in parts]}")
-    return _stack_trees([bundle for part in parts for bundle in part])
+    return mesh.share(_stack_trees([bundle for part in parts for bundle in part]))

@@ -12,11 +12,13 @@ Format Specification (version 3.0):
 - fixed-point (signed or unsigned) and IEEE floating-point datatypes, little
   or big endian;
 - layout message version 3: compact, contiguous, and chunked with the
-  version 1 chunk B-tree, through the deflate and shuffle filters.
+  version 1 chunk B-tree, through the deflate and shuffle filters and the
+  Blosc filter (32001, as hdf5plugin writes it for real DSEC files:
+  `utils/blosc.py`, its blosclz, LZ4 and zlib codecs).
 
 Anything else raises `UnsupportedHDF5`, naming the file, the object and the
-feature ("filter 32001 (Blosc)", "layout message v4", "superblock v2"); it
-never returns a guess. A contiguous dataset is read with one `np.fromfile`.
+feature ("filter 32000 (LZF)", "filter 32001 (Blosc) codec 4 (Zstd)",
+"layout message v4", "superblock v2"); it never returns a guess. A contiguous dataset is read with one `np.fromfile`.
 
 `write_h5(path, {path: array})` writes contiguous datasets and scalars in
 the same format family (h5py reads them); the loaders never call it.
@@ -30,6 +32,8 @@ from pathlib import Path
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+from eincm_tpu_torch.utils import blosc
 
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
 UNDEF = 0xFFFFFFFFFFFFFFFF  # the undefined address
@@ -265,7 +269,7 @@ class File:
             pos += (name_len + 7) // 8 * 8 if version == 1 else name_len
             vals = struct.unpack(f"<{n_vals}I", b[pos:pos + 4 * n_vals])
             pos += 4 * n_vals + (4 if version == 1 and n_vals % 2 else 0)
-            if fid not in (1, 2):
+            if fid not in (1, 2, 32001):
                 raise self._unsupported(obj, f"filter {fid} "
                                         f"({_FILTERS.get(fid, 'unregistered')})")
             out.append((fid, flags, vals))
@@ -304,6 +308,11 @@ class File:
                     continue
                 if fid == 1:
                     raw = zlib.decompress(raw)
+                elif fid == 32001:
+                    try:
+                        raw = blosc.decompress(raw)
+                    except blosc.UnsupportedBlosc as e:
+                        raise self._unsupported(obj, f"filter 32001 (Blosc) {e}") from None
                 else:  # shuffle: the bytes of each element were grouped by position
                     width = vals[0] if vals else dtype.itemsize
                     n = len(raw) // width

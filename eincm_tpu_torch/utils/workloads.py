@@ -1,13 +1,15 @@
 """Shared workloads: the MVSEC-scale handover chain and a DSEC-scale window.
 
-The same workloads as eincm_tpu/utils/benchmarks.py. The MVSEC chain
-reproduces the reference tuning (run.sh:41-72, configs/mvsec_indoor.yaml):
-256x336 sensor, 30k events per window, 5 pyramid levels with growing
-maxiters (40, 33, 25, 18, 10), gtol 1e-4, extra attempts at levels 0/1,
-the handover weight solved at level 0, Canny + EINCM-IEDT edges of 2
-reference frames. The ground-truth velocity rotates by MVSEC_ROTATE_DEG
-per window at constant speed, so every solve in the chain starts that far
-from its optimum: the steady state of a scene whose flow drifts.
+The workloads of `utils/benchmarks.py` (the port of eincm_tpu/utils/
+benchmarks.py, which defines them) with their knobs fixed: the MVSEC chain
+is MVSEC_N_WINDOWS windows rotating MVSEC_ROTATE_DEG per window, the DSEC
+window that bench's window 0. The MVSEC chain reproduces the reference
+tuning (run.sh:41-72, configs/mvsec_indoor.yaml): 256x336 sensor, 30k
+events per window, 5 pyramid levels with growing maxiters (40, 33, 25, 18,
+10), gtol 1e-4, extra attempts at levels 0/1, the handover weight solved at
+level 0, Canny + EINCM-IEDT edges of 2 reference frames. Every solve in the
+chain starts MVSEC_ROTATE_DEG from its optimum: the steady state of a scene
+whose flow drifts.
 """
 
 from __future__ import annotations
@@ -15,31 +17,24 @@ from __future__ import annotations
 import time
 from typing import Iterator, List, Tuple
 
-import numpy as np
 import torch
 
-from eincm_tpu_torch.data.staging import StagedSample, stage_datasample
-from eincm_tpu_torch.data.synthetic import SyntheticDataLoader
-from eincm_tpu_torch.edge.pipeline import iedt_edge_fn
-from eincm_tpu_torch.models.loss import LossParams
-from eincm_tpu_torch.models.pyramid import (
-    HandoverSettings,
-    SolveResult,
-    SolverConfig,
-    WindowSample,
-)
+from eincm_tpu_torch.data.staging import StagedSample
+from eincm_tpu_torch.models.pyramid import SolveResult, SolverConfig, WindowSample
 from eincm_tpu_torch.ops.resize import scale_theta_to_sensor_size
 from eincm_tpu_torch.ops.splat import make_event_mask
+from eincm_tpu_torch.utils import benchmarks
+from eincm_tpu_torch.utils.benchmarks import (  # noqa: F401  (re-exported)
+    DSEC_H,
+    DSEC_N_EVENTS,
+    DSEC_W,
+    MVSEC_H,
+    MVSEC_N_EVENTS,
+    MVSEC_W,
+)
 
-MVSEC_H, MVSEC_W = 256, 336
-MVSEC_N_EVENTS = 30_000
 MVSEC_N_WINDOWS = 6
 MVSEC_ROTATE_DEG = 15.0
-_SPEED = 5.0  # |V| px per window
-
-DSEC_H, DSEC_W = 480, 640
-DSEC_N_EVENTS = 1_500_000
-DSEC_SEED = 3
 
 
 def stage_mvsec_samples(
@@ -50,26 +45,8 @@ def stage_mvsec_samples(
 
     Returns (staged samples, their windows on `device`; exact GT
     velocities (vx, vy))."""
-    phi0 = np.arctan2(-3.0, 4.0)
-    edge_fn = iedt_edge_fn()
-    samples, vels = [], []
-    for k in range(MVSEC_N_WINDOWS):
-        phi = phi0 + np.deg2rad(MVSEC_ROTATE_DEG) * k
-        vel = (_SPEED * np.cos(phi), _SPEED * np.sin(phi))
-        dl = SyntheticDataLoader(
-            sensor_size=(MVSEC_H, MVSEC_W),
-            n_windows=1,
-            des_n_events=MVSEC_N_EVENTS,
-            velocity=vel,
-            n_features=180,
-            seed=1 + k,
-        )
-        dl.get_ready()
-        samples.append(
-            stage_datasample(dl[0], device, edge_fn=edge_fn, pad_to=MVSEC_N_EVENTS)
-        )
-        vels.append(vel)
-    return samples, vels
+    return benchmarks.stage_mvsec_samples(range(MVSEC_N_WINDOWS), MVSEC_ROTATE_DEG,
+                                          device=device)
 
 
 def stage_mvsec_windows(
@@ -81,39 +58,16 @@ def stage_mvsec_windows(
 
 
 def mvsec_solver_config() -> SolverConfig:
-    """The MVSEC tuning of eincm_tpu/utils/benchmarks.py, with the shipped
+    """The MVSEC tuning of `utils/benchmarks.py`, with the shipped
     experiment default theta_ftol=1e-5."""
-    return SolverConfig(
-        n_pyr_lvls=5,
-        sensor_size=(MVSEC_H, MVSEC_W),
-        params=LossParams(alpha=20.0, beta=35.0, gamma=0.0, delta=0.0),
-        theta_opt_maxiters=(40, 33, 25, 18, 10),
-        theta_gtol=1e-4,
-        n_extra_attempts={0: 1, 1: 1},
-        handover=HandoverSettings(
-            use_handover=True, solve_handover_for_levels=(0,)
-        ),
-        theta_ftol=1e-5,
-    )
+    return SolverConfig(**benchmarks.mvsec_config_kwargs())
 
 
 def stage_dsec_sample(device) -> StagedSample:
     """One DSEC-scale window: 480x640, 1.5M events on 700 features, 2
-    reference frames (eincm_tpu/utils/benchmarks.py:build_dsec_solve_bench)."""
-    speed = 7.2
-    phi = np.arctan2(-4.0, 6.0)
-    dl = SyntheticDataLoader(
-        sensor_size=(DSEC_H, DSEC_W),
-        n_windows=1,
-        des_n_events=DSEC_N_EVENTS,
-        velocity=(speed * np.cos(phi), speed * np.sin(phi)),
-        n_features=700,
-        seed=DSEC_SEED,
-    )
-    dl.get_ready()
-    return stage_datasample(
-        dl[0], device, edge_fn=iedt_edge_fn(), pad_to=DSEC_N_EVENTS
-    )
+    reference frames (`benchmarks.build_dsec_solve_bench`'s window 0)."""
+    samples, _ = benchmarks.stage_dsec_samples(1, device=device)
+    return samples[0]
 
 
 def stage_dsec_window(device) -> WindowSample:

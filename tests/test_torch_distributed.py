@@ -89,7 +89,9 @@ def one_torch_thread():
 
 def worker(coord, world, rank, job):
     """Join the group, run `job`'s schedule on this rank's chunk; rank 0
-    writes the gathered result's summary to `job["out"]`."""
+    writes the gathered result's summary to `job["out"]`. A job with
+    `mesh` and `schedules` runs each schedule on make_window_mesh(mesh)
+    instead, and every rank writes its result's summary."""
     torch.set_num_threads(1)
     from eincm_tpu_torch.models.pyramid import WindowSample
     from eincm_tpu_torch.parallel import batch as pb
@@ -102,6 +104,8 @@ def worker(coord, world, rank, job):
     assert initialize_distributed(cfg)  # a second call keeps the group
     assert is_multi_process()
     arrays = tiny_arrays(job["b"], job["seed"])
+    if "mesh" in job:
+        return sub_mesh_worker(rank, job, arrays)
     chunk = job["b"] // world
     local = WindowSample(**{k: torch.as_tensor(v[rank * chunk : (rank + 1) * chunk])
                             for k, v in arrays.items()})
@@ -115,6 +119,30 @@ def worker(coord, world, rank, job):
         np.savez(job["out"], **summary(res))
     print(json.dumps({"rank": rank, "windows": sorted({s["window"] for s in stats}),
                       "solves": [[s["window"], s["pass"]] for s in stats]}))
+
+
+def sub_mesh_worker(rank, job, arrays):
+    """`job["schedules"]` on a mesh of the first `job["mesh"]` ranks: the
+    members pass their chunks, the others no windows; every rank writes
+    the result it returns, and reports the solves it made."""
+    from eincm_tpu_torch.models.pyramid import WindowSample
+    from eincm_tpu_torch.parallel import batch as pb
+
+    mesh = pb.make_window_mesh(job["mesh"], device="cpu")
+    assert mesh.size == job["mesh"]
+    assert mesh.rank == (rank if rank < job["mesh"] else None)
+    chunk = job["b"] // mesh.size
+    local = None
+    if mesh.member:
+        local = WindowSample(**{k: torch.as_tensor(v[rank * chunk : (rank + 1) * chunk])
+                                for k, v in arrays.items()})
+    solves = {}
+    for schedule in job["schedules"]:
+        stats = []
+        res = run_schedule(schedule, local, mesh, stats)
+        np.savez(f"{job['out']}.{schedule}.{rank}.npz", **summary(res))
+        solves[schedule] = [[s["window"], s["pass"]] for s in stats]
+    print(json.dumps({"rank": rank, "solves": solves}))
 
 
 # ---- launching -------------------------------------------------------------------
@@ -258,6 +286,28 @@ def test_four_ranks_sequence_shard_matches_jax_composition(tmp_path):
         ref = np.stack([np.asarray(r.final_theta_pyr[lvl]) for r in kept])
         np.testing.assert_allclose(got[f"final_{lvl}"], ref, rtol=RTOL, atol=ATOL,
                                    err_msg=f"level {lvl}")
+
+
+def test_sub_mesh_of_two_among_four_ranks(tmp_path):
+    """make_window_mesh(2) over 4 processes: ranks 0-1 solve their chunks
+    among themselves (the same solves as a 2-rank world), ranks 2-3 pass no
+    windows and solve nothing; every rank returns the one-member result
+    of each schedule (the JAX package's mesh over its first 2 devices)."""
+    schedules = ["batch_sharded", "two_pass", "sequence_shard"]
+    out = tmp_path / "sub"
+    runs = run_ranks(4, dict(mesh=2, schedules=schedules, b=4, seed=0, out=str(out)))
+    for rc, _, err in runs:
+        assert rc == 0, err[-4000:]
+    reports = [json.loads(o.strip().splitlines()[-1]) for _, o, _ in runs]
+    for schedule in schedules:
+        ref = in_process(schedule, b=4)
+        members = expected_solves(schedule, 2, 4)
+        assert [r["solves"][schedule] for r in reports] == members + [[], []], schedule
+        for rank in range(4):
+            got = dict(np.load(f"{out}.{schedule}.{rank}.npz"))
+            assert_same(got, ref)
+            if schedule != "sequence_shard":
+                np.testing.assert_array_equal(got["host_syncs"], ref["host_syncs"])
 
 
 def test_a_dead_rank_fails_the_run(tmp_path):

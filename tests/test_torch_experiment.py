@@ -13,6 +13,7 @@ order); chained windows are held by mean AEE within 0.05 px (ROADMAP.md,
 import dataclasses
 import math
 import re
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -604,6 +605,40 @@ def test_plot_phase(tmp_path):
     assert not (plots / "handover_000000_pyr0.png").exists()
     head = (plots / "end_results.avi").read_bytes()[:200]
     assert head[:4] == b"RIFF" and head[8:12] == b"AVI " and b"MJPG" in head
+
+
+@pytest.mark.parametrize("setting", ["phases.plot", "phases.eager_plot"])
+def test_plot_without_matplotlib_raises_before_staging(tmp_path, monkeypatch, setting):
+    """configs/synthetic.yaml (plot: true) through the CLI and through
+    EINCMExperiment.run where matplotlib does not import (the card's
+    machine): ImportError naming the setting before any window is staged.
+    Where matplotlib imports, the check passes and the run is unchanged."""
+    from eincm_tpu_torch.experiments.__main__ import main
+    from eincm_tpu_torch.experiments.manager import check_plotting
+
+    overrides = [f"output_dir={tmp_path}", "dataset.sensor_size=[32, 32]",
+                 "dataset.des_n_events=1024", "dataset.n_windows=2"]
+    if setting == "phases.eager_plot":
+        overrides += ["phases.plot=false", "phases.eager_plot=true"]
+    cfg = tcfg.load_config(str(REPO / "configs/synthetic.yaml"), overrides)
+    assert getattr(cfg.phases, setting.split(".")[1])
+    staged = []
+    monkeypatch.setattr(EINCMExperiment, "stage",
+                        lambda self, ds: staged.append(ds) or pytest.fail("staged"))
+    try:
+        import matplotlib  # noqa: F401
+        import PIL  # noqa: F401
+    except ImportError:
+        pass
+    else:
+        check_plotting(cfg)  # both import here: nothing happens
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match=f"{setting}=true draws with matplotlib.*"
+                                          f"set {setting}=false"):
+        main(["--device", "cpu", "--config", str(REPO / "configs/synthetic.yaml"), *overrides])
+    with pytest.raises(ImportError, match=f"set {setting}=false"):
+        EINCMExperiment(cfg, device=CPU).run()
+    assert staged == []
 
 
 def test_eager_plot_and_plotter_extras(tmp_path, rng):

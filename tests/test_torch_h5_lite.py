@@ -5,6 +5,9 @@ groups, object headers continued in a second block); h5py reads what
 `write_h5` writes; and what it does not read raises `UnsupportedHDF5`
 naming the feature."""
 
+import struct
+import zlib
+
 import numpy as np
 import pytest
 
@@ -194,3 +197,284 @@ def test_not_hdf5_raises(tmp_path):
     (tmp_path / "x.h5").write_bytes(b"not an hdf5 file at all")
     with pytest.raises(ValueError, match="not an HDF5 file"):
         h5_lite.File(tmp_path / "x.h5")
+
+
+# ---- Blosc chunks (filter 32001), written here to the format's spec -----------------
+#
+# No Blosc package exists on either machine and no real file can be fetched,
+# so these chunks are encoded by the small encoders below, from the format's
+# published description (c-blosc's README_HEADER.rst, the blosclz and LZ4
+# block formats): the reader is held to the spec, not to c-blosc's output.
+
+from eincm_tpu_torch.native import blosc as native_blosc  # noqa: E402
+from eincm_tpu_torch.utils import blosc  # noqa: E402
+
+CODEC_IDS = {"blosclz": 0, "lz4": 1, "zlib": 3}
+
+
+def _matches(data: bytes, min_len: int, max_dist: int):
+    """Greedy (position, distance, length) matches of at least `min_len`
+    bytes within `max_dist`, found through a hash of the next 4 bytes; the
+    last 5 bytes stay literals."""
+    last, out, i, n = {}, [], 0, len(data)
+    while i + 5 < n:
+        key = data[i:i + 4]
+        j = last.get(key)
+        last[key] = i
+        if j is not None and 0 < i - j <= max_dist:
+            length = 0
+            while i + length < n - 5 and data[j + length] == data[i + length]:
+                length += 1
+            if length >= min_len:
+                out.append((i, i - j, length))
+                for k in range(i + 1, i + length):
+                    last[data[k:k + 4]] = k
+                i += length
+                continue
+        i += 1
+    return out
+
+
+def _extend(n: int) -> bytes:
+    return b"\xff" * (n // 255) + bytes([n % 255])
+
+
+def blosclz_encode(data: bytes) -> bytes:
+    out, pos = bytearray(), 0
+
+    def literals(lit):
+        for k in range(0, len(lit), 32):
+            part = lit[k:k + 32]
+            out.append(len(part) - 1)
+            out.extend(part)
+
+    matches = [m for m in _matches(data, 3, 8192 + 65535) if m[0] > 0]
+    for i, dist, length in matches:
+        literals(data[pos:i])
+        code = length - 2  # the control's length field
+        d = dist - 1  # the biased distance
+        far = d >= 8191
+        hi = 31 if far else d >> 8
+        out.append((min(code, 7) << 5) | hi)
+        if code >= 7:
+            out.extend(_extend(code - 7))
+        if far:
+            out.extend([255, (d - 8191) >> 8, (d - 8191) & 255])
+        else:
+            out.append(d & 255)
+        pos = i + length
+    literals(data[pos:])
+    return bytes(out)
+
+
+def lz4_encode(data: bytes) -> bytes:
+    out, pos = bytearray(), 0
+
+    def token(lit, match):
+        out.append((min(lit, 15) << 4) | min(match, 15))
+        if lit >= 15:
+            out.extend(_extend(lit - 15))
+
+    for i, dist, length in _matches(data, 4, 65535):
+        lit = data[pos:i]
+        token(len(lit), length - 4)
+        out.extend(lit)
+        out.extend([dist & 255, dist >> 8])
+        if length - 4 >= 15:
+            out.extend(_extend(length - 4 - 15))
+        pos = i + length
+    token(len(data) - pos, 0)
+    out.extend(data[pos:])
+    return bytes(out)
+
+
+ENCODERS = {"blosclz": blosclz_encode, "lz4": lz4_encode, "zlib": lambda d: zlib.compress(d, 6)}
+
+
+def byte_shuffle(block: np.ndarray, ts: int) -> np.ndarray:
+    n = len(block) // ts * ts
+    out = block.copy()
+    out[:n] = block[:n].reshape(-1, ts).T.reshape(-1)
+    return out
+
+
+def bit_shuffle(block: np.ndarray, ts: int) -> np.ndarray:
+    size = len(block) // ts
+    if size % 8:
+        return block.copy()
+    bits = np.unpackbits(block.reshape(size, ts, 1), axis=2, bitorder="little")
+    rows = bits.transpose(1, 2, 0).reshape(8 * ts, size)  # row j * 8 + b
+    return np.packbits(rows, axis=1, bitorder="little").reshape(-1)
+
+
+def blosc_chunk(data: bytes, typesize: int, codec: str, shuffle: str = "none",
+                blocksize: int = 4096, split: bool = True, version: int = 2) -> bytes:
+    """One Blosc1 chunk of `data`, to README_HEADER.rst."""
+    nbytes = len(data)
+    flags = {"none": 0, "byte": 0x1, "bit": 0x4}[shuffle] | CODEC_IDS[codec] << 5
+    if not split:
+        flags |= 0x10
+    n_blocks = -(-nbytes // blocksize)
+    arr = np.frombuffer(data, np.uint8)
+    body, starts = bytearray(), []
+    offset = 16 + 4 * n_blocks
+    for b in range(n_blocks):
+        block = arr[b * blocksize:(b + 1) * blocksize]
+        short = len(block) < blocksize
+        if shuffle == "byte" and typesize > 1:
+            block = byte_shuffle(block, typesize)
+        elif shuffle == "bit" and len(block) >= typesize:
+            block = bit_shuffle(block, typesize)
+        n_streams = typesize if (split and typesize <= 16 and blocksize // typesize >= 128
+                                 and not short) else 1
+        size = len(block) // n_streams
+        starts.append(offset + len(body))
+        for s in range(n_streams):
+            raw = block[s * size:(s + 1) * size].tobytes()
+            enc = ENCODERS[codec](raw)
+            if len(enc) >= size:  # stored raw
+                enc = raw
+            body += struct.pack("<i", len(enc)) + enc
+    cbytes = offset + len(body)
+    head = struct.pack("<BBBBIII", version, 1, flags, typesize, nbytes, blocksize, cbytes)
+    return head + struct.pack(f"<{n_blocks}i", *starts) + bytes(body)
+
+
+def memcpy_chunk(data: bytes, typesize: int) -> bytes:
+    return struct.pack("<BBBBIII", 2, 1, 0x2, typesize, len(data), 4096,
+                       16 + len(data)) + data
+
+
+def _payload(dtype, n, seed=0):
+    """Event-stream-like data: small increments, repeats and noise."""
+    rng = np.random.default_rng(seed)
+    dt = np.dtype(dtype)
+    if dt.kind == "f":
+        return np.cumsum(rng.choice([0.0, 0.5, 1.0], n)).astype(dt)
+    base = np.cumsum(rng.integers(0, 3, n)) % int(min(np.iinfo(dt).max, 1 << 20))
+    base[rng.uniform(size=n) < 0.05] = rng.integers(0, 100, 1)
+    return base.astype(dt)
+
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("shuffle", ["none", "byte", "bit"])
+@pytest.mark.parametrize("codec", ["blosclz", "lz4", "zlib"])
+def test_blosc_chunk_decodes(codec, shuffle, split):
+    """Every codec without a package, every shuffle, split streams and one
+    stream a block, a short last block: native and plain decoders alike."""
+    data = _payload("u4", 3000).tobytes()  # 12000 bytes: 2 blocks + 3808
+    chunk = blosc_chunk(data, 4, codec, shuffle, blocksize=4096, split=split)
+    assert len(chunk) < len(data)  # something was compressed
+    for native in (True, False):
+        assert blosc.decompress(chunk, native=native) == data
+
+
+def test_blosc_memcpyed_typesizes_and_raw_streams():
+    data = _payload("i8", 700, 1).tobytes()
+    assert blosc.decompress(memcpy_chunk(data, 8)) == data
+    noise = np.random.default_rng(2).integers(0, 256, 5000, dtype=np.uint8).tobytes()
+    for ts in (1, 2, 8):  # incompressible streams are stored raw
+        for shuffle in ("none", "byte", "bit"):
+            chunk = blosc_chunk(noise, ts, "lz4", shuffle, blocksize=2048)
+            assert blosc.decompress(chunk) == noise
+    assert blosc.decompress(blosc_chunk(b"", 1, "blosclz")) == b""
+
+
+def test_blosc_bit_shuffle_layout():
+    """The bit shuffle's rows by hand: 8 uint16 elements 0..7, row j * 8 + b
+    holding bit b of byte j of each element, element 0 in the lowest bit."""
+    block = np.arange(8, dtype="<u2").view(np.uint8)
+    rows = np.zeros(16, np.uint8)
+    rows[:3] = [0xAA, 0xCC, 0xF0]
+    np.testing.assert_array_equal(bit_shuffle(block, 2), rows)
+    np.testing.assert_array_equal(blosc.bitunshuffle(rows, 2), block)
+    np.testing.assert_array_equal(blosc.unshuffle(np.arange(6, dtype=np.uint8), 2),
+                                  [0, 3, 1, 4, 2, 5])
+    # 12 elements: not a multiple of 8, the block was left as it was
+    odd = np.arange(24, dtype=np.uint8)
+    np.testing.assert_array_equal(blosc.bitunshuffle(odd, 2), odd)
+
+
+@pytest.mark.parametrize("codec", ["blosclz", "lz4"])
+def test_native_blosc_decoders_match_plain(codec):
+    """native/blosc.cpp against the plain Python decoders: long literal
+    runs and matches (extension bytes), overlapping runs, blosclz's far
+    matches (16-bit distance past 8192); malformed streams fail in both."""
+    assert native_blosc.available()
+    rng = np.random.default_rng(3)
+    noise = rng.integers(0, 256, 9000, dtype=np.uint8).tobytes()
+    cases = [noise[:300] + b"\x07" * 700 + noise[:300],  # a long run, a long match
+             noise + noise[:2000] + b"ab" * 400,  # far matches, short period
+             _payload("u2", 20000, 4).tobytes(), b"x", b"xyz" * 3]
+    plain = {"blosclz": blosc.blosclz_decompress_plain, "lz4": blosc.lz4_decompress_plain}[codec]
+    fast = {"blosclz": native_blosc.blosclz_decompress, "lz4": native_blosc.lz4_decompress}[codec]
+    for data in cases:
+        enc = ENCODERS[codec](data)
+        assert plain(enc, len(data)) == data
+        assert fast(enc, len(data)) == data
+    far = blosclz_encode(cases[1])
+    assert any(b == 255 for b in far)  # the far-match marker appears
+    bad = ENCODERS[codec](cases[2])
+    for broken, n in ((bad[: len(bad) // 2], len(cases[2])), (bad, len(cases[2]) - 1),
+                      (b"\x00" if codec == "lz4" else b"\x1f", 5)):
+        with pytest.raises(ValueError, match="stream"):
+            plain(broken, n)
+        with pytest.raises(ValueError, match="stream"):
+            fast(broken, n)
+
+
+def _blosc_h5(path, arrays, codec, shuffle):
+    """h5py datasets with the Blosc filter (cd_values as hdf5plugin writes
+    them), their chunks written directly."""
+    with h5py.File(path, "w") as f:
+        for key, (a, chunk) in arrays.items():
+            opts = (2, 2, a.dtype.itemsize, chunk * a.dtype.itemsize, 5,
+                    {"none": 0, "byte": 1, "bit": 2}[shuffle], CODEC_IDS.get(codec, 4))
+            d = f.create_dataset(key, shape=a.shape, dtype=a.dtype, chunks=(chunk,),
+                                 compression=32001, compression_opts=opts,
+                                 allow_unknown_filter=True)
+            for start in range(0, len(a), chunk):
+                block = np.zeros(chunk, a.dtype)
+                part = a[start:start + chunk]
+                block[:len(part)] = part
+                data = block.tobytes()
+                enc = (memcpy_chunk(data, a.dtype.itemsize) if codec == "memcpy" else
+                       blosc_chunk(data, a.dtype.itemsize, codec, shuffle, blocksize=8192))
+                d.id.write_direct_chunk((start,), enc, 0)
+
+
+@pytest.mark.parametrize("codec,shuffle", [("blosclz", "byte"), ("lz4", "bit"),
+                                           ("zlib", "none"), ("memcpy", "none")])
+def test_reads_blosc_datasets(tmp_path, codec, shuffle):
+    """A DSEC events group's dtypes (x, y u2; t i8; p u1) through h5_lite,
+    the last chunk partial."""
+    n = 50_000
+    arrays = {"events/x": (_payload("u2", n, 1), 16384), "events/y": (_payload("u2", n, 2), 16384),
+              "events/t": (_payload("i8", n, 3), 8192), "events/p": (_payload("u1", n, 4), 32768)}
+    path = tmp_path / "blosc.h5"
+    _blosc_h5(path, arrays, codec, shuffle)
+    with h5_lite.File(path) as f:
+        for key, (a, _) in arrays.items():
+            _same(f.read(key), a)
+
+
+@pytest.mark.parametrize("codec_id,name", [(4, "Zstd"), (2, "Snappy")])
+def test_blosc_codecs_without_a_decoder_raise(tmp_path, codec_id, name):
+    data = _payload("u2", 4096).tobytes()
+    chunk = bytearray(blosc_chunk(data, 2, "lz4", "byte"))
+    chunk[2] = (chunk[2] & 0x1F) | codec_id << 5
+    with pytest.raises(blosc.UnsupportedBlosc, match=f"codec {codec_id} \\({name}\\)"):
+        blosc.decompress(bytes(chunk))
+    path = tmp_path / "z.h5"
+    with h5py.File(path, "w") as f:
+        d = f.create_dataset("d", shape=(2048,), dtype="u2", chunks=(2048,), compression=32001,
+                             compression_opts=(2, 2, 2, 4096, 5, 1, codec_id),
+                             allow_unknown_filter=True)
+        d.id.write_direct_chunk((0,), bytes(chunk), 0)
+    with pytest.raises(UnsupportedHDF5,
+                       match=f"/d: filter 32001 \\(Blosc\\) codec {codec_id} \\({name}\\)"):
+        read_h5(path, "d")
+    bad = bytearray(memcpy_chunk(data, 2))
+    bad[0] = 3
+    with pytest.raises(blosc.UnsupportedBlosc, match="format version 3"):
+        blosc.decompress(bytes(bad))

@@ -4,7 +4,8 @@ imports matplotlib, PIL, imageio and h5py (which that machine lacks too)
 only inside the functions that use them, or not at all;
 the shipped configs load there, and the DSEC, MVSEC and ECD loaders read a
 tree each (written here by tests/dataset_fixtures.py, with h5py, PIL and
-PyYAML) and stage one window. chip_smoke.py refuses to report without a
+PyYAML) and stage one window; the CLI on configs/synthetic.yaml (plot:
+true) raises before staging a window, naming phases.plot. chip_smoke.py refuses to report without a
 CUDA device."""
 
 import os
@@ -30,10 +31,17 @@ import eincm_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(eincm_tpu_torch.__path__, "eincm_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-# among them the window mesh's modules and the examples
+# among them the window mesh's modules, the examples, the benchmark
+# functions, the studies and the Blosc decoder
 assert {"eincm_tpu_torch.parallel", "eincm_tpu_torch.parallel.batch",
         "eincm_tpu_torch.parallel.distributed", "eincm_tpu_torch.examples.synthetic_recovery",
-        "eincm_tpu_torch.examples.sequence_sharding"} <= set(names), names
+        "eincm_tpu_torch.examples.sequence_sharding", "eincm_tpu_torch.utils.benchmarks",
+        "eincm_tpu_torch.utils.blosc", "eincm_tpu_torch.native.blosc",
+        "eincm_tpu_torch.scripts"} | {
+        "eincm_tpu_torch.scripts." + s for s in (
+            "ls_evals_ab", "ftol_ab", "mvsec_loss_breakdown", "edge_sensitivity",
+            "armijo_interp_probe", "hessian_warmstart_probe", "armijo_rescue_validation")
+        } <= set(names), names
 import torch
 from eincm_tpu_torch.models.loss import (
     LossParams, LossStatics, compute_window_statics, solver_loss)
@@ -71,6 +79,17 @@ for kw in (dict(kind="dsec", root_dir=str(trees / "dsec"), sequence_name="mini_s
     staged = stage_datasample(loader[0], "cpu")
     assert 0 < staged.window.xs.shape[0] <= kw["des_n_events"], kw
     assert torch.isfinite(staged.window.edges).all()
+# phases.plot with matplotlib blocked: the CLI raises before staging a window
+from eincm_tpu_torch.experiments.__main__ import main
+from eincm_tpu_torch.experiments.manager import EINCMExperiment
+EINCMExperiment.stage = lambda self, ds: sys.exit("a window was staged")
+try:
+    main(["--device", "cpu", "--config", "configs/synthetic.yaml",
+          "output_dir=" + str(trees / "out"), "dataset.n_windows=2"])
+    raise SystemExit("phases.plot=true ran without matplotlib")
+except ImportError as e:
+    assert "phases.plot=true draws with matplotlib" in str(e), e
+    assert "set phases.plot=false" in str(e), e
 assert not any(m == "jax" or m.startswith(("jax.", "eincm_tpu.", "matplotlib", "PIL", "h5py",
                                             "imageio", "yaml"))
                for m in sys.modules if sys.modules[m] is not None)
