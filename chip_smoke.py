@@ -145,7 +145,16 @@ Phases, each failing loudly (any failure exits non-zero):
    chain with [chain]'s theta_ftol): each finishes with its JSON keys, the
    mean AEE of each chain it solves with the shipped edges finite and
    under MAX_MEAN_AEE (the edge study's baseline over windows 1-5: [chain]'s
-   configuration and statistic), kernels 1-4 launched.
+   configuration and statistic), kernels 1-4 launched;
+17. [h5] the codec fixtures of tests/data/codecs/ (libzstd's frames,
+   c-blosc's chunks of every codec and shuffle, a Blosc-Zstd DSEC
+   events.h5, datasets under the Zstandard and LZF filters) decoded by the
+   native library built here and held to their manifest; `zstd_decompress`
+   timed over the largest frame for ZSTD_RATE_S (MB/s of output); then the
+   Blosc-Zstd events.h5 in a DSEC tree of its scene, read through h5_lite
+   (its MB/s) and the port's DSEC loader, window 0 staged and solved on the
+   card (DSEC tuning, zero prior): finite theta, kernels 1-4 launched, the
+   AEE below zero flow's.
 
 Every kernel's time stands beside its bound: the least time the card could
 take for the same work, the longer of the bytes it must move (each input
@@ -2265,6 +2274,160 @@ def studies_phase(card, device):
     return rec, launches
 
 
+# ---- 17. [h5] the codec fixtures and a Blosc-Zstd DSEC events file ---------
+
+CODEC_FIXTURES = "tests/data/codecs"  # written by tests/make_codec_fixtures.py
+ZSTD_RATE_S = 0.5  # the Zstd decoder is timed over at least this long
+H5_DES_N_EVENTS = 100_000  # events a window of the fixture's tree (~130k written)
+EVENT_KEYS = ("events/x", "events/y", "events/t", "events/p", "ms_to_idx", "t_offset")
+
+
+def check_codec_fixtures(root):
+    """The committed codec fixtures under `root` against their manifest.json:
+    each file by its sha256 and size, then each payload, decoded by the
+    port (a `.zst` frame by `zstd_decompress`, a `.blosc` chunk by
+    `blosc.decompress`, an HDF5 dataset by `h5_lite`; native decoders where
+    the library is built), by its sha256, dtype and shape. Returns
+    {kind: [payloads, decoded bytes]}."""
+    import hashlib
+    from pathlib import Path
+
+    from eincm_tpu_torch.native import blosc as nb
+    from eincm_tpu_torch.utils import blosc, h5_lite
+
+    root = Path(root)
+    manifest = json.loads((root / "manifest.json").read_text())
+    for rel, f in manifest["files"].items():
+        data = (root / rel).read_bytes()
+        if len(data) != f["bytes"] or hashlib.sha256(data).hexdigest() != f["sha256"]:
+            raise AssertionError(f"[h5] {rel}: not the file its manifest names")
+    counts: dict = {}
+    for key, p in manifest["payloads"].items():
+        rel, _, dataset = key.partition(":")
+        dtype, shape = np.dtype(p["dtype"]), tuple(p["shape"])
+        if dataset:
+            with h5_lite.File(root / rel) as f:
+                a = f.read(dataset)
+            kind = rel
+        else:
+            raw = (root / rel).read_bytes()
+            if rel.endswith(".zst"):
+                raw = nb.zstd_decompress(raw, dtype.itemsize * math.prod(shape))
+                kind = "zstd"
+            else:
+                raw = blosc.decompress(raw)
+                kind = "blosc"
+            a = np.frombuffer(raw, dtype).reshape(shape)
+        if (a.dtype != dtype or a.shape != shape
+                or hashlib.sha256(a.tobytes()).hexdigest() != p["sha256"]):
+            raise AssertionError(f"[h5] {key}: decoded to other data ({a.dtype}, {a.shape})")
+        c = counts.setdefault(kind, [0, 0])
+        c[0] += 1
+        c[1] += a.nbytes
+    return counts
+
+
+def h5_phase(card, device):
+    """[h5] the committed codec fixtures decoded by the native library built
+    here and held to their manifest; the Zstd decoder's rate (MB/s of output,
+    host clock) over the largest frame; then the fixture's Blosc-Zstd
+    events.h5 in a DSEC tree of its scene, read through
+    `data/readers.py:HDF5FileReader` (h5_lite) and the port's DSEC loader,
+    window 0 staged as `utils/workloads.py` stages its DSEC window (IEDT
+    edges, padded) and solved on the card with the DSEC tuning, the launch
+    counters read around the solve: finite theta, kernels 1-4 launched, the
+    AEE below zero flow's. Returns (record, launches)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from eincm_tpu_torch.data import DSECDataLoader
+    from eincm_tpu_torch.data.staging import stage_datasample
+    from eincm_tpu_torch.experiments.config import EdgeConfig
+    from eincm_tpu_torch.models.pyramid import SolverConfig, make_window_solver
+    from eincm_tpu_torch.native import blosc as nb
+    from eincm_tpu_torch.ops import _build
+    from eincm_tpu_torch.utils import benchmarks, dataset_trees
+
+    root = Path(__file__).resolve().parent / CODEC_FIXTURES
+    t0 = time.perf_counter()
+    if not nb.available():
+        raise AssertionError("[h5] the native library did not build")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts = check_codec_fixtures(root)
+    check_s = time.perf_counter() - t0
+    rec = {"card": card, "native_load_s": build_s, "check_s": check_s,
+           "fixtures": {k: {"payloads": c[0], "bytes": c[1]} for k, c in counts.items()}}
+    print(f"[h5] {card}: every codec fixture matches its manifest, decoded natively in "
+          f"{check_s:.3f} s: {rec['fixtures']} (library loaded in {build_s:.2f} s)")
+
+    manifest = json.loads((root / "manifest.json").read_text())
+    rel, p = max(((k, v) for k, v in manifest["payloads"].items() if k.endswith(".zst")),
+                 key=lambda kv: math.prod(kv[1]["shape"]))
+    frame, n_out = (root / rel).read_bytes(), math.prod(p["shape"])
+    reps, t0 = 0, time.perf_counter()
+    while True:
+        nb.zstd_decompress(frame, n_out)
+        reps += 1
+        elapsed = time.perf_counter() - t0
+        if elapsed >= ZSTD_RATE_S:
+            break
+    rec["zstd"] = {"frame": rel, "frame_bytes": len(frame), "out_bytes": n_out, "reps": reps,
+                   "s": elapsed, "mb_per_s": n_out * reps / elapsed / 1e6}
+    print(f"[h5] {card}: zstd_decompress {rec['zstd']['mb_per_s']:.1f} MB/s of output over "
+          f"{rel} ({len(frame)} -> {n_out} bytes, {reps} runs in {elapsed:.3f} s)")
+
+    sensor = (benchmarks.DSEC_H, benchmarks.DSEC_W)
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = dataset_trees.write_dsec_tree(Path(tmp), **manifest["events_tree"])
+        events = tree["root"] / f"Train/train_events/{tree['sequence']}/events/left/events.h5"
+        shutil.copyfile(root / "events.h5", events)
+        backend, read_mb_s = hdf5_rate(events, EVENT_KEYS)
+        if backend != "h5_lite":
+            raise AssertionError(f"[h5] events.h5 read by {backend}, not h5_lite")
+        t0 = time.perf_counter()
+        loader = DSECDataLoader(tree["root"], tree["sequence"], des_n_events=H5_DES_N_EVENTS,
+                                data_split="train")
+        loader.get_ready()
+        sample = loader[0]
+        edge_fn = EdgeConfig(enable_image_preprocessing=False,
+                             smoothen_method="eincm_iedt").make_edge_fn()
+        staged = stage_datasample(sample, device, edge_fn=edge_fn, preprocess=False,
+                                  pad_to=H5_DES_N_EVENTS)
+        stage_s = time.perf_counter() - t0
+    cfg = SolverConfig(**benchmarks.dsec_config_kwargs())
+    solver = make_window_solver(cfg, device)
+    prior = cfg.zero_pyramid(device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solver(staged.window, prior, is_first=True)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    launches = _build.launch_counts()
+    aee = flow_aee_at_events(res.final_theta_pyr[0], sample, tree["velocity"], sensor, device)
+    zero = zero_flow_aee(sample, sensor)
+    rec.update({"read_backend": backend, "read_mb_per_s": read_mb_s,
+                "events": int(len(sample["events"]["x"])), "stage_s": stage_s,
+                "solve_ms": solve_ms, "aee": aee, "zero_flow_aee": zero,
+                "launches": {k: launches[k] for k in CHAIN_KERNELS}})
+    print(f"[h5] {card}: Blosc-Zstd events.h5 read at {read_mb_s:.1f} MB/s ({backend}); "
+          f"DSEC loader + staging of window 0 ({rec['events']} events) in {stage_s:.2f} s; "
+          f"solved in {solve_ms:.1f} ms: AEE {aee:.4f} px (zero flow {zero:.4f}); kernel "
+          f"launches {rec['launches']}")
+    if not _finite_theta(res):
+        raise AssertionError("[h5] non-finite theta")
+    missing = [k for k in CHAIN_KERNELS if device.type == "cuda" and launches[k] == 0]
+    if missing:
+        raise AssertionError(f"[h5] kernels not launched: {missing}")
+    if not aee < zero:
+        raise AssertionError(f"[h5] AEE {aee} not below zero flow's {zero}")
+    return rec, launches
+
+
 def gt_theta(vel, shape, device):
     th = torch.empty((*shape, 2), dtype=torch.float32, device=device)
     th[..., 0], th[..., 1] = vel
@@ -2530,6 +2693,9 @@ def main(argv=None) -> int:
     # ---- 16. [studies] the seven studies at reduced size ------------------
     studies_row, studies_launches = studies_phase(card, device)
 
+    # ---- 17. [h5] the codec fixtures, the Zstd rate, a Blosc-Zstd DSEC file -
+    h5_row, h5_launches = h5_phase(card, device)
+
     launches = {**{k: chain_launches[k] for k in CHAIN_KERNELS},
                 **{k: bench_launches[k] for k in BENCH_KERNELS},
                 **{k: f64_launches[k] + wrap_launches[k] for k in DIRECT_KERNELS}}
@@ -2556,6 +2722,7 @@ def main(argv=None) -> int:
             entry["ranks_launches"] = {k: c[name] for k, c in ranks_launches.items()}
             entry["bench_launches"] = bench_phase_launches[name]
             entry["studies_launches"] = studies_launches[name]
+            entry["h5_launches"] = h5_launches[name]
         if name == "splat_fwd":
             entry["eval_launches_per_call"] = 2
             entry["eval_prepare_launches"] = 1
@@ -2569,7 +2736,7 @@ def main(argv=None) -> int:
                                       "median_ms": chain_median_ms},
              "wolfe": wolfe_row, "eval": eval_rows, "experiment": exp_row, **real_rows,
              "parallel": par_row, "ranks": ranks_row, "bench": bench_row,
-             "studies": studies_row}
+             "studies": studies_row, "h5": h5_row}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"kernels": kernels, **paths}, f, indent=1)

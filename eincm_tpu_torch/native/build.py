@@ -18,7 +18,7 @@ import threading
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-SRCS = [HERE / "vision.cpp", HERE / "events.cpp", HERE / "blosc.cpp"]
+SRCS = [HERE / "vision.cpp", HERE / "events.cpp", HERE / "blosc.cpp", HERE / "zstd.cpp"]
 LIB = HERE.parent / "_build" / "libeincm_native.so"
 
 _failed = False  # a failed build is final for the process: g++ runs and

@@ -26,10 +26,15 @@ the format's published description alone:
 
 The HDF5 filter's cd_values (filter version, format version, typesize,
 chunk bytes, clevel, shuffle, codec) restate the header; the decoder reads
-the header. blosclz and LZ4 streams are decoded by the native library
-(`native/blosc.cpp`) where g++ built it, else by the plain Python decoders
-here, which the tests hold it to; zlib streams by `zlib`. Snappy, Zstd and
-any other codec raise `UnsupportedBlosc` naming it.
+the header. blosclz, LZ4 and Snappy streams are decoded by the native
+library (`native/blosc.cpp`) where g++ built it, else by the plain Python
+decoders here, which the tests hold it to; zlib streams by `zlib`; Zstd
+streams by the native library alone (`native/zstd.cpp`): without it codec 4
+raises `UnsupportedBlosc`, as any codec above 4 does, naming it. So every
+codec that c-blosc 1.x writes is read.
+
+`lzf_decompress_plain` is the plain version of the native LZF decoder,
+which `utils/h5_lite.py` takes for h5py's LZF filter (HDF5 filter 32000).
 """
 
 from __future__ import annotations
@@ -156,22 +161,123 @@ def lz4_decompress_plain(src: bytes, n_out: int) -> bytes:
     return bytes(out)
 
 
+def snappy_decompress_plain(src: bytes, n_out: int) -> bytes:
+    """The raw Snappy stream `src` decoded into `n_out` bytes (see
+    native/blosc.cpp:snappy_decompress for the format)."""
+    n = len(src)
+    length, shift, i = 0, 0, 0
+    while True:
+        if i >= n or shift > 28:
+            raise ValueError("truncated stream")
+        b = src[i]
+        i += 1
+        length |= (b & 127) << shift
+        if not b & 128:
+            break
+        shift += 7
+    if length != n_out:
+        raise ValueError(f"malformed Snappy stream: it states {length} of {n_out} bytes")
+    out = bytearray()
+    while i < n:
+        tag = src[i]
+        i += 1
+        kind = tag & 3
+        if kind == 0:
+            run = tag >> 2
+            if run >= 60:
+                nb = run - 59
+                if i + nb > n:
+                    raise ValueError("truncated stream")
+                run = int.from_bytes(src[i:i + nb], "little")
+                i += nb
+            run += 1
+            if i + run > n:
+                raise ValueError("truncated stream")
+            out += src[i:i + run]
+            i += run
+        else:
+            nb = (1, 2, 4)[kind - 1]
+            if i + nb > n:
+                raise ValueError("truncated stream")
+            if kind == 1:
+                run = 4 + ((tag >> 2) & 7)
+                dist = (tag >> 5) << 8 | src[i]
+            else:
+                run = (tag >> 2) + 1
+                dist = int.from_bytes(src[i:i + nb], "little")
+            i += nb
+            _copy_match(out, dist, run)
+        if len(out) > n_out:
+            raise ValueError("stream longer than its block")
+    if len(out) != n_out:
+        raise ValueError(f"malformed Snappy stream: {len(out)} of {n_out} bytes decoded")
+    return bytes(out)
+
+
+def lzf_decompress_plain(src: bytes, n_out: int) -> bytes:
+    """The liblzf stream `src` decoded into `n_out` bytes (see
+    native/blosc.cpp:lzf_decompress for the format)."""
+    n = len(src)
+    out = bytearray()
+    i = 0
+    while i < n:
+        ctrl = src[i]
+        i += 1
+        if ctrl < 32:
+            if i + ctrl + 1 > n:
+                raise ValueError("truncated stream")
+            out += src[i:i + ctrl + 1]
+            i += ctrl + 1
+        else:
+            run = ctrl >> 5
+            if run == 7:
+                if i >= n:
+                    raise ValueError("truncated stream")
+                run += src[i]
+                i += 1
+            if i >= n:
+                raise ValueError("truncated stream")
+            dist = ((ctrl & 31) << 8 | src[i]) + 1
+            i += 1
+            _copy_match(out, dist, run + 2)
+        if len(out) > n_out:
+            raise ValueError("stream longer than its chunk")
+    if len(out) != n_out:
+        raise ValueError(f"malformed LZF stream: {len(out)} of {n_out} bytes decoded")
+    return bytes(out)
+
+
+_PLAIN = {0: blosclz_decompress_plain, 1: lz4_decompress_plain, 2: snappy_decompress_plain}
+
+
 def _decoder(codec: int, native: bool):
     if codec == 3:
         def inflate(src, n_out):
-            out = zlib.decompress(src)
+            try:
+                out = zlib.decompress(src)
+            except zlib.error as e:
+                raise ValueError(f"malformed zlib stream: {e}") from None
             if len(out) != n_out:
                 raise ValueError(f"malformed zlib stream: {len(out)} of {n_out} bytes")
             return out
         return inflate
-    if codec not in (0, 1):
+    if codec not in (0, 1, 2, 4):
         raise UnsupportedBlosc(f"codec {codec} ({CODECS.get(codec, 'unknown')})")
-    if native:
-        from eincm_tpu_torch.native import blosc as nb
+    from eincm_tpu_torch.native import blosc as nb
 
-        if nb.available():
-            return nb.blosclz_decompress if codec == 0 else nb.lz4_decompress
-    return blosclz_decompress_plain if codec == 0 else lz4_decompress_plain
+    if codec == 4:
+        if not nb.available():
+            raise UnsupportedBlosc("codec 4 (Zstd) needs the native library, which did not build")
+
+        def unzstd(src, n_out):
+            try:
+                return nb.zstd_decompress(src, n_out)
+            except nb.UnsupportedZstd as e:
+                raise UnsupportedBlosc(f"codec 4 (Zstd): {e}") from None
+        return unzstd
+    if native and nb.available():
+        return {0: nb.blosclz_decompress, 1: nb.lz4_decompress, 2: nb.snappy_decompress}[codec]
+    return _PLAIN[codec]
 
 
 def unshuffle(block: np.ndarray, typesize: int) -> np.ndarray:
@@ -194,7 +300,8 @@ def bitunshuffle(block: np.ndarray, typesize: int) -> np.ndarray:
 
 
 def decompress(chunk: bytes, native: Optional[bool] = True) -> bytes:
-    """One Blosc1 chunk's bytes. `native=False` takes the plain decoders."""
+    """One Blosc1 chunk's bytes. `native=False` takes the plain decoders
+    (Zstd has none: codec 4 takes the native one either way)."""
     if len(chunk) < HEADER:
         raise ValueError("truncated Blosc chunk: no header")
     version, _, flags, typesize = chunk[:4]
@@ -215,6 +322,8 @@ def decompress(chunk: bytes, native: Optional[bool] = True) -> bytes:
         raise ValueError("malformed Blosc chunk: blocksize 0")
     n_blocks = -(-nbytes // blocksize)
     leftover = nbytes % blocksize
+    if HEADER + 4 * n_blocks > len(chunk):
+        raise ValueError(f"malformed Blosc chunk: {n_blocks} block starts past its end")
     starts = struct.unpack(f"<{n_blocks}i", chunk[HEADER:HEADER + 4 * n_blocks])
     out = np.empty(nbytes, np.uint8)
     for b, pos in enumerate(starts):
@@ -226,6 +335,8 @@ def decompress(chunk: bytes, native: Optional[bool] = True) -> bytes:
         size = bsize // n_streams
         parts = []
         for _ in range(n_streams):
+            if pos < 0 or pos + 4 > len(chunk):
+                raise ValueError("malformed Blosc chunk: a stream past its end")
             (clen,) = struct.unpack("<i", chunk[pos:pos + 4])
             pos += 4
             if clen < 0 or pos + clen > len(chunk):

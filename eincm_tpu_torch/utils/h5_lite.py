@@ -12,13 +12,18 @@ Format Specification (version 3.0):
 - fixed-point (signed or unsigned) and IEEE floating-point datatypes, little
   or big endian;
 - layout message version 3: compact, contiguous, and chunked with the
-  version 1 chunk B-tree, through the deflate and shuffle filters and the
-  Blosc filter (32001, as hdf5plugin writes it for real DSEC files:
-  `utils/blosc.py`, its blosclz, LZ4 and zlib codecs).
+  version 1 chunk B-tree, through the deflate and shuffle filters, h5py's
+  LZF filter (32000), the Blosc filter (32001, as hdf5plugin writes it for
+  real DSEC files: `utils/blosc.py`, every codec of c-blosc 1.x) and
+  hdf5plugin's Zstandard filter (32015: a chunk is Zstandard frames). LZF
+  and Zstd chunks go through the native library (`native/blosc.cpp`,
+  `native/zstd.cpp`); LZF has a plain Python decoder where it did not
+  build, Zstd none: without it filter 32015 and Blosc's Zstd raise.
 
 Anything else raises `UnsupportedHDF5`, naming the file, the object and the
-feature ("filter 32000 (LZF)", "filter 32001 (Blosc) codec 4 (Zstd)",
-"layout message v4", "superblock v2"); it never returns a guess. A contiguous dataset is read with one `np.fromfile`.
+feature ("filter 3 (fletcher32)", "filter 32001 (Blosc) codec 5 (unknown)",
+"layout message v4", "superblock v2"); it never returns a guess. A
+contiguous dataset is read with one `np.fromfile`.
 
 `write_h5(path, {path: array})` writes contiguous datasets and scalars in
 the same format family (h5py reads them); the loaders never call it.
@@ -33,6 +38,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from eincm_tpu_torch.native import blosc as native_blosc
 from eincm_tpu_torch.utils import blosc
 
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
@@ -269,7 +275,7 @@ class File:
             pos += (name_len + 7) // 8 * 8 if version == 1 else name_len
             vals = struct.unpack(f"<{n_vals}I", b[pos:pos + 4 * n_vals])
             pos += 4 * n_vals + (4 if version == 1 and n_vals % 2 else 0)
-            if fid not in (1, 2, 32001):
+            if fid not in (1, 2, 32000, 32001, 32015):
                 raise self._unsupported(obj, f"filter {fid} "
                                         f"({_FILTERS.get(fid, 'unregistered')})")
             out.append((fid, flags, vals))
@@ -301,6 +307,7 @@ class File:
         if btree == UNDEF:
             return out
         n_chunk = int(np.prod(chunk, dtype=np.int64))
+        chunk_bytes = n_chunk * dtype.itemsize  # what every filter but the last restores
         for size, mask, offsets, addr in self._btree_children(btree, 1, obj, ndims):
             raw = self._read(addr, size)
             for i, (fid, _, vals) in reversed(list(enumerate(filters))):
@@ -308,12 +315,24 @@ class File:
                     continue
                 if fid == 1:
                     raw = zlib.decompress(raw)
+                elif fid == 32000:  # LZF: liblzf's stream of the chunk
+                    lzf = (native_blosc.lzf_decompress if native_blosc.available()
+                           else blosc.lzf_decompress_plain)
+                    raw = lzf(raw, chunk_bytes)
                 elif fid == 32001:
                     try:
                         raw = blosc.decompress(raw)
                     except blosc.UnsupportedBlosc as e:
                         raise self._unsupported(obj, f"filter 32001 (Blosc) {e}") from None
-                else:  # shuffle: the bytes of each element were grouped by position
+                elif fid == 32015:
+                    if not native_blosc.available():
+                        raise self._unsupported(obj, "filter 32015 (Zstandard) needs the native "
+                                                "library, which did not build")
+                    try:
+                        raw = native_blosc.zstd_decompress(raw, chunk_bytes)
+                    except native_blosc.UnsupportedZstd as e:
+                        raise self._unsupported(obj, f"filter 32015 (Zstandard) {e}") from None
+                elif fid == 2:  # shuffle: the bytes of each element were grouped by position
                     width = vals[0] if vals else dtype.itemsize
                     n = len(raw) // width
                     head = np.frombuffer(raw[:n * width], np.uint8).reshape(width, n)

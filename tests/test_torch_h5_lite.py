@@ -162,7 +162,7 @@ def test_h5py_reads_write_h5(tmp_path):
 
 
 @pytest.mark.parametrize("what,feature", [
-    ("lzf", "filter 32000 \\(LZF\\)"),
+    ("zstd_dictionary", "filter 32015 \\(Zstandard\\) a Zstd dictionary"),
     ("fletcher32", "filter 3 \\(fletcher32\\)"),
     ("string", "datatype class 3 \\(string\\)"),
     ("bool", "datatype class 8 \\(enumerated\\)"),
@@ -171,8 +171,15 @@ def test_h5py_reads_write_h5(tmp_path):
 def test_unsupported_features_raise(tmp_path, what, feature):
     path = tmp_path / f"{what}.h5"
     with h5py.File(path, "w") as f:
-        if what == "lzf":
-            f.create_dataset("d", data=np.arange(100.0), chunks=(10,), compression="lzf")
+        if what == "zstd_dictionary":  # a chunk whose frame names a dictionary
+            zs = pytest.importorskip("zstandard")
+            samples = [bytes(np.random.default_rng(s).integers(0, 20, 400, dtype=np.uint8))
+                       for s in range(200)]
+            frame = zs.ZstdCompressor(dict_data=zs.train_dictionary(2048, samples)).compress(
+                samples[0])
+            d = f.create_dataset("d", shape=(400,), dtype="u1", chunks=(400,),
+                                 compression=32015, allow_unknown_filter=True)
+            d.id.write_direct_chunk((0,), frame, 0)
         elif what == "fletcher32":
             f.create_dataset("d", data=np.arange(100.0), chunks=(10,), fletcher32=True)
         elif what == "string":
@@ -201,10 +208,10 @@ def test_not_hdf5_raises(tmp_path):
 
 # ---- Blosc chunks (filter 32001), written here to the format's spec -----------------
 #
-# No Blosc package exists on either machine and no real file can be fetched,
-# so these chunks are encoded by the small encoders below, from the format's
+# These chunks are encoded by the small encoders below, from the format's
 # published description (c-blosc's README_HEADER.rst, the blosclz and LZ4
-# block formats): the reader is held to the spec, not to c-blosc's output.
+# block formats); the tests after them hold the reader to c-blosc's own
+# output too (ctypes, where libblosc is installed).
 
 from eincm_tpu_torch.native import blosc as native_blosc  # noqa: E402
 from eincm_tpu_torch.utils import blosc  # noqa: E402
@@ -458,12 +465,14 @@ def test_reads_blosc_datasets(tmp_path, codec, shuffle):
             _same(f.read(key), a)
 
 
-@pytest.mark.parametrize("codec_id,name", [(4, "Zstd"), (2, "Snappy")])
-def test_blosc_codecs_without_a_decoder_raise(tmp_path, codec_id, name):
+@pytest.mark.parametrize("codec_id", [5, 6, 7])
+def test_blosc_codecs_without_a_decoder_raise(tmp_path, codec_id):
+    """Header codecs 5-7, which c-blosc 1.x never writes, raise naming the
+    codec, through `blosc.decompress` and through h5_lite."""
     data = _payload("u2", 4096).tobytes()
     chunk = bytearray(blosc_chunk(data, 2, "lz4", "byte"))
     chunk[2] = (chunk[2] & 0x1F) | codec_id << 5
-    with pytest.raises(blosc.UnsupportedBlosc, match=f"codec {codec_id} \\({name}\\)"):
+    with pytest.raises(blosc.UnsupportedBlosc, match=f"codec {codec_id} \\(unknown\\)"):
         blosc.decompress(bytes(chunk))
     path = tmp_path / "z.h5"
     with h5py.File(path, "w") as f:
@@ -472,9 +481,125 @@ def test_blosc_codecs_without_a_decoder_raise(tmp_path, codec_id, name):
                              allow_unknown_filter=True)
         d.id.write_direct_chunk((0,), bytes(chunk), 0)
     with pytest.raises(UnsupportedHDF5,
-                       match=f"/d: filter 32001 \\(Blosc\\) codec {codec_id} \\({name}\\)"):
+                       match=f"/d: filter 32001 \\(Blosc\\) codec {codec_id} \\(unknown\\)"):
         read_h5(path, "d")
     bad = bytearray(memcpy_chunk(data, 2))
     bad[0] = 3
     with pytest.raises(blosc.UnsupportedBlosc, match="format version 3"):
         blosc.decompress(bytes(bad))
+
+
+# ---- c-blosc's own chunks, h5py's LZF, hdf5plugin's Zstandard filter -----------------
+
+from make_codec_fixtures import (  # noqa: E402
+    BLOSC_CODECS, SHUFFLES, blosc_dataset, blosc_compress, libblosc,
+)
+
+PLAIN = {"blosclz": blosc.blosclz_decompress_plain, "lz4": blosc.lz4_decompress_plain,
+         "lz4hc": blosc.lz4_decompress_plain, "snappy": blosc.snappy_decompress_plain}
+
+
+@pytest.fixture(scope="module")
+def cblosc():
+    lib = libblosc()
+    if lib is None:
+        pytest.skip("c-blosc (libblosc.so.1) is not installed")
+    return lib
+
+
+@pytest.mark.parametrize("shuffle", list(SHUFFLES))
+@pytest.mark.parametrize("cname", list(BLOSC_CODECS))
+def test_c_blosc_chunks_decode_bitwise(cblosc, cname, shuffle):
+    """Chunks that c-blosc itself writes, for every codec and shuffle at
+    clevels 1, 5 and 9, of u1, u2, u4 and f8 data (c-blosc's blocksize at
+    clevels 1 and 9; 4096 bytes and a short last block at 5): bitwise
+    through the native decoders and, where the codec has them, the plain
+    ones."""
+    for clevel in (1, 5, 9):
+        for dtype in ("u1", "u2", "u4", "f8"):
+            a = _payload(dtype, (40_000 + 24) // np.dtype(dtype).itemsize, clevel)
+            data = a.tobytes()
+            chunk = blosc_compress(cblosc, data, a.dtype.itemsize, cname, clevel, shuffle,
+                                   4096 if clevel == 5 else 0)
+            assert chunk[2] & 0x2 == 0, (clevel, dtype)  # compressed, not copied whole
+            assert blosc.decompress(chunk) == data, (clevel, dtype)
+            if cname in PLAIN:
+                assert blosc.decompress(chunk, native=False) == data, (clevel, dtype)
+
+
+@pytest.mark.parametrize("cname", list(BLOSC_CODECS))
+def test_reads_c_blosc_datasets(tmp_path, cblosc, cname):
+    """A DSEC events group's dtypes whose chunks c-blosc wrote (the last one
+    partial), through h5_lite."""
+    n = 50_000
+    arrays = {"events/x": _payload("u2", n, 1), "events/y": _payload("u2", n, 2),
+              "events/t": _payload("i8", n, 3), "events/p": _payload("u1", n, 4)}
+    path = tmp_path / "c_blosc.h5"
+    with h5py.File(path, "w") as f:
+        for key, a in arrays.items():
+            blosc_dataset(f, key, a, cblosc, cname, 5, "byte", 16384)
+    with h5_lite.File(path) as f:
+        for key, a in arrays.items():
+            _same(f.read(key), a)
+
+
+def _filter_masks(path, key):
+    with h5py.File(path, "r") as f:
+        d = f[key]
+        return [d.id.get_chunk_info(k).filter_mask for k in range(d.id.get_num_chunks())]
+
+
+@pytest.mark.parametrize("shuffle", [False, True])
+def test_reads_lzf_datasets(tmp_path, monkeypatch, shuffle):
+    """h5py's LZF filter (32000), behind the shuffle filter or not, every
+    loader dtype, 1-3 D chunks; an incompressible chunk, which h5py stores
+    unfiltered with its filter mask bit set. Native and plain decoders."""
+    rng = np.random.default_rng(5)
+    arrays = {f"d_{dt}": _payload(dt, 30_000, k) for k, dt in
+              enumerate(["u1", "u2", "i8", "f4", "f8", ">i4"])}
+    arrays["grid"] = _payload("f4", 6 * 40 * 50, 9).reshape(6, 40, 50)
+    arrays["noise"] = np.concatenate([np.zeros(4096, np.uint8),
+                                      rng.integers(0, 256, 4096, dtype=np.uint8)])
+    path = tmp_path / "lzf.h5"
+    with h5py.File(path, "w") as f:
+        for key, a in arrays.items():
+            chunks = (4, 16, 25) if a.ndim == 3 else (4096,)
+            f.create_dataset(key, data=a, chunks=chunks, compression="lzf", shuffle=shuffle)
+    lzf_bit = 1 << (1 if shuffle else 0)
+    assert [m & lzf_bit for m in _filter_masks(path, "noise")] == [0, lzf_bit]
+    for native in (True, False):
+        if not native:
+            monkeypatch.setattr(native_blosc, "available", lambda: False)
+        with h5_lite.File(path) as f:
+            for key, a in arrays.items():
+                _same(f.read(key), a)
+
+
+def test_reads_zstd_filter_datasets(tmp_path, monkeypatch):
+    """hdf5plugin's Zstandard filter (32015; the chunks libzstd frames,
+    written directly): a 3-D float32 map, int64 timestamps behind the
+    shuffle filter with one chunk stored unfiltered (mask bit 1); without
+    the native library, filter 32015 raises naming the cause."""
+    zs = pytest.importorskip("zstandard")
+    from make_codec_fixtures import write_zstd_filter_h5
+
+    path = tmp_path / "zstd.h5"
+    arrays = write_zstd_filter_h5(path, seed=4)
+    assert sorted(_filter_masks(path, "t")) == [0, 0, 0, 0, 0b10]
+    with h5_lite.File(path) as f:
+        for key, a in arrays.items():
+            _same(f.read(key), a)
+    # a chunk that is two frames with a skippable frame between them
+    a = _payload("u2", 5000, 6)
+    with h5py.File(path, "a") as f:
+        d = f.create_dataset("two_frames", shape=a.shape, dtype=a.dtype, chunks=a.shape,
+                             compression=32015, allow_unknown_filter=True)
+        raw = a.tobytes()
+        d.id.write_direct_chunk((0,), zs.ZstdCompressor(level=1).compress(raw[:3000])
+                                + b"\x50\x2a\x4d\x18\x02\x00\x00\x00ab"
+                                + zs.ZstdCompressor(level=9).compress(raw[3000:]), 0)
+    _same(read_h5(path, "two_frames"), a)
+    monkeypatch.setattr(native_blosc, "available", lambda: False)
+    with pytest.raises(UnsupportedHDF5, match="/t: filter 32015 \\(Zstandard\\) needs the "
+                                              "native library, which did not build"):
+        read_h5(path, "t")

@@ -1,7 +1,8 @@
 """eincm_tpu_torch (every module, parallel/ and the examples included)
 runs where JAX and PyYAML are not installed, as on the GPU machine, and
 imports matplotlib, PIL, imageio and h5py (which that machine lacks too)
-only inside the functions that use them, or not at all;
+only inside the functions that use them, or not at all, and never
+zstandard;
 the shipped configs load there, and the DSEC, MVSEC and ECD loaders read a
 tree each (written here by tests/dataset_fixtures.py, with h5py, PIL and
 PyYAML) and stage one window; the CLI on configs/synthetic.yaml (plot:
@@ -26,6 +27,7 @@ sys.modules["matplotlib"] = None
 sys.modules["PIL"] = None
 sys.modules["h5py"] = None
 sys.modules["imageio"] = None
+sys.modules["zstandard"] = None  # the port decodes Zstd itself (native/zstd.cpp)
 import importlib, pkgutil
 import eincm_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(eincm_tpu_torch.__path__, "eincm_tpu_torch.")]
