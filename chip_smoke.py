@@ -26,7 +26,9 @@ Phases, each failing loudly (any failure exits non-zero):
    the one the plan chooses at that shape in the row; and the direct
    kernels (float64, and the wrap-compat splat in float32 and float64)
    against the plain versions in the same precision, the float64 ones
-   timed beside their bound and library call;
+   timed beside their bound and library call; the splat forward's frames
+   bitwise the same launched again and with 1 and 7 event chunks (its
+   sums are exact);
 3. the measurement kernels (fused warp+splat, fully fused warp+splat,
    dense-layout interp) against their plain versions at the MVSEC shape
    (staged window 0, GT theta, both refs) and the DSEC shape of the fused
@@ -105,7 +107,7 @@ Phases, each failing loudly (any failure exits non-zero):
 13. [parallel] the window mesh of `eincm_tpu_torch/parallel/` on one
    member, the launch counters read around each run: on the 6 staged MVSEC
    windows `solve_window_batch_sharded` (each window's AEE within 0.05 px
-   of its lone first-sample solve), `two_pass_sequence_solve` (mean AEE of
+   of its lone first-sample solve, and its theta bitwise that solve's), `two_pass_sequence_solve` (mean AEE of
    windows 1-5 <= MAX_MEAN_AEE) and `sequence_shard_solve` (the exact chain:
    within 0.05 px of [chain]'s mean, one solve a window, each window's
    level-0 prior bitwise its predecessor's final), each schedule's (window,
@@ -154,7 +156,15 @@ Phases, each failing loudly (any failure exits non-zero):
    Blosc-Zstd events.h5 in a DSEC tree of its scene, read through h5_lite
    (its MB/s) and the port's DSEC loader, window 0 staged and solved on the
    card (DSEC tuning, zero prior): finite theta, kernels 1-4 launched, the
-   AEE below zero flow's.
+   AEE below zero flow's; then the HDF5 fixtures of tests/data/hdf5/ (files
+   h5py wrote under libver "earliest", "v108" and "latest": superblocks
+   0, 2 and 3, dense groups, soft links, the five chunk indexes of layout
+   message 4, Fletcher-32, enums, strings, fill values) read through
+   h5_lite and held to their manifest, and the latest-format DSEC events
+   file of the same scene (extensible-array chunks, gzip and shuffle) read
+   the same way (its MB/s beside the Blosc-Zstd file's): window 0's sample
+   bitwise the Blosc-Zstd file's, staged and solved likewise, its AEE below
+   zero flow's and within H5_AEE_BAND of the Blosc-Zstd window's.
 
 Every kernel's time stands beside its bound: the least time the card could
 take for the same work, the longer of the bytes it must move (each input
@@ -234,9 +244,8 @@ EXPERIMENT_OVERRIDES = (
     "edge.smoothen_method=eincm_iedt", "phases.checkpoint_every_percent=25",
     "phases.delete_checkpoints_at_end=false", "phases.plot=false",
 )
-# the EVAL-only rerun's metrics against the first run's, window by window:
-# the IWE metrics sum the splat forward's float atomics, whose order
-# differs run to run
+# the EVAL-only rerun's metrics against the first run's, window by window
+# (the splat forward's frames are exact sums, so the card repeats them)
 TOL_SCORES = 1e-5  # relative
 
 # The real-data phases write their trees (eincm_tpu_torch/utils/
@@ -629,6 +638,13 @@ def check_kernels(tag, window, theta, sensor, rows):
     wxm, wym = wx.clone().requires_grad_(True), wy.clone().requires_grad_(True)
     f_main = splat_plain(wxm, wym, sensor)
     err = max_err(f_k, f_p, TOL_ATOMIC, "splat_fwd")
+    # the frames' sums are exact: bitwise the same twice and for any chunks
+    p_fwd = plan_splat(R, wxe.shape[1], H, W)
+    for what, p in (("again", p_fwd), ("1 chunk", dataclasses.replace(p_fwd, chunks=1)),
+                    ("7 chunks", dataclasses.replace(p_fwd, chunks=7))):
+        if not torch.equal(splat_fwd_cuda(wxe, wye, sensor, plan=p), f_k):
+            raise AssertionError(f"splat_fwd {what}: not bitwise the first launch's frames")
+    print(f"  splat_fwd: bitwise the same again and with 1 and 7 chunks ({p_fwd.chunks} planned)")
     U, V = splat_planes(wx, wy, sensor)
     f_ref = f_main.detach()
     print(f"  bmm(U, V) vs splat_fwd: rel "
@@ -1320,9 +1336,9 @@ def parallel_mvsec_phase(card, device, cfg, staged, vels, chain_mean_aee):
 
     # the reference of the batched solve: each window alone, first-sample
     solver = make_window_solver(cfg, device)
-    ref_aee = [wl.aee_at_events(
-        solver(windows[k], cfg.zero_pyramid(device=device), True).final_theta_pyr[0],
-        windows[k], vels[k], sensor) for k in range(n)]
+    ref_theta = [solver(windows[k], cfg.zero_pyramid(device=device), True).final_theta_pyr[0]
+                 for k in range(n)]
+    ref_aee = [wl.aee_at_events(ref_theta[k], windows[k], vels[k], sensor) for k in range(n)]
 
     schedules = {
         "batch_sharded": lambda st: pb.solve_window_batch_sharded(cfg, batch, mesh,
@@ -1357,6 +1373,13 @@ def parallel_mvsec_phase(card, device, cfg, staged, vels, chain_mean_aee):
           f"{PARALLEL_AEE_BAND})")
     if not max(gap) <= PARALLEL_AEE_BAND:
         raise AssertionError(f"[parallel] batch_sharded AEE off the lone solves by {gap}")
+    # the kernels' sums are exact, so a solve is bitwise the same every time
+    theta_bs = results["batch_sharded"].final_theta_pyr[0]
+    off = [k for k in range(n) if not torch.equal(theta_bs[k], ref_theta[k])]
+    if off:
+        raise AssertionError(f"[parallel] batch_sharded windows {off}: theta not bitwise the "
+                             f"lone solve's")
+    print("[parallel] batch_sharded: every window's theta bitwise its lone solve's")
     rec["batch_sharded"]["reference_aee"] = ref_aee
     tp = float(np.mean(rec["two_pass"]["aee"][1:]))
     ss = float(np.mean(rec["sequence_shard"]["aee"][1:]))
@@ -2277,18 +2300,33 @@ def studies_phase(card, device):
 # ---- 17. [h5] the codec fixtures and a Blosc-Zstd DSEC events file ---------
 
 CODEC_FIXTURES = "tests/data/codecs"  # written by tests/make_codec_fixtures.py
+HDF5_FIXTURES = "tests/data/hdf5"  # written by tests/make_hdf5_fixtures.py
+LATEST_EVENTS = "dsec_events_latest.h5"  # HDF5_FIXTURES' DSEC file of events.h5's scene
+H5_AEE_BAND = 0.05  # px: the latest-format window's AEE against the Blosc-Zstd one's
 ZSTD_RATE_S = 0.5  # the Zstd decoder is timed over at least this long
 H5_DES_N_EVENTS = 100_000  # events a window of the fixture's tree (~130k written)
 EVENT_KEYS = ("events/x", "events/y", "events/t", "events/p", "ms_to_idx", "t_offset")
 
 
+def payload_sha(a) -> str:
+    """sha256 of an array's bytes; an object array of bytes (variable-length
+    strings) hashes as each element's 8-byte little-endian length and
+    bytes, in C order."""
+    import hashlib
+
+    if a.dtype == object:
+        return hashlib.sha256(b"".join(len(x).to_bytes(8, "little") + x
+                                       for x in a.reshape(-1))).hexdigest()
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
 def check_codec_fixtures(root):
-    """The committed codec fixtures under `root` against their manifest.json:
-    each file by its sha256 and size, then each payload, decoded by the
-    port (a `.zst` frame by `zstd_decompress`, a `.blosc` chunk by
-    `blosc.decompress`, an HDF5 dataset by `h5_lite`; native decoders where
-    the library is built), by its sha256, dtype and shape. Returns
-    {kind: [payloads, decoded bytes]}."""
+    """The committed codec or HDF5 fixtures under `root` against their
+    manifest.json: each file by its sha256 and size, then each payload,
+    decoded by the port (a `.zst` frame by `zstd_decompress`, a `.blosc`
+    chunk by `blosc.decompress`, an HDF5 dataset by `h5_lite`; native
+    decoders where the library is built), by its sha256 (`payload_sha`),
+    dtype and shape. Returns {kind: [payloads, decoded bytes]}."""
     import hashlib
     from pathlib import Path
 
@@ -2318,38 +2356,109 @@ def check_codec_fixtures(root):
                 raw = blosc.decompress(raw)
                 kind = "blosc"
             a = np.frombuffer(raw, dtype).reshape(shape)
-        if (a.dtype != dtype or a.shape != shape
-                or hashlib.sha256(a.tobytes()).hexdigest() != p["sha256"]):
+        if a.dtype != dtype or a.shape != shape or payload_sha(a) != p["sha256"]:
             raise AssertionError(f"[h5] {key}: decoded to other data ({a.dtype}, {a.shape})")
         c = counts.setdefault(kind, [0, 0])
         c[0] += 1
-        c[1] += a.nbytes
+        c[1] += sum(map(len, a.reshape(-1))) if a.dtype == object else a.nbytes
     return counts
+
+
+def _same_sample(a, b, where: str) -> None:
+    """Two loader samples bitwise equal, dtypes included."""
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or sorted(a) != sorted(b):
+            raise AssertionError(f"{where}: other keys")
+        for k in a:
+            _same_sample(a[k], b[k], f"{where}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{where}: other lengths")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_sample(x, y, f"{where}[{i}]")
+    elif isinstance(a, (np.ndarray, np.generic)):
+        x, y = np.asarray(a), np.asarray(b)
+        if x.dtype != y.dtype or x.shape != y.shape or x.tobytes() != y.tobytes():
+            raise AssertionError(f"{where}: not bitwise equal")
+    elif a != b:
+        raise AssertionError(f"{where}: {a!r} != {b!r}")
+
+
+def _h5_window(label, events, tree, sensor, device, cfg, solver):
+    """The DSEC tree's events.h5 (`events`) read through
+    `data/readers.py:HDF5FileReader` (h5_lite: MB/s, host clock) and the
+    port's DSEC loader, window 0 staged as `utils/workloads.py` stages its
+    DSEC window (IEDT edges, padded) and solved on the card from a zero
+    prior, the launch counters set to 0 just before the solve and read just
+    after it: finite theta, kernels 1-4 launched, the AEE below zero
+    flow's. Returns (record, sample, launches)."""
+    from eincm_tpu_torch.data import DSECDataLoader
+    from eincm_tpu_torch.data.staging import stage_datasample
+    from eincm_tpu_torch.experiments.config import EdgeConfig
+    from eincm_tpu_torch.ops import _build
+
+    backend, read_mb_s = hdf5_rate(events, EVENT_KEYS)
+    if backend != "h5_lite":
+        raise AssertionError(f"[h5] {label}: events.h5 read by {backend}, not h5_lite")
+    t0 = time.perf_counter()
+    loader = DSECDataLoader(tree["root"], tree["sequence"], des_n_events=H5_DES_N_EVENTS,
+                            data_split="train")
+    loader.get_ready()
+    sample = loader[0]
+    edge_fn = EdgeConfig(enable_image_preprocessing=False,
+                         smoothen_method="eincm_iedt").make_edge_fn()
+    staged = stage_datasample(sample, device, edge_fn=edge_fn, preprocess=False,
+                              pad_to=H5_DES_N_EVENTS)
+    stage_s = time.perf_counter() - t0
+    prior = cfg.zero_pyramid(device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solver(staged.window, prior, is_first=True)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    launches = _build.launch_counts()
+    aee = flow_aee_at_events(res.final_theta_pyr[0], sample, tree["velocity"], sensor, device)
+    zero = zero_flow_aee(sample, sensor)
+    rec = {"read_backend": backend, "read_mb_per_s": read_mb_s,
+           "events": int(len(sample["events"]["x"])), "stage_s": stage_s,
+           "solve_ms": solve_ms, "aee": aee, "zero_flow_aee": zero,
+           "launches": {k: launches[k] for k in CHAIN_KERNELS}}
+    print(f"[h5] {label} events.h5 read at {read_mb_s:.1f} MB/s ({backend}); DSEC loader + "
+          f"staging of window 0 ({rec['events']} events) in {stage_s:.2f} s; solved in "
+          f"{solve_ms:.1f} ms: AEE {aee:.4f} px (zero flow {zero:.4f}); kernel launches "
+          f"{rec['launches']}")
+    if not _finite_theta(res):
+        raise AssertionError(f"[h5] {label}: non-finite theta")
+    missing = [k for k in CHAIN_KERNELS if device.type == "cuda" and launches[k] == 0]
+    if missing:
+        raise AssertionError(f"[h5] {label}: kernels not launched: {missing}")
+    if not aee < zero:
+        raise AssertionError(f"[h5] {label}: AEE {aee} not below zero flow's {zero}")
+    return rec, sample, launches
 
 
 def h5_phase(card, device):
     """[h5] the committed codec fixtures decoded by the native library built
-    here and held to their manifest; the Zstd decoder's rate (MB/s of output,
-    host clock) over the largest frame; then the fixture's Blosc-Zstd
-    events.h5 in a DSEC tree of its scene, read through
-    `data/readers.py:HDF5FileReader` (h5_lite) and the port's DSEC loader,
-    window 0 staged as `utils/workloads.py` stages its DSEC window (IEDT
-    edges, padded) and solved on the card with the DSEC tuning, the launch
-    counters read around the solve: finite theta, kernels 1-4 launched, the
-    AEE below zero flow's. Returns (record, launches)."""
+    here and the HDF5 fixtures read by h5_lite, each held to its manifest;
+    the Zstd decoder's rate (MB/s of output, host clock) over the largest
+    frame; then, in a DSEC tree of the scene of both, the Blosc-Zstd
+    events.h5 and the latest-format one (`_h5_window` each): window 0's
+    sample bitwise the same, the latest-format window's AEE within
+    H5_AEE_BAND of the Blosc-Zstd window's. Returns (record, {"blosc_zstd":
+    launches, "latest": launches})."""
     import shutil
     import tempfile
     from pathlib import Path
 
-    from eincm_tpu_torch.data import DSECDataLoader
-    from eincm_tpu_torch.data.staging import stage_datasample
-    from eincm_tpu_torch.experiments.config import EdgeConfig
     from eincm_tpu_torch.models.pyramid import SolverConfig, make_window_solver
     from eincm_tpu_torch.native import blosc as nb
-    from eincm_tpu_torch.ops import _build
     from eincm_tpu_torch.utils import benchmarks, dataset_trees
 
     root = Path(__file__).resolve().parent / CODEC_FIXTURES
+    h5_root = Path(__file__).resolve().parent / HDF5_FIXTURES
     t0 = time.perf_counter()
     if not nb.available():
         raise AssertionError("[h5] the native library did not build")
@@ -2357,10 +2466,17 @@ def h5_phase(card, device):
     t0 = time.perf_counter()
     counts = check_codec_fixtures(root)
     check_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    h5_counts = check_codec_fixtures(h5_root)
+    h5_check_s = time.perf_counter() - t0
     rec = {"card": card, "native_load_s": build_s, "check_s": check_s,
-           "fixtures": {k: {"payloads": c[0], "bytes": c[1]} for k, c in counts.items()}}
+           "fixtures": {k: {"payloads": c[0], "bytes": c[1]} for k, c in counts.items()},
+           "hdf5_check_s": h5_check_s,
+           "hdf5_fixtures": {k: {"datasets": c[0], "bytes": c[1]} for k, c in h5_counts.items()}}
     print(f"[h5] {card}: every codec fixture matches its manifest, decoded natively in "
           f"{check_s:.3f} s: {rec['fixtures']} (library loaded in {build_s:.2f} s)")
+    print(f"[h5] {card}: every HDF5 fixture (superblocks 0, 2, 3; the v4 chunk indexes) "
+          f"matches its manifest through h5_lite in {h5_check_s:.3f} s: {rec['hdf5_fixtures']}")
 
     manifest = json.loads((root / "manifest.json").read_text())
     rel, p = max(((k, v) for k, v in manifest["payloads"].items() if k.endswith(".zst")),
@@ -2379,52 +2495,29 @@ def h5_phase(card, device):
           f"{rel} ({len(frame)} -> {n_out} bytes, {reps} runs in {elapsed:.3f} s)")
 
     sensor = (benchmarks.DSEC_H, benchmarks.DSEC_W)
+    cfg = SolverConfig(**benchmarks.dsec_config_kwargs())
+    solver = make_window_solver(cfg, device)
+    runs, samples, launches = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         tree = dataset_trees.write_dsec_tree(Path(tmp), **manifest["events_tree"])
         events = tree["root"] / f"Train/train_events/{tree['sequence']}/events/left/events.h5"
-        shutil.copyfile(root / "events.h5", events)
-        backend, read_mb_s = hdf5_rate(events, EVENT_KEYS)
-        if backend != "h5_lite":
-            raise AssertionError(f"[h5] events.h5 read by {backend}, not h5_lite")
-        t0 = time.perf_counter()
-        loader = DSECDataLoader(tree["root"], tree["sequence"], des_n_events=H5_DES_N_EVENTS,
-                                data_split="train")
-        loader.get_ready()
-        sample = loader[0]
-        edge_fn = EdgeConfig(enable_image_preprocessing=False,
-                             smoothen_method="eincm_iedt").make_edge_fn()
-        staged = stage_datasample(sample, device, edge_fn=edge_fn, preprocess=False,
-                                  pad_to=H5_DES_N_EVENTS)
-        stage_s = time.perf_counter() - t0
-    cfg = SolverConfig(**benchmarks.dsec_config_kwargs())
-    solver = make_window_solver(cfg, device)
-    prior = cfg.zero_pyramid(device=device)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    _build.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = solver(staged.window, prior, is_first=True)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    solve_ms = (time.perf_counter() - t0) * 1e3
-    launches = _build.launch_counts()
-    aee = flow_aee_at_events(res.final_theta_pyr[0], sample, tree["velocity"], sensor, device)
-    zero = zero_flow_aee(sample, sensor)
-    rec.update({"read_backend": backend, "read_mb_per_s": read_mb_s,
-                "events": int(len(sample["events"]["x"])), "stage_s": stage_s,
-                "solve_ms": solve_ms, "aee": aee, "zero_flow_aee": zero,
-                "launches": {k: launches[k] for k in CHAIN_KERNELS}})
-    print(f"[h5] {card}: Blosc-Zstd events.h5 read at {read_mb_s:.1f} MB/s ({backend}); "
-          f"DSEC loader + staging of window 0 ({rec['events']} events) in {stage_s:.2f} s; "
-          f"solved in {solve_ms:.1f} ms: AEE {aee:.4f} px (zero flow {zero:.4f}); kernel "
-          f"launches {rec['launches']}")
-    if not _finite_theta(res):
-        raise AssertionError("[h5] non-finite theta")
-    missing = [k for k in CHAIN_KERNELS if device.type == "cuda" and launches[k] == 0]
-    if missing:
-        raise AssertionError(f"[h5] kernels not launched: {missing}")
-    if not aee < zero:
-        raise AssertionError(f"[h5] AEE {aee} not below zero flow's {zero}")
+        for label, src in (("blosc_zstd", root / "events.h5"),
+                           ("latest", h5_root / LATEST_EVENTS)):
+            shutil.copyfile(src, events)
+            runs[label], samples[label], launches[label] = _h5_window(
+                f"{card}: {label}", events, tree, sensor, device, cfg, solver)
+    _same_sample(samples["blosc_zstd"], samples["latest"],
+                 "[h5] window 0 of the latest-format file against the Blosc-Zstd file's")
+    gap = abs(runs["latest"]["aee"] - runs["blosc_zstd"]["aee"])
+    rec.update(runs["blosc_zstd"])
+    rec["latest"] = {**runs["latest"], "aee_gap_to_blosc_zstd": gap}
+    print(f"[h5] {card}: latest-format events.h5 read at {runs['latest']['read_mb_per_s']:.1f} "
+          f"MB/s, Blosc-Zstd at {runs['blosc_zstd']['read_mb_per_s']:.1f} MB/s (h5_lite, host "
+          f"clock); window 0 bitwise the same; AEE {runs['latest']['aee']:.4f} px against "
+          f"{runs['blosc_zstd']['aee']:.4f} px (|gap| {gap:.4f} <= {H5_AEE_BAND})")
+    if not gap <= H5_AEE_BAND:
+        raise AssertionError(f"[h5] the latest-format window's AEE is {gap} px off the "
+                             f"Blosc-Zstd window's (band {H5_AEE_BAND})")
     return rec, launches
 
 
@@ -2693,7 +2786,7 @@ def main(argv=None) -> int:
     # ---- 16. [studies] the seven studies at reduced size ------------------
     studies_row, studies_launches = studies_phase(card, device)
 
-    # ---- 17. [h5] the codec fixtures, the Zstd rate, a Blosc-Zstd DSEC file -
+    # ---- 17. [h5] the codec and HDF5 fixtures, the Zstd rate, two DSEC files --
     h5_row, h5_launches = h5_phase(card, device)
 
     launches = {**{k: chain_launches[k] for k in CHAIN_KERNELS},
@@ -2722,7 +2815,8 @@ def main(argv=None) -> int:
             entry["ranks_launches"] = {k: c[name] for k, c in ranks_launches.items()}
             entry["bench_launches"] = bench_phase_launches[name]
             entry["studies_launches"] = studies_launches[name]
-            entry["h5_launches"] = h5_launches[name]
+            entry["h5_launches"] = h5_launches["blosc_zstd"][name]
+            entry["h5_latest_launches"] = h5_launches["latest"][name]
         if name == "splat_fwd":
             entry["eval_launches_per_call"] = 2
             entry["eval_prepare_launches"] = 1

@@ -24,15 +24,21 @@
 // into interleaved chunks; the plan (ops/splat_kernel.py:plan_splat)
 // fixes both. Block (ref, chunk, slab) zeroes its tile, walks its chunk's
 // events with coalesced loads (sibling slabs read the same events, mostly
-// from L2), adds the taps that fall in its slab, and adds the tile into the
-// zeroed frame once, as float4 reductions (atomicAdd on float4) that skip
-// zeros. No sort, no global atomic per tap. Three findings on the card
-// (PERF.md) shaped it:
+// from L2), adds the taps that fall in its slab, and adds the tile's
+// nonzero texels once into a zeroed 64-bit fixed-point copy of the frames
+// in device memory; a second kernel rounds each of its sums to f32 once.
+// No sort, no global atomic per tap. Every sum is exact in integers, so the
+// frames are bitwise the same from run to run and for every plan: float
+// reductions of the tiles (float4 atomicAdd, as this kernel first did)
+// rounded in the order the blocks arrived, and a solve of a few hundred
+// launches carried those last bits to AEEs that differed by 0.05 px from
+// run to run. Three findings on the card (PERF.md) shaped it:
 //   - a float atomicAdd on shared memory is a compare-and-swap loop, so a
 //     texel is a 32-bit fixed-point sum in units of 2^-24 kept with native
 //     integer atomics: each tap is rounded to 2^-24 (<= 3e-8), the sums in a
-//     tile are exact, and a counter that wraps carries 256.0 into the frame
-//     with one global atomic (at most one per ~1600 taps of a texel);
+//     tile are exact, and a counter that wraps carries 2^32 units (256.0)
+//     into the frame's sum with one global atomic (at most one per ~1600
+//     taps of a texel);
 //   - most events of a chunk miss a block's slab, and a warp that ran the
 //     taps for whichever lanes hit ran them for nearly every event, once
 //     per slab: each warp queues the events that hit (ballot and prefix
@@ -87,11 +93,10 @@
 namespace {
 
 using eincm::gauss;
-using eincm::kCarry;
 using eincm::kMaxSmem;
+using eincm::kUnit;
 using eincm::quantize;
 using eincm::window_hits;
-using eincm::write_back;
 
 // events each thread loads at once: more spill at the 64 registers of
 // a 1024-thread block and run slower (PERF.md)
@@ -104,6 +109,12 @@ constexpr int kQueueBytes = 32 * kQueue * 8;
 // |x| < 2^22
 constexpr float kRound = 12582912.f;
 constexpr unsigned kRoundBits = 0x4B400000u;
+
+// a texel of the frames while the blocks add into them: a 64-bit sum in
+// units of 2^-24, exact whatever the order of the adds; a tile counter that
+// wraps carries 2^32 units
+using Sum = unsigned long long;
+constexpr Sum kCarrySum = 1ull << 32;
 
 struct SlabPlan {
   int tile_rows, tile_cols;  // rows and columns of one tile
@@ -149,7 +160,7 @@ __device__ __forceinline__ bool in_tile(float x, float y, int H, int W, int r0,
 // shared-memory atomics (a float atomicAdd on shared memory is a
 // compare-and-swap loop), each g(i - y) g(j - x) rounded to 2^-24
 template <int HW>
-__device__ __forceinline__ void deposit(unsigned* tile, float* frame, float x,
+__device__ __forceinline__ void deposit(unsigned* tile, Sum* frame, float x,
                                         float y, int H, int W, int r0, int r1,
                                         int c0, int c1, int tc) {
   Center c;
@@ -172,8 +183,18 @@ __device__ __forceinline__ void deposit(unsigned* tile, float* frame, float x,
       const unsigned q = quantize(gy[a] * gx[b]);
       const unsigned old = atomicAdd(tile + (row - r0) * tc + (col - c0), q);
       if (old + q < old)  // at most once per ~1600 taps of a texel
-        atomicAdd(frame + (long long)row * W + col, kCarry);
+        atomicAdd(frame + (long long)row * W + col, kCarrySum);
     }
+  }
+}
+
+// n texels of the tile (shared, from src) added into the frames' sums
+// (global, dst); zeros skipped
+__device__ __forceinline__ void add_tile(Sum* __restrict__ dst,
+                                         const unsigned* src, long long n) {
+  for (long long i = threadIdx.x; i < n; i += blockDim.x) {
+    const unsigned v = src[i];
+    if (v) atomicAdd(dst + i, (Sum)v);
   }
 }
 
@@ -181,7 +202,7 @@ template <int HW>
 __global__ void __launch_bounds__(1024)
     splat_fwd_slab_kernel(const float* __restrict__ wx,
                           const float* __restrict__ wy,
-                          float* __restrict__ frames, long long n_events,
+                          Sum* __restrict__ frames, long long n_events,
                           int H, int W, SlabPlan p) {
   extern __shared__ __align__(16) unsigned tile[];  // + up to 3 spare texels
   // block = ((ref * chunks + chunk) * row_slabs + row slab) * col_slabs +
@@ -205,7 +226,7 @@ __global__ void __launch_bounds__(1024)
   // c + chunks, ...: time- or row-sorted events spread over every slab
   const float* xs = wx + (long long)ref * n_events;
   const float* ys = wy + (long long)ref * n_events;
-  float* frame = frames + (long long)ref * H * W;
+  Sum* frame = frames + (long long)ref * H * W;
   // Most events of a chunk miss the slab. A warp that ran the taps of
   // whichever lanes hit would run them for every event, so each warp first
   // queues the events that hit (ballot and prefix count) and runs the taps
@@ -249,11 +270,29 @@ __global__ void __launch_bounds__(1024)
   __syncthreads();
 
   if (tc == W) {  // whole rows: the tile is one run of the frame
-    write_back(frame + (long long)r0 * W, tile, (long long)tr * W);
+    add_tile(frame + (long long)r0 * W, tile, (long long)tr * W);
   } else {
     for (int r = 0; r < tr; ++r)
-      write_back(frame + (long long)(r0 + r) * W + c0, tile + r * tc, tc);
+      add_tile(frame + (long long)(r0 + r) * W + c0, tile + r * tc, tc);
   }
+}
+
+// the frames from their sums: each rounded to f32 once (2^-24 scales it
+// exactly), two texels per thread and trip where the buffers allow
+__global__ void __launch_bounds__(256)
+    splat_fwd_finish_kernel(const Sum* __restrict__ sums,
+                            float* __restrict__ frames, long long n) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long pairs = ((size_t)frames % 8 == 0) ? n / 2 : 0;
+  for (long long i = tid; i < pairs; i += stride) {
+    const ulonglong2 v = reinterpret_cast<const ulonglong2*>(sums)[i];
+    reinterpret_cast<float2*>(frames)[i] =
+        make_float2(__fmul_rn(__ull2float_rn(v.x), 1.f / kUnit),
+                    __fmul_rn(__ull2float_rn(v.y), 1.f / kUnit));
+  }
+  for (long long i = 2 * pairs + tid; i < n; i += stride)
+    frames[i] = __fmul_rn(__ull2float_rn(sums[i]), 1.f / kUnit);
 }
 
 // ---- backward ----------------------------------------------------------------
@@ -390,15 +429,21 @@ __global__ void __launch_bounds__(512)
 }
 
 template <int HW>
-int splat_fwd(const float* wx, const float* wy, float* frames, long long n_events,
-              int H, int W, const SlabPlan& p, long long blocks, long long smem,
-              int threads, cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
+int splat_fwd(const float* wx, const float* wy, Sum* sums, float* frames,
+              long long n_texels, long long n_events, int H, int W,
+              const SlabPlan& p, long long blocks, long long smem, int threads,
+              cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
       splat_fwd_slab_kernel<HW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kMaxSmem - kQueueBytes);
   if (err != cudaSuccess) return (int)err;
+  err = cudaMemsetAsync(sums, 0, (size_t)n_texels * sizeof(Sum), stream);
+  if (err != cudaSuccess) return (int)err;
   splat_fwd_slab_kernel<HW><<<(int)blocks, threads, (size_t)smem, stream>>>(
-      wx, wy, frames, n_events, H, W, p);
+      wx, wy, sums, n_events, H, W, p);
+  const long long finish = (n_texels / 2 + 255) / 256;
+  splat_fwd_finish_kernel<<<(int)(finish < 4096 ? (finish > 0 ? finish : 1) : 4096), 256, 0,
+                            stream>>>(sums, frames, n_texels);
   return (int)cudaGetLastError();
 }
 
@@ -423,11 +468,12 @@ int splat_bwd(const float* wx, const float* wy, const float* grad, float* dwx,
 
 }  // namespace
 
-// the frames of all refs, added into the zeroed `frames`, from the slab
-// plan of ops/splat_kernel.py: a grid of n_refs x chunks x row_slabs x
-// col_slabs blocks of `threads` threads, each with a tile of tile_rows x
-// tile_cols texels; windows of 2 hw + 1 texels a side (hw 1 or 2)
-extern "C" int eincm_splat_fwd(const float* wx, const float* wy,
+// the frames of all refs (written whole), from the slab plan of
+// ops/splat_kernel.py: a grid of n_refs x chunks x row_slabs x col_slabs
+// blocks of `threads` threads, each with a tile of tile_rows x tile_cols
+// texels, adds into `sums` (n_refs x H x W 64-bit words of scratch, zeroed
+// here); windows of 2 hw + 1 texels a side (hw 1 or 2)
+extern "C" int eincm_splat_fwd(const float* wx, const float* wy, void* sums,
                                float* frames, int n_refs, long long n_events,
                                int H, int W, int hw, int tile_rows,
                                int tile_cols, int row_slabs, int col_slabs,
@@ -435,13 +481,17 @@ extern "C" int eincm_splat_fwd(const float* wx, const float* wy,
   const long long smem = ((long long)tile_rows * tile_cols + 3) / 4 * 16;
   const long long blocks = (long long)n_refs * chunks * row_slabs * col_slabs;
   if (smem > kMaxSmem - kQueueBytes || blocks < 1 || blocks > 0x7fffffffLL ||
-      threads < 32 || threads > 1024 || threads % 32)
+      threads < 32 || threads > 1024 || threads % 32 || (size_t)sums % 16)
     return (int)cudaErrorInvalidValue;
   const SlabPlan p{tile_rows, tile_cols, row_slabs, col_slabs, chunks};
+  const long long n = (long long)n_refs * H * W;
+  Sum* s = static_cast<Sum*>(sums);
   if (hw == 1)
-    return splat_fwd<1>(wx, wy, frames, n_events, H, W, p, blocks, smem, threads, stream);
+    return splat_fwd<1>(wx, wy, s, frames, n, n_events, H, W, p, blocks, smem, threads,
+                        stream);
   if (hw == 2)
-    return splat_fwd<2>(wx, wy, frames, n_events, H, W, p, blocks, smem, threads, stream);
+    return splat_fwd<2>(wx, wy, s, frames, n, n_events, H, W, p, blocks, smem, threads,
+                        stream);
   return (int)cudaErrorInvalidValue;
 }
 

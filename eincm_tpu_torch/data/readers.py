@@ -8,7 +8,7 @@ machine that may lack h5py and imageio:
   the JAX package, a file with Blosc or other plugin chunks needs
   hdf5plugin too), and with the port's `utils/h5_lite.py` otherwise; its
   `backend` attribute names the one it used;
-- `imread_gray` decodes PNGs with `utils/png16.py:read_png16`.
+- `imread_gray` decodes PNGs with `utils/png16.py:read_png`.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from typing import Any
 import numpy as np
 
 from eincm_tpu_torch.utils import h5_lite
-from eincm_tpu_torch.utils.png16 import read_png16
+from eincm_tpu_torch.utils.png16 import read_png
 
 
 class HDF5FileReader:
@@ -135,13 +135,16 @@ class MVSECReader:
 
 
 def imread_gray(path) -> np.ndarray:
-    """Load a PNG as uint8 greyscale: 8-bit grey as it is, 8-bit RGB by the
-    BT.601 luminance of eincm_tpu/data/readers.py:imread_gray (as
-    cv.IMREAD_GRAYSCALE). Any other PNG raises, naming its colour type and
-    depth. Shared by the DSEC and ECD loaders."""
-    img = read_png16(path)
-    if img.dtype != np.uint8:
-        raise ValueError(f"{path}: a 16-bit PNG is not an 8-bit frame")
+    """Load a PNG as eincm_tpu/data/readers.py:imread_gray loads it: the
+    image as imageio gives it (`utils/png16.py:read_png`: bool, uint8 or
+    uint16 greyscale as it is), colour by the BT.601 luminance of its
+    first three channels (as cv.IMREAD_GRAYSCALE), cast to uint8. An 8-bit
+    grey + alpha PNG raises, as the JAX function does (IndexError there).
+    Shared by the DSEC and ECD loaders."""
+    img = read_png(path)
+    if img.ndim == 3 and img.shape[2] < 3:
+        raise ValueError(f"{path}: a grey + alpha PNG has no third channel for the "
+                         "BT.601 luminance")
     if img.ndim == 3:
         img = (
             0.299 * img[..., 0] + 0.587 * img[..., 1] + 0.114 * img[..., 2]

@@ -181,10 +181,10 @@ KERNELS: Dict[str, Kernel] = {
         "interp", "eincm_interp_bwd",
         (P, P, P, P, P, P, LL, LL, LL, I, I, I, F, F, I, I, I, I, P),
     ),
-    # (wx, wy, frames, n_refs, n_events, H, W, hw, tile_rows, tile_cols,
-    #  row_slabs, col_slabs, chunks, threads, stream)
+    # (wx, wy, sums, frames, n_refs, n_events, H, W, hw, tile_rows,
+    #  tile_cols, row_slabs, col_slabs, chunks, threads, stream)
     "splat_fwd": Kernel(
-        "splat", "eincm_splat_fwd", (P, P, P, I, LL, I, I, I, I, I, I, I, I, I, P)
+        "splat", "eincm_splat_fwd", (P, P, P, P, I, LL, I, I, I, I, I, I, I, I, I, P)
     ),
     # (wx, wy, grad_frames, dwx, dwy, n_refs, n_events, H, W, hw,
     #  stream_kernel, blocks, threads, vec, stream)

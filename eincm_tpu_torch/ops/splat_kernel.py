@@ -120,7 +120,7 @@ SMALL_BUDGET = 113 * 1024
 # the texels the blocks write back (chunks x the frames) stay at most this
 # many times the taps (9 per event and ref, counted for a 3x3 window: a 5x5
 # window's 25 only make the cap looser): each block scans its tile in
-# shared memory and adds only its nonzero float4s into the frame, so a
+# shared memory and adds only its nonzero texels into the frame, so a
 # chunk costs far less than its taps (PERF.md: at 30k events per
 # ref, 16 chunks beat 9 and 9 beat 1)
 MAX_WRITEBACK_SHARE = 6.0
@@ -137,8 +137,9 @@ class SplatPlan:
     The events of a ref are cut into runs of `threads` x EVENTS_PER_THREAD,
     and chunk c takes runs c, c + chunks, ...: time- or row-sorted events
     reach every slab. The grid has R x chunks x row_slabs x col_slabs
-    blocks of `threads` threads, each adding its tile into the zeroed
-    frames."""
+    blocks of `threads` threads, each adding its tile into the frames'
+    exact sums, which a second kernel rounds to f32: the frames are bitwise
+    the same for every plan."""
 
     tile_rows: int
     tile_cols: int
@@ -204,15 +205,18 @@ def splat_fwd_cuda(
     H, W = sensor_size
     hw = half_window(window_size)
     check_cuda("splat_fwd", (warped_xs, warped_ys), ((R, E), (R, E)))
-    frames = torch.zeros((R, H, W), dtype=torch.float32, device=warped_xs.device)
-    if R * E:
-        p = plan_splat(R, E, H, W) if plan is None else plan
-        with torch.cuda.device(warped_xs.device):
-            KERNELS["splat_fwd"](
-                warped_xs.data_ptr(), warped_ys.data_ptr(), frames.data_ptr(),
-                R, E, H, W, hw, p.tile_rows, p.tile_cols, p.row_slabs, p.col_slabs,
-                p.chunks, p.threads, torch.cuda.current_stream().cuda_stream,
-            )
+    if not R * E:
+        return torch.zeros((R, H, W), dtype=torch.float32, device=warped_xs.device)
+    frames = torch.empty((R, H, W), dtype=torch.float32, device=warped_xs.device)
+    # the kernel's scratch: each texel's exact 64-bit fixed-point sum
+    sums = torch.empty((R, H, W), dtype=torch.int64, device=warped_xs.device)
+    p = plan_splat(R, E, H, W) if plan is None else plan
+    with torch.cuda.device(warped_xs.device):
+        KERNELS["splat_fwd"](
+            warped_xs.data_ptr(), warped_ys.data_ptr(), sums.data_ptr(), frames.data_ptr(),
+            R, E, H, W, hw, p.tile_rows, p.tile_cols, p.row_slabs, p.col_slabs,
+            p.chunks, p.threads, torch.cuda.current_stream().cuda_stream,
+        )
     return frames
 
 

@@ -7,8 +7,15 @@ size) written twice: with filter 0 on every row (as `write_png16` writes)
 and with Paeth on every row (as PNG encoders that pick filters adaptively
 write most rows of a natural image; the port's encoder below), and
 `utils/h5_lite.py` reading 1.5M DSEC events (x, y, t, p) from a file
-`write_h5` wrote. The median of `reps` runs each, host clock. Prints one
-JSON object.
+`write_h5` wrote, and the DSEC events files of the committed fixtures
+(3.4 MB decoded each): `tests/data/codecs/events.h5` (Blosc-Zstd chunks)
+and `tests/data/hdf5/dsec_events_latest.h5` (`libver="latest"`, gzip and
+shuffle), null where that h5_lite refuses the file. The median of `reps`
+runs each, host clock. Prints one JSON object.
+
+To time two trees with one bench, run this file as a script with
+`PYTHONPATH` set to each tree in turn: it times the `eincm_tpu_torch`
+found there (`package` in the output) on this checkout's fixtures.
 """
 
 from __future__ import annotations
@@ -25,6 +32,9 @@ import numpy as np
 
 from eincm_tpu_torch.utils import h5_lite
 from eincm_tpu_torch.utils.png16 import read_png16, write_png16
+
+FIXTURES = Path(__file__).resolve().parents[2] / "tests" / "data"
+DSEC_KEYS = ("events/x", "events/y", "events/t", "events/p", "ms_to_idx", "t_offset")
 
 
 def write_paeth_png(path, img: np.ndarray) -> None:
@@ -59,6 +69,18 @@ def _median_ms(fn, reps):
     return float(np.median(out))
 
 
+def fixture_mb_s(path, reps) -> float | None:
+    """h5_lite's read rate of the DSEC events fixture at `path` (MB/s)."""
+    def read():
+        with h5_lite.File(path) as f:
+            return sum(f.read(k).nbytes for k in DSEC_KEYS)
+    try:
+        n_bytes = read()
+    except h5_lite.UnsupportedHDF5:  # a tree before the latest format was read
+        return None
+    return n_bytes / 1e6 / (_median_ms(read, reps) / 1e3)
+
+
 def measure(reps: int = 5, seed: int = 0) -> dict:
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[:480, :640]
@@ -89,6 +111,9 @@ def measure(reps: int = 5, seed: int = 0) -> dict:
             "png_decode_ms_filter0": _median_ms(lambda: read_png16(tmp / "none.png"), reps),
             "png_decode_ms_paeth": _median_ms(lambda: read_png16(tmp / "paeth.png"), reps),
             "h5_lite_events_mb_s": n_bytes / 1e6 / (h5_ms / 1e3),
+            "h5_lite_blosc_zstd_mb_s": fixture_mb_s(FIXTURES / "codecs" / "events.h5", reps),
+            "h5_lite_latest_mb_s": fixture_mb_s(FIXTURES / "hdf5" / "dsec_events_latest.h5", reps),
+            "package": str(Path(h5_lite.__file__).resolve().parents[1]),
             "frame": [480, 640, 3], "events": n, "reps": reps,
         }
 

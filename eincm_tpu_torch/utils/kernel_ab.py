@@ -29,8 +29,9 @@ staged windows' shapes (`direct_*`).
 `--chains N` also solves the MVSEC handover chain N times with the
 tree's solver, reading the launch counters around each run: launches per
 loss evaluation of each chain kernel, the evaluations and the mean AEE of
-windows 1..5 (`chains`), which vary from run to run with the atomics'
-order.
+windows 1..5 (`chains`). A tree whose splat forward adds its tiles as
+float atomics varies from run to run with their order; one whose forward
+sums exactly (64-bit fixed point) repeats bitwise.
 
 `--sweep` names what else to time (no name: all three), each where the
 tree has the plan: `interp`, the interp kernels over `plan_interp`'s

@@ -2,9 +2,11 @@
 
 The DSEC submission format is 16-bit 3-channel PNG
 (src/dsec_npz_to_png.py:94-101 writes via imageio's FreeImage plugin, which
-needs a downloaded binary). This codec handles exactly that subset: 8- or
-16-bit, greyscale or RGB, no interlacing; it writes filter type 0 and reads
-all five filter types.
+needs a downloaded binary). `write_png16` writes that subset (8- or
+16-bit, greyscale or RGB, filter type 0) and `read_png16` reads it with all
+five filter types. `read_png` reads every colour type and bit depth of a
+non-interlaced PNG as the JAX package's `imageio.imread` (PIL) gives it,
+for `data/readers.py:imread_gray`; an interlaced PNG raises.
 
 Carried over from eincm_tpu/utils/png16.py; the reader's per-byte loops
 are vectorized (rows of None, Sub and Up filters row by row, images with
@@ -63,51 +65,97 @@ def write_png16(path, img: np.ndarray) -> None:
         f.write(_chunk(b"IEND", b""))
 
 
-def read_png16(path) -> np.ndarray:
-    """Read a PNG written by `write_png16` (or any filter-0/sub/up/avg/paeth
-    non-interlaced grey/RGB PNG) into uint8/uint16."""
+_KINDS = {0: "greyscale", 2: "RGB", 3: "palette", 4: "greyscale + alpha", 6: "RGBA"}
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+
+
+def _decode(path):
+    """(bit depth, colour type, PLTE entries or None, samples (h, w, c) as
+    stored: uint8 below 16 bits, each sample in one byte, else uint16)."""
     data = Path(path).read_bytes()
-    assert data[:8] == _MAGIC, "not a PNG"
-    pos = 8
-    ihdr = None
-    idat = b""
-    while pos < len(data):
+    if data[:8] != _MAGIC:
+        raise ValueError(f"{path}: not a PNG")
+    pos, ihdr, plte, idat = 8, None, None, []
+    while pos + 8 <= len(data):
         (length,) = struct.unpack(">I", data[pos : pos + 4])
         tag = data[pos + 4 : pos + 8]
         body = data[pos + 8 : pos + 8 + length]
         pos += 12 + length
-        if tag == b"IHDR":
+        if tag == b"IHDR" and len(body) == 13:
             ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            plte = np.frombuffer(body[: len(body) // 3 * 3], np.uint8).reshape(-1, 3)
         elif tag == b"IDAT":
-            idat += body
+            idat.append(body)
         elif tag == b"IEND":
             break
+    if ihdr is None:
+        raise ValueError(f"{path}: a PNG without its IHDR")
     w, h, depth, color_type, _, _, interlace = ihdr
     if interlace != 0:
         raise ValueError(f"{path}: an interlaced PNG is not supported")
-    if color_type not in (0, 2) or depth not in (8, 16):
-        kind = {0: "greyscale", 2: "RGB", 3: "palette", 4: "greyscale + alpha",
-                6: "RGBA"}.get(color_type, "unknown")
-        raise ValueError(f"{path}: PNG colour type {color_type} ({kind}) at "
-                         f"{depth} bits is not supported (8/16-bit grey or RGB)")
-    c = {0: 1, 2: 3}[color_type]
-    bypp = c * (depth // 8)  # bytes per pixel
-    stride = w * bypp
+    if depth not in _DEPTHS.get(color_type, ()):
+        raise ValueError(f"{path}: PNG colour type {color_type} "
+                         f"({_KINDS.get(color_type, 'unknown')}) at {depth} bits is not a "
+                         "PNG colour type and depth")
+    if color_type == 3 and plte is None:
+        raise ValueError(f"{path}: a palette PNG without its PLTE")
+    c = _CHANNELS[color_type]
+    bypp = max(1, c * depth // 8)  # the filters' unit: bytes per pixel, at least one
+    stride = -(-w * c * depth // 8)
 
-    raw = np.frombuffer(zlib.decompress(idat), np.uint8)
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != h * (stride + 1):
         raise ValueError(f"{path}: {raw.size} bytes of image data, not {h * (stride + 1)}")
     raw = raw.reshape(h, stride + 1)
-    ftypes, lines = raw[:, 0], raw[:, 1:].reshape(h, w, bypp)
+    ftypes, lines = raw[:, 0], raw[:, 1:].reshape(h, stride // bypp, bypp)
     if ftypes.max(initial=0) > 4:
         raise ValueError(f"{path}: unsupported filter {int(ftypes.max())}")
     out = _unfilter_rows(ftypes, lines) if ftypes.max(initial=0) <= 2 else (
         _unfilter_diagonals(ftypes, lines))
+    out = out.reshape(h, stride)
+    if depth == 16:
+        return depth, color_type, plte, (
+            np.frombuffer(out.tobytes(), ">u2").reshape(h, w, c).astype(np.uint16))
+    if depth < 8:  # samples packed from the high bit
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        out = ((out[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)[:, :w]
+    return depth, color_type, plte, out.reshape(h, w, c)
 
-    dtype = np.dtype(">u2") if depth == 16 else np.uint8
-    arr = np.frombuffer(out.tobytes(), dtype).reshape(h, w, c)
-    arr = arr.astype(np.uint16 if depth == 16 else np.uint8)
-    return arr[..., 0] if c == 1 else arr
+
+def read_png16(path) -> np.ndarray:
+    """Read a PNG written by `write_png16` (or any filter-0/sub/up/avg/paeth
+    non-interlaced grey/RGB PNG) into uint8/uint16."""
+    depth, color_type, _, img = _decode(path)
+    if color_type not in (0, 2) or depth not in (8, 16):
+        raise ValueError(f"{path}: PNG colour type {color_type} "
+                         f"({_KINDS.get(color_type, 'unknown')}) at {depth} bits is not "
+                         "supported (8/16-bit grey or RGB)")
+    return img[..., 0] if color_type == 0 else img
+
+
+def read_png(path) -> np.ndarray:
+    """Read any non-interlaced PNG as imageio's PIL plugin gives it (the JAX
+    package's `imageio.imread`): 1-bit grey as bool (bitwise), 2- and 4-bit grey
+    scaled to uint8, 8- and 16-bit grey as uint8 and uint16; a palette
+    expanded through PLTE to RGB (its tRNS dropped); RGB, RGBA and
+    grey + alpha as uint8 channels, 16-bit samples cut to their high byte
+    (16-bit grey + alpha as RGBA)."""
+    depth, color_type, plte, img = _decode(path)
+    if color_type == 3:
+        if img.max(initial=0) >= len(plte):
+            raise ValueError(f"{path}: a palette index past the {len(plte)} PLTE entries")
+        return plte[img[..., 0]]
+    if color_type == 0:
+        if depth == 1:  # PIL's bool holds True as the byte 0xFF
+            return (img[..., 0] * np.uint8(255)).view(bool)
+        return img[..., 0] * np.uint8(255 // ((1 << depth) - 1)) if depth < 8 else img[..., 0]
+    if depth == 16:
+        img = (img >> 8).astype(np.uint8)
+        if color_type == 4:
+            img = img[..., [0, 0, 0, 1]]
+    return img
 
 
 def _unfilter_rows(ftypes: np.ndarray, lines: np.ndarray) -> np.ndarray:

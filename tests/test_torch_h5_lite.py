@@ -2,8 +2,10 @@
 h5py writes by default (contiguous, compact and chunked layouts, gzip and
 shuffle, scalars and 1-3-D arrays of every dtype the loaders use, nested
 groups, object headers continued in a second block); h5py reads what
-`write_h5` writes; and what it does not read raises `UnsupportedHDF5`
-naming the feature."""
+`write_h5` writes; what it does not read raises `UnsupportedHDF5` naming
+the feature, and what it once refused (Fletcher-32, strings, bools, the
+latest format) reads as the JAX package reads it. The newer format's
+structures are held to h5py in tests/test_torch_h5_latest.py."""
 
 import struct
 import zlib
@@ -79,7 +81,7 @@ def test_reads_h5py_chunked(tmp_path, dtype, filters):
 
 def test_reads_many_chunks_and_unwritten(tmp_path):
     """A chunk B-tree of more than one level, and datasets never written
-    (h5py reads them as zeros)."""
+    (h5py reads them as their fill value, here the default: zeros)."""
     path = tmp_path / "m.h5"
     a = np.arange(300_000, dtype=np.float32).reshape(600, 500)
     with h5py.File(path, "w") as f:
@@ -169,6 +171,11 @@ def test_h5py_reads_write_h5(tmp_path):
     ("compound", "datatype class 6 \\(compound\\)"),
 ])
 def test_unsupported_features_raise(tmp_path, what, feature):
+    """Compound types and Zstd dictionaries raise UnsupportedHDF5 naming the
+    feature. Fletcher-32, strings and bools, refused here until h5_lite read
+    them, now read bitwise as the JAX package's reader (h5py) reads them,
+    and a chunk whose Fletcher-32 does not match raises as h5py refuses
+    it."""
     path = tmp_path / f"{what}.h5"
     with h5py.File(path, "w") as f:
         if what == "zstd_dictionary":  # a chunk whose frame names a dictionary
@@ -188,16 +195,53 @@ def test_unsupported_features_raise(tmp_path, what, feature):
             f["d"] = np.array([True, False])
         else:
             f["d"] = np.zeros(3, [("a", "i4"), ("b", "f8")])
+    if what in ("fletcher32", "string", "bool"):
+        from eincm_tpu.data.readers import HDF5FileReader
+
+        with HDF5FileReader(path) as r:
+            ref = r.read_dataset("d")
+        got = read_h5(path, "d")
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert got.tobytes() == ref.tobytes()
+        if what == "fletcher32":  # one byte of the second chunk changed
+            with h5py.File(path, "r") as f:
+                at = f["d"].id.get_chunk_info(1).byte_offset
+            bad = bytearray(path.read_bytes())
+            bad[at + 3] ^= 0x40
+            path.write_bytes(bytes(bad))
+            with pytest.raises(OSError):
+                with h5py.File(path, "r") as f:
+                    f["d"][()]
+            with pytest.raises(ValueError, match="/d: the chunk at \\(10,\\): Fletcher-32 "
+                                                 "checksum mismatch"):
+                read_h5(path, "d")
+        return
     with pytest.raises(UnsupportedHDF5, match=f"{path}: /d: {feature}"):
         read_h5(path, "d")
 
 
 def test_latest_format_raises(tmp_path):
+    """A libver="latest" file (superblock v3, checksummed) reads as h5py
+    reads it; marked open for writing (its consistency flags, the checksum
+    made good), it raises, as h5py refuses it."""
+    from eincm_tpu_torch.utils import h5_latest
+
     path = tmp_path / "latest.h5"
     with h5py.File(path, "w", libver="latest") as f:
         f["x"] = np.arange(3)
-    with pytest.raises(UnsupportedHDF5, match="superblock v3"):
-        h5_lite.File(path)
+        f.create_dataset("y", data=np.arange(10.0), chunks=(4,), maxshape=(None,))
+    assert path.read_bytes()[8] == 3
+    with h5py.File(path, "r") as f, h5_lite.File(path) as g:
+        for key in ("x", "y"):
+            _same(g.read(key), np.asarray(f[key]))
+    marked = bytearray(path.read_bytes())
+    marked[11] |= 0x01
+    marked[44:48] = h5_latest.lookup3(bytes(marked[:44])).to_bytes(4, "little")
+    (tmp_path / "open.h5").write_bytes(bytes(marked))
+    with pytest.raises(OSError):
+        h5py.File(tmp_path / "open.h5", "r")
+    with pytest.raises(ValueError, match="marked open for writing"):
+        h5_lite.File(tmp_path / "open.h5")
 
 
 def test_not_hdf5_raises(tmp_path):

@@ -8,10 +8,11 @@ machine that has no JAX. `tests/conftest.py` imports JAX, so skip it there:
 The tests marked `gpu` skip without a CUDA device. Tolerances, relative to
 max |plain|: 1e-6 where each output sums a fixed handful of terms (interp
 forward, splat backward, dense interp, whose `highest` is 3xTF32), 1e-5
-where atomics reorder long sums (splat forward, fused warp+splat, interp
-backward above 16x16), 1e-6 against the plain version's float32 terms
-summed in float64 for the interp backward up to 16x16, whose own sums are
-exact or short.
+where long sums round otherwise than the plain version's (the splat
+forward's taps in units of 2^-24, summed exactly; fused warp+splat and the
+interp backward above 16x16, whose atomics reorder them), 1e-6 against
+the plain version's float32 terms summed in float64 for the interp
+backward up to 16x16, whose own sums are exact or short.
 """
 
 import dataclasses
@@ -444,6 +445,28 @@ def test_splat_fwd_every_event_on_one_texel(cuda):
     wy = t(rng.uniform(row - 0.1, row + 0.1, (2, 20_000)))
     ref = tk.splat_plain(wx.double(), wy.double(), sensor)
     _close(ref, tk.splat_fwd_cuda(wx, wy, sensor), 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("one_texel", [False, True], ids=["spread", "one_texel"])
+def test_splat_fwd_bitwise_for_every_plan(cuda, one_texel):
+    """The frames are exact sums, rounded to f32 once: bitwise the same from
+    launch to launch and for any chunk count, also where a texel's tile
+    counter wraps (20k events on one texel)."""
+    rng = np.random.default_rng(14)
+    sensor = (480, 640)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=cuda)
+    if one_texel:
+        wx = t(rng.uniform(300.2, 300.4, (2, 20_000)))
+        wy = t(rng.uniform(80.1, 80.3, (2, 20_000)))
+    else:
+        wx = t(rng.uniform(-3, 643, (2, 200_000)))
+        wy = t(rng.uniform(-3, 483, (2, 200_000)))
+    p = tk.plan_splat(2, wx.shape[1], *sensor)
+    first = tk.splat_fwd_cuda(wx, wy, sensor, plan=p)
+    for chunks in (p.chunks, 1, 7, 64):
+        again = tk.splat_fwd_cuda(wx, wy, sensor, plan=dataclasses.replace(p, chunks=chunks))
+        assert torch.equal(again, first), chunks
 
 
 @pytest.mark.gpu

@@ -3,9 +3,10 @@ against the JAX package's, bitwise, on trees written by
 tests/dataset_fixtures.py: every key of each `get_sample` dict (events,
 images, flow_gt, valid2D, timestamps, file_idx, deficiency), read once
 through h5py and once with h5py blocked, so that `utils/h5_lite.py` reads
-the HDF5 files. Also `imread_gray` and `read_png16` against PIL and the
-loop decoder the port replaced, and one tiny CLI experiment per loader kind
-through both managers."""
+the HDF5 files. Also `read_png16` against PIL and the loop decoder the port
+replaced, `imread_gray` against the JAX package's for every PNG colour type
+and depth, and one tiny CLI experiment per loader kind through both
+managers."""
 
 import importlib.util
 import sys
@@ -283,18 +284,105 @@ def test_png_every_filter_bitwise(tmp_path):
         np.testing.assert_array_equal(got, old.read_png16(path))
 
 
-def test_imread_gray_refuses_other_pngs(tmp_path):
+def _png(path, rows, w, depth, color_type, interlace=0):
+    """A PNG of filter-0 rows written here, for what PIL does not write (2-
+    and 4-bit grey, 16-bit colour, interlacing)."""
+    import struct
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    raw = b"".join(b"\0" + r for r in rows)
+    path.write_bytes(b"\x89PNG\r\n\x1a\n"
+                     + chunk(b"IHDR", struct.pack(">IIBBBBB", w, len(rows), depth, color_type,
+                                                  0, 0, interlace))
+                     + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def _png_kind(path, kind, rng):
+    """Write a 9x13 PNG of `kind`: PIL's modes and palettes, or by hand."""
     from PIL import Image
 
-    Image.fromarray(np.zeros((4, 5, 4), np.uint8), "RGBA").save(tmp_path / "a.png")
-    with pytest.raises(ValueError, match="colour type 6 \\(RGBA\\)"):
-        imread_gray(tmp_path / "a.png")
-    Image.fromarray(np.zeros((4, 5), np.uint8), "L").convert("P").save(tmp_path / "p.png")
-    with pytest.raises(ValueError, match="colour type 3 \\(palette\\)"):
-        imread_gray(tmp_path / "p.png")
-    write_png16(tmp_path / "w.png", np.zeros((4, 5), np.uint16))
-    with pytest.raises(ValueError, match="16-bit"):
-        imread_gray(tmp_path / "w.png")
+    g = rng.integers(0, 256, (9, 13), dtype=np.uint8)
+    rgb = rng.integers(0, 256, (9, 13, 3), dtype=np.uint8)
+    if kind == "grey1":
+        Image.fromarray(g > 128).save(path)
+    elif kind == "grey8":
+        Image.fromarray(g, "L").save(path)
+    elif kind == "grey8_trns":
+        Image.fromarray(g, "L").save(path, transparency=5)
+    elif kind == "grey16":
+        Image.fromarray(g.astype(np.uint16) * 257).save(path)
+    elif kind in ("grey2", "grey4"):
+        depth = int(kind[-1])
+        v = rng.integers(0, 1 << depth, (9, 13)).astype(np.uint8)
+        bits = np.unpackbits(v[..., None], axis=2)[..., 8 - depth:].reshape(9, -1)
+        _png(path, [np.packbits(r).tobytes() for r in bits], 13, depth, 0)
+    elif kind == "rgb":
+        Image.fromarray(rgb, "RGB").save(path)
+    elif kind == "rgb_trns":
+        Image.fromarray(rgb, "RGB").save(path, transparency=(1, 2, 3))
+    elif kind == "rgba":
+        Image.fromarray(rng.integers(0, 256, (9, 13, 4), dtype=np.uint8), "RGBA").save(path)
+    elif kind.startswith("palette"):
+        bits = int(kind.split("_")[0][7:])
+        q = Image.fromarray(rgb, "RGB").quantize(1 << bits)
+        q.save(path, bits=bits, **({"transparency": 0} if kind.endswith("trns") else {}))
+    elif kind in ("rgb16", "rgba16", "grey_alpha16"):
+        c = {"rgb16": 3, "rgba16": 4, "grey_alpha16": 2}[kind]
+        v = rng.integers(0, 65536, (9, 13, c)).astype(">u2")
+        _png(path, [r.tobytes() for r in v], 13, 16, {3: 2, 4: 6, 2: 4}[c])
+
+
+PNG_KINDS = ["grey1", "grey2", "grey4", "grey8", "grey8_trns", "grey16", "rgb", "rgb_trns",
+             "rgba", "rgb16", "rgba16", "grey_alpha16"] + [
+    f"palette{b}{t}" for b in (1, 2, 4, 8) for t in ("", "_trns")]
+
+
+@pytest.mark.parametrize("kind", PNG_KINDS)
+def test_imread_gray_matches_the_jax_package(tmp_path, kind):
+    """Every colour type and bit depth that PIL writes (1-bit, 8-bit and
+    16-bit grey, RGB, RGBA, palettes of 1, 2, 4 and 8 bits with and without
+    tRNS), and those written here that PIL reads (2- and 4-bit grey, 16-bit
+    colour): the port's imread_gray gives the dtype, shape and bytes of
+    eincm_tpu/data/readers.py:imread_gray (imageio, PIL)."""
+    from eincm_tpu.data.readers import imread_gray as jax_imread_gray
+
+    path = tmp_path / f"{kind}.png"
+    _png_kind(path, kind, np.random.default_rng(len(kind)))
+    ref, got = jax_imread_gray(path), imread_gray(path)
+    assert got.dtype == ref.dtype and got.shape == ref.shape, (got.dtype, ref.dtype)
+    assert got.tobytes() == ref.tobytes()
+
+
+def test_imread_gray_refuses_other_pngs(tmp_path):
+    """What the port refused until it read them (RGBA, a palette, 16-bit
+    grey) reads as the JAX package's imread_gray reads it; an 8-bit grey +
+    alpha PNG still raises, as the JAX function does (IndexError there),
+    and an interlaced PNG raises naming the cause."""
+    from PIL import Image
+
+    from eincm_tpu.data.readers import imread_gray as jax_imread_gray
+
+    rng = np.random.default_rng(7)
+    Image.fromarray(rng.integers(0, 256, (4, 5, 4), dtype=np.uint8), "RGBA").save(
+        tmp_path / "a.png")
+    Image.fromarray(rng.integers(0, 256, (4, 5), dtype=np.uint8), "L").convert("P").save(
+        tmp_path / "p.png")
+    write_png16(tmp_path / "w.png", rng.integers(0, 65535, (4, 5)).astype(np.uint16))
+    for name in ("a.png", "p.png", "w.png"):
+        ref, got = jax_imread_gray(tmp_path / name), imread_gray(tmp_path / name)
+        assert got.dtype == ref.dtype and got.shape == ref.shape, name
+        assert got.tobytes() == ref.tobytes(), name
+    Image.fromarray(np.zeros((4, 5, 2), np.uint8), "LA").save(tmp_path / "la.png")
+    with pytest.raises(IndexError):
+        jax_imread_gray(tmp_path / "la.png")
+    with pytest.raises(ValueError, match="grey \\+ alpha"):
+        imread_gray(tmp_path / "la.png")
+    _png(tmp_path / "i.png", [bytes(5)] * 4, 5, 8, 0, interlace=1)
+    with pytest.raises(ValueError, match="an interlaced PNG is not supported"):
+        imread_gray(tmp_path / "i.png")
 
 
 # ---- trees written by utils/dataset_trees.py (h5_lite's writer) --------------

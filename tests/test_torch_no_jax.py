@@ -34,11 +34,12 @@ names = [m.name for m in pkgutil.walk_packages(eincm_tpu_torch.__path__, "eincm_
 for name in names:
     importlib.import_module(name)
 # among them the window mesh's modules, the examples, the benchmark
-# functions, the studies and the Blosc decoder
+# functions, the studies, the Blosc decoder and the HDF5 reader
 assert {"eincm_tpu_torch.parallel", "eincm_tpu_torch.parallel.batch",
         "eincm_tpu_torch.parallel.distributed", "eincm_tpu_torch.examples.synthetic_recovery",
         "eincm_tpu_torch.examples.sequence_sharding", "eincm_tpu_torch.utils.benchmarks",
         "eincm_tpu_torch.utils.blosc", "eincm_tpu_torch.native.blosc",
+        "eincm_tpu_torch.utils.h5_lite", "eincm_tpu_torch.utils.h5_latest",
         "eincm_tpu_torch.scripts"} | {
         "eincm_tpu_torch.scripts." + s for s in (
             "ls_evals_ab", "ftol_ab", "mvsec_loss_breakdown", "edge_sensitivity",
