@@ -17,18 +17,23 @@ Phases, each failing loudly (any failure exits non-zero):
    computes the same function, from CUDA events; the splat forward and
    both backward kernels also with a 5x5 window, with events up to 2.5
    rows off every slab edge; and both interp kernels at every grid the
-   chain solves (1x1 to 16x16) and at 128x128, which is above the sizes
-   their shared-memory designs take, with unaligned views, each timed
+   chain solves (1x1 to 16x16) and at 32x32, 64x64, 128x128 and 256x256
+   (no block's shared memory holds that grid), where the backward takes
+   exact sums in one unit per launch (`interp_bwd_exact`: in bands of rows
+   or straight into device memory, both modes timed, bitwise equal to each
+   other and with the events permuted), with unaligned views, each timed
    beside its bound and its library call, the backward twice for bitwise
-   equal results; and both kernels of the splat backward (one
+   equal results at every grid; and both kernels of the splat backward (one
    event per thread, and four in a row as float4s), the stream kernel
    bitwise the gather kernel's and bitwise the same twice, each timed, with
    the one the plan chooses at that shape in the row; and the direct
    kernels (float64, and the wrap-compat splat in float32 and float64)
-   against the plain versions in the same precision, the float64 ones
-   timed beside their bound and library call; the splat forward's frames
-   bitwise the same launched again and with 1 and 7 event chunks (its
-   sums are exact);
+   against the plain versions in the same precision, every one bitwise the
+   same twice (the splat forward also with 1 and 7 event chunks, the
+   float64 interp backward also permuted, in both modes, at 16x16, 32x32,
+   64x64 and 128x128), the float64 ones timed beside their bound and library
+   call; the splat forward's frames bitwise the same launched again and
+   with 1 and 7 event chunks (its sums are exact);
 3. the measurement kernels (fused warp+splat, fully fused warp+splat,
    dense-layout interp) against their plain versions at the MVSEC shape
    (staged window 0, GT theta, both refs) and the DSEC shape of the fused
@@ -93,6 +98,15 @@ Phases, each failing loudly (any failure exits non-zero):
    EVAL: every window's record, only the later windows solved, the first
    of them from a level-0 prior bitwise the checkpoint's last final,
    kernels 1-4 launched, the mean AEE under [dsec]'s bound;
+   [grids] (right after [dsec], on its tree): window 1 with the config's
+   solver at `solver.n_pyr_lvls=6` (finest grid 32x32) solved from a zero
+   prior twice in float32 (theta bitwise equal, kernel 2's exact sums
+   launched, launches per evaluation printed, AEE below zero flow's and
+   printed beside [dsec]'s 5-level AEE) and twice in float64 (the direct
+   kernels launched, bitwise equal, AEE below zero flow's and within
+   GRIDS_AEE_BAND of the float32 solve's); then [chain]'s window 1 from
+   window 0's final with the wrap-compat splat, twice (bitwise equal, AEE
+   <= MAX_MEAN_AEE);
 10. [submission] a DSEC test-split tree of the same scene, the CLI with
    `dataset.extended=true` (the extended CSV reconstructed by the loader)
    solving 2 windows, `tools.dsec_extended_evals` writing that CSV (equal
@@ -192,9 +206,9 @@ from eincm_tpu_torch.utils.profiling import card as nvidia_smi
 from eincm_tpu_torch.utils.profiling import cuda_ms
 
 # tolerances, as max |kernel - plain| <= tol * max |plain|:
-# atomics reorder the float sums of splat fwd, the fused warp+splat and
-# interp bwd above 16x16, and the reordering grows with the number of events
-# summed into one entry
+# the float32 splat fwd rounds each tap to 2^-24 (and the fused warp+splat
+# adds with float atomics), and the plain version sums thousands of taps per
+# texel in float32 in another order
 TOL_ATOMIC = 1e-5
 # interp fwd, splat bwd and the dense interp sum a fixed handful of terms
 # per output (the dense interp's `highest` is 3xTF32, within ~2^-21 of f32
@@ -203,14 +217,15 @@ TOL_GATHER = 1e-6
 # interp bwd against the plain version's float32 terms summed in float64
 # (`interp_bwd_plain`): a block's sums are exact (fixed point) or short f32
 # sums (registers), and the blocks' partial grids are added in f32 in a
-# fixed order. The float-atomic kernel of the large grids keeps TOL_ATOMIC.
+# fixed order; above 16x16 every term is rounded in one unit per launch and
+# summed exactly (csrc/exact.cuh). Every grid, every run: bitwise repeatable.
 TOL_INTERP_BWD = 1e-6
 TOL_DSEC_LOSS = 1e-4  # relative loss difference, card kernels vs CPU plain
 TOL_F64 = 1e-12  # float64 on the card vs on the CPU: the same plain versions
 # px, mean over MVSEC chain windows 1..5 (|V| = 5 px): the JAX package's
 # own reading on this chain (0.30 px in float32 on CPU,
 # tests/test_torch_mvsec_chain.py) plus the 0.05 px band the CPU tests
-# hold the port's chain to. Atomics make each run on the card differ.
+# hold the port's chain to. A run on the card repeats bitwise (exact sums).
 # Keeping each window's prior as it came scores ~1.5 px, zero flow 5 px.
 MAX_MEAN_AEE = 0.35
 # px, the same bound for the armijo rescue's strong-Wolfe configuration:
@@ -286,6 +301,7 @@ BENCH_KERNELS = ("fused_warp_splat", "fully_fused_warp_splat", "interp_dense")
 SOURCES = {
     "interp_fwd": "eincm_tpu_torch/csrc/interp.cu",
     "interp_bwd": "eincm_tpu_torch/csrc/interp.cu",
+    "interp_bwd_exact": "eincm_tpu_torch/csrc/interp.cu",
     "splat_fwd": "eincm_tpu_torch/csrc/splat.cu",
     "splat_bwd": "eincm_tpu_torch/csrc/splat.cu",
     "fused_warp_splat": "eincm_tpu_torch/csrc/fused.cu",
@@ -303,6 +319,7 @@ DIRECT_KERNELS = ("interp_direct_fwd", "interp_direct_bwd", "splat_direct_fwd",
 REPLACES = {
     "interp_fwd": "eincm_tpu/ops/interp_pallas.py:197",
     "interp_bwd": "eincm_tpu/ops/interp_pallas.py:239",
+    "interp_bwd_exact": "eincm_tpu/ops/interp_pallas.py:239",
     "splat_fwd": "eincm_tpu/ops/splat_banded.py:374",
     "splat_bwd": "eincm_tpu/ops/splat_banded.py:491",
     "fused_warp_splat": "eincm_tpu/experimental/splat_fused.py:449",
@@ -377,6 +394,13 @@ def record(rows, name, tag, err, ms, plain_ms, n_bytes, n_ops, library_ms,
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
     print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}), library {lib}")
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equal, NaNs included (torch.equal holds NaN != NaN)."""
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype])))
 
 
 def max_err(kernel: torch.Tensor, plain: torch.Tensor, tol: float, what: str):
@@ -476,12 +500,18 @@ def splat_planes(wx, wy, sensor):
 # ---- phase 2 ----------------------------------------------------------------
 
 INTERP_GRIDS = ((1, 1), (2, 2), (4, 4), (8, 8), (16, 16))  # the chain's levels
-LARGE_GRID = (128, 128)  # theta not staged (fwd), float atomics (bwd)
+# kernel 2's exact sums: n_pyr_lvls=6 (32x32), 64x64, 128x128 (theta not
+# staged in the forward), and 256x256, whose grid no block's shared memory
+# holds (bands, or every term into device memory)
+EXACT_GRIDS = ((32, 32), (64, 64), (128, 128), (256, 256))
 
 
 def check_interp_grids(tag, xs, ys, sensor, rows):
-    """Both interp kernels at each grid against the plain version, timed
-    beside their bound and library call; results under `by_grid`."""
+    """Both interp kernels at each grid against the plain version, the
+    backward bitwise the same twice (and, above 16x16, in both exact modes
+    and under a permutation of the events), timed beside their bound and
+    library call; results under `by_grid`, the exact kernel's at 32x32 in
+    its own row."""
     from eincm_tpu_torch.ops import interp as ti
 
     H, W = sensor
@@ -492,14 +522,16 @@ def check_interp_grids(tag, xs, ys, sensor, rows):
     bx, by = ex[fin].contiguous(), ey[fin].contiguous()
     g = torch.randn(bx.shape[0], 2, generator=gen, device="cuda")
     g_main = g[:E].contiguous()
-    by_grid = {"interp_fwd": {}, "interp_bwd": {}}
-    for h, w in INTERP_GRIDS + (LARGE_GRID,):
+    perm = torch.randperm(bx.shape[0], generator=gen, device="cuda")
+    by_grid = {"interp_fwd": {}, "interp_bwd": {}, "interp_bwd_exact": {}}
+    for h, w in INTERP_GRIDS + EXACT_GRIDS:
         name = f"{h}x{w}"
         theta = 3.0 * torch.randn(h, w, 2, generator=gen, device="cuda")
         p_fwd = ti.plan_interp(E, h, w)
         p_bwd = ti.plan_interp(E, h, w, True)
         print(f"[interp] {tag} {name}: fwd {p_fwd.mode}, {p_fwd.blocks} x {p_fwd.threads}; "
-              f"bwd {p_bwd.mode}, {p_bwd.blocks} x {p_bwd.threads}, {p_bwd.slices} slices")
+              f"bwd {p_bwd.mode}, {p_bwd.blocks} x {p_bwd.threads} x {p_bwd.bands} bands, "
+              f"{p_bwd.slices} slices")
         out_p = ti.interp_theta_at_events_plain(theta, ex, ey, sensor)
         err_f = 0.0
         # whole, and as views that start 4 and 12 bytes into a 16-byte line
@@ -516,7 +548,6 @@ def check_interp_grids(tag, xs, ys, sensor, rows):
                 if not torch.equal(out_k[fin[off:]], out_p[off:][fin[off:]]):
                     raise AssertionError(f"{what}: not bitwise the plain version's")
         d_p = ti.interp_bwd_plain(g, bx, by, (h, w, 2), sensor, torch.float64)
-        tol = TOL_ATOMIC if p_bwd.mode == "float" else TOL_INTERP_BWD
         err_b = 0.0
         for off in (0, 1, 3):
             for grouped in (True, False):
@@ -529,19 +560,42 @@ def check_interp_grids(tag, xs, ys, sensor, rows):
                 ref = d_p if off == 0 else ti.interp_bwd_plain(
                     vg, vx, vy, (h, w, 2), sensor, torch.float64)
                 what = f"interp_bwd {name} +{off} {'groups' if grouped else 'single'}"
-                err_b = max(err_b, max_err(d_k, ref, tol, what))
-                if plan.mode != "float" and not torch.equal(d_k, d_again):
+                err_b = max(err_b, max_err(d_k, ref, TOL_INTERP_BWD, what))
+                if not torch.equal(d_k, d_again):
                     raise AssertionError(f"{what}: two runs differ")
         n_bytes = 16 * E + 8 * h * w
         lib_call, _ = grid_sample_interp(theta, xs, ys, sensor)
         uy = ti._axis_weights(ys, h, h, float(h) / H, True)  # dense (E, h) weights
         vx = ti._axis_weights(xs, w, w, float(w) / W, True)
         reps = 3 if E * h > 10_000_000 else 10  # the large grid's einsum takes ms
+        extra = {}
+        if p_bwd.mode in ti.EXACT_MODES:
+            # the exact sums: the same bits in both modes and for the events
+            # permuted; each mode timed
+            d_ref = ti.interp_bwd_cuda(g, bx, by, (h, w, 2), sensor)
+            d_perm = ti.interp_bwd_cuda(g[perm].contiguous(), bx[perm].contiguous(),
+                                        by[perm].contiguous(), (h, w, 2), sensor)
+            for mode in ti.EXACT_MODES:
+                plan = ti.plan_interp(bx.shape[0], h, w, True, tuple(
+                    map(ti.float_offset, (bx, by, g))), mode)
+                if not torch.equal(ti.interp_bwd_cuda(g, bx, by, (h, w, 2), sensor, plan), d_ref):
+                    raise AssertionError(f"interp_bwd {name}: mode {mode} not bitwise the plan's")
+                plan = ti.plan_interp(E, h, w, True, tuple(
+                    map(ti.float_offset, (xs, ys, g_main))), mode)
+                extra[f"{mode}_ms"] = cuda_ms(
+                    lambda: ti.interp_bwd_cuda(g_main, xs, ys, (h, w, 2), sensor, plan))
+                extra[f"{mode}_bands"] = plan.bands
+            if not torch.equal(d_perm, d_ref):
+                raise AssertionError(f"interp_bwd {name}: the events permuted give other bits")
+            print(f"  interp_bwd {name}: bitwise in both exact modes and with the events "
+                  f"permuted; banded {extra['banded_ms']:.4f} ms ({extra['banded_bands']} "
+                  f"bands), global {extra['global_ms']:.4f} ms")
+        bwd_name = "interp_bwd_exact" if p_bwd.mode in ti.EXACT_MODES else "interp_bwd"
         for kernel, err, ms, ops, lib in (
             ("interp_fwd", err_f,
              cuda_ms(lambda: ti.interp_fwd_cuda(theta, xs, ys, sensor)),
              OPS_INTERP_WEIGHTS + OPS_INTERP_CONTRACT, cuda_ms(lib_call)),
-            ("interp_bwd", err_b,
+            (bwd_name, err_b,
              cuda_ms(lambda: ti.interp_bwd_cuda(g_main, xs, ys, (h, w, 2), sensor)),
              OPS_INTERP_BWD,
              cuda_ms(lambda: torch.einsum("eh,ew,ec->hwc", uy, vx, g_main), reps)),
@@ -551,9 +605,20 @@ def check_interp_grids(tag, xs, ys, sensor, rows):
                 "max_abs_err": err, "ms": ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": lib,
                 "mode": (p_fwd if kernel == "interp_fwd" else p_bwd).mode,
+                **({} if kernel == "interp_fwd" else extra),
             }
             print(f"  {kernel} {name}: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by}), library {lib:.4f} ms")
+        if (h, w) == EXACT_GRIDS[0]:
+            # the exact kernel's row: at its first grid, beside the plain
+            # version's autograd
+            th = theta.detach().clone().requires_grad_(True)
+            out_main = ti.interp_theta_at_events_plain(th, xs, ys, sensor)
+            row = by_grid[bwd_name][name]
+            record(rows, "interp_bwd_exact", tag, err_b, row["ms"],
+                   cuda_ms(lambda: torch.autograd.grad(out_main, th, g_main, retain_graph=True)),
+                   n_bytes, OPS_INTERP_BWD * E, row["library_ms"], grid=name, **extra)
+            del out_main
         del uy, vx
     for kernel, grids in by_grid.items():
         rows[kernel][tag]["by_grid"] = grids
@@ -740,14 +805,21 @@ def check_splat_window5(tag, wx, wy, wxe, wye, G, sensor, rows):
         print(f"  {name} window 5: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
 
 
+# the float64 interp backward's grids beyond the chain's 16x16
+DIRECT_GRIDS = ((32, 32), (64, 64), (128, 128))
+
+
 def check_direct(tag, theta, xs, ys, wx, wy, wxe, wye, G, sensor, rows):
     """The direct kernels of csrc/direct.cu against the plain versions in
     the same precision, with the edge cases and slab-edge events: the
     float64 interp fwd and bwd and the splat fwd and bwd within TOL_F64,
     the wrap-compat splat in float32 (TOL_ATOMIC forward, TOL_GATHER
-    backward) and float64 (TOL_F64) at windows 3 and 5; then the float64
-    kernels at the window's shape timed beside their plain version, bound
-    (float64 operations over F64_OPS_PER_S) and library call, in float64."""
+    backward) and float64 (TOL_F64) at windows 3 and 5; every kernel bitwise
+    the same twice, the splat forward also with 1 and 7 event chunks and
+    the interp backward with the events permuted; then the float64 kernels
+    at the window's shape timed beside their plain version, bound (float64
+    operations over F64_OPS_PER_S) and library call, in float64, the interp
+    backward also at DIRECT_GRIDS."""
     from eincm_tpu_torch.ops import interp as ti
     from eincm_tpu_torch.ops import splat_kernel as sk
 
@@ -759,15 +831,30 @@ def check_direct(tag, theta, xs, ys, wx, wy, wxe, wye, G, sensor, rows):
     gen = torch.Generator(device="cuda").manual_seed(6)
     th64 = theta.to(f64)
     ex, ey = (t.to(f64) for t in with_edges(xs, ys, H, W))
-    err_if = max_err(ti.interp_direct_fwd_cuda(th64, ex, ey, sensor),
-                     ti.interp_theta_at_events_plain(th64, ex, ey, sensor), TOL_F64,
+    out_k = ti.interp_direct_fwd_cuda(th64, ex, ey, sensor)
+    err_if = max_err(out_k, ti.interp_theta_at_events_plain(th64, ex, ey, sensor), TOL_F64,
                      "interp_direct_fwd float64")
+    if not same_bits(ti.interp_direct_fwd_cuda(th64, ex, ey, sensor), out_k):
+        raise AssertionError("interp_direct_fwd: two runs differ")
     fin = torch.isfinite(ex) & torch.isfinite(ey)
     bx, by = ex[fin].contiguous(), ey[fin].contiguous()
     g = torch.randn(bx.shape[0], 2, generator=gen, device="cuda", dtype=f64)
-    err_ib = max_err(ti.interp_direct_bwd_cuda(g, bx, by, (h, w, 2), sensor),
-                     ti.interp_bwd_plain(g, bx, by, (h, w, 2), sensor), TOL_F64,
-                     "interp_direct_bwd float64")
+    perm = torch.randperm(bx.shape[0], generator=gen, device="cuda")
+    err_ib = 0.0
+    for gh, gw in ((h, w),) + DIRECT_GRIDS:
+        d_k = ti.interp_direct_bwd_cuda(g, bx, by, (gh, gw, 2), sensor)
+        err_ib = max(err_ib, max_err(d_k, ti.interp_bwd_plain(g, bx, by, (gh, gw, 2), sensor),
+                                     TOL_F64, f"interp_direct_bwd float64 {gh}x{gw}"))
+        again = [ti.interp_direct_bwd_cuda(g, bx, by, (gh, gw, 2), sensor),
+                 ti.interp_direct_bwd_cuda(g[perm].contiguous(), bx[perm].contiguous(),
+                                           by[perm].contiguous(), (gh, gw, 2), sensor)]
+        again += [ti.interp_direct_bwd_cuda(g, bx, by, (gh, gw, 2), sensor, ti.plan_interp(
+            bx.shape[0], gh, gw, True, mode=mode, f64=True)) for mode in ti.EXACT_MODES]
+        if not all(same_bits(d, d_k) for d in again):
+            raise AssertionError(f"interp_direct_bwd {gh}x{gw}: not bitwise the same twice, "
+                                 f"permuted and in both modes")
+    print(f"  interp_direct_bwd: bitwise the same twice, with the events permuted and in "
+          f"both modes at {[(h, w), *DIRECT_GRIDS]}")
     err_sf = err_sb = 0.0
     for dtype in (torch.float32, f64):
         ax, ay = wxe.to(dtype).contiguous(), wye.to(dtype).contiguous()
@@ -785,6 +872,18 @@ def check_direct(tag, theta, xs, ys, wx, wy, wxe, wye, G, sensor, rows):
                 err_sf = max(err_sf, max_err(f_k, f_p, tol_f, f"splat_direct_fwd {what}"))
                 for k, p, n in zip(d_k, d_p, ("dwx", "dwy")):
                     err_sb = max(err_sb, max_err(k, p, tol_b, f"splat_direct_bwd {what} {n}"))
+                # exact sums: the same frames again and with 1 and 7 chunks
+                plan = sk.plan_splat(R, ax.shape[1], H, W, texel_bytes=8 if dtype == f64 else 4)
+                for p in (plan, dataclasses.replace(plan, chunks=1),
+                          dataclasses.replace(plan, chunks=7)):
+                    if not same_bits(sk.splat_direct_fwd_cuda(ax, ay, sensor, ws, wrap, p), f_k):
+                        raise AssertionError(f"splat_direct_fwd {what}: not bitwise the first "
+                                             f"launch's frames at {p.chunks} chunks")
+                d_again = sk.splat_direct_bwd_cuda(ax, ay, Gd, sensor, ws, wrap)
+                if not all(same_bits(a, b) for a, b in zip(d_again, d_k)):
+                    raise AssertionError(f"splat_direct_bwd {what}: two runs differ")
+                print(f"  splat_direct {what}: bitwise the same twice, the forward also with "
+                      f"1 and 7 chunks ({plan.chunks} planned)")
     # times at the window's own shape, in float64
     x64, y64 = xs.to(f64), ys.to(f64)
     g_main = torch.randn(E, 2, generator=gen, device="cuda", dtype=f64)
@@ -796,26 +895,58 @@ def check_direct(tag, theta, xs, ys, wx, wy, wxe, wye, G, sensor, rows):
            cuda_ms(lambda: ti.interp_theta_at_events_plain(th64, x64, y64, sensor)),
            32 * E + 16 * h * w, (OPS_INTERP_WEIGHTS + OPS_INTERP_CONTRACT) * E,
            cuda_ms(lib_call), F64_OPS_PER_S)
-    uy = ti._axis_weights(y64, h, h, float(h) / H, True)
-    vx = ti._axis_weights(x64, w, w, float(w) / W, True)
-    record(rows, "interp_direct_bwd", tag, err_ib,
-           cuda_ms(lambda: ti.interp_direct_bwd_cuda(g_main, x64, y64, (h, w, 2), sensor)),
+    by_grid = {}
+    for gh, gw in ((h, w),) + DIRECT_GRIDS:
+        uy = ti._axis_weights(y64, gh, gh, float(gh) / H, True)
+        vx = ti._axis_weights(x64, gw, gw, float(gw) / W, True)
+        p = ti.plan_interp(E, gh, gw, True, f64=True)
+        ms = cuda_ms(lambda: ti.interp_direct_bwd_cuda(g_main, x64, y64, (gh, gw, 2), sensor))
+        modes = {}
+        for mode in ti.EXACT_MODES:
+            plan = ti.plan_interp(E, gh, gw, True, mode=mode, f64=True)
+            modes[f"{mode}_ms"] = cuda_ms(
+                lambda: ti.interp_direct_bwd_cuda(g_main, x64, y64, (gh, gw, 2), sensor, plan))
+            modes[f"{mode}_bands"] = plan.bands
+        lib = cuda_ms(lambda: torch.einsum("eh,ew,ec->hwc", uy, vx, g_main),
+                      3 if E * gh > 10_000_000 else 10)
+        bound_ms, bound_by = bound(32 * E + 16 * gh * gw, OPS_INTERP_BWD * E, F64_OPS_PER_S)
+        by_grid[f"{gh}x{gw}"] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                                 "library_ms": lib, "mode": p.mode, **modes}
+        print(f"  interp_direct_bwd {gh}x{gw} ({p.mode}): kernel {ms:.4f} ms (banded "
+              f"{modes['banded_ms']:.4f} in {modes['banded_bands']} bands, global "
+              f"{modes['global_ms']:.4f}), bound {bound_ms:.4f} ms ({bound_by}), einsum "
+              f"{lib:.4f} ms")
+        del uy, vx
+    main = by_grid[f"{h}x{w}"]
+    record(rows, "interp_direct_bwd", tag, err_ib, main["ms"],
            cuda_ms(lambda: torch.autograd.grad(out_main, thr, g_main, retain_graph=True)),
-           32 * E + 16 * h * w, OPS_INTERP_BWD * E,
-           cuda_ms(lambda: torch.einsum("eh,ew,ec->hwc", uy, vx, g_main)), F64_OPS_PER_S)
-    del uy, vx, out_main
+           32 * E + 16 * h * w, OPS_INTERP_BWD * E, main["library_ms"], F64_OPS_PER_S,
+           by_grid=by_grid)
+    del out_main
     wx64, wy64 = wx.to(f64), wy.to(f64)
     G64 = G.to(f64)
     wxm, wym = wx64.clone().requires_grad_(True), wy64.clone().requires_grad_(True)
     f_main = sk.splat_plain(wxm, wym, sensor)
     U, V = splat_planes(wx64, wy64, sensor)
     reps = 3 if E > 100_000 else 10
+    # the plan's one wave of blocks against the chunks that overfill it
+    # (ops/splat_kernel.py:plan_splat), where they differ
+    p64 = sk.plan_splat(R, E, H, W, texel_bytes=8)
+    over = dataclasses.replace(p64, chunks=-(-sk.N_SM // (R * p64.row_slabs * p64.col_slabs)))
+    waves = {} if over.chunks == p64.chunks else {
+        "blocks": R * p64.chunks * p64.row_slabs * p64.col_slabs,
+        "overfull_blocks": R * over.chunks * over.row_slabs * over.col_slabs,
+        "overfull_ms": cuda_ms(lambda: sk.splat_direct_fwd_cuda(wx64, wy64, sensor, 3, False,
+                                                                over))}
     record(rows, "splat_direct_fwd", tag, err_sf,
            cuda_ms(lambda: sk.splat_direct_fwd_cuda(wx64, wy64, sensor)),
            cuda_ms(lambda: sk.splat_plain(wx64, wy64, sensor)),
            16 * R * E + 8 * R * H * W, ops_splat(1) * R * E,
            cuda_ms(lambda: torch.bmm(U, V), reps), F64_OPS_PER_S,
-           wrap_f32_ms=cuda_ms(lambda: sk.splat_direct_fwd_cuda(wx, wy, sensor, 3, True)))
+           wrap_f32_ms=cuda_ms(lambda: sk.splat_direct_fwd_cuda(wx, wy, sensor, 3, True)),
+           wrap_f32_bound_ms=bound(8 * R * E + 4 * R * H * W, ops_splat(1) * R * E)[0],
+           wrap5_f32_ms=cuda_ms(lambda: sk.splat_direct_fwd_cuda(wx, wy, sensor, 5, True)),
+           **waves)
     Ut = U.transpose(1, 2)
     record(rows, "splat_direct_bwd", tag, err_sb,
            cuda_ms(lambda: sk.splat_direct_bwd_cuda(wx64, wy64, G64, sensor)),
@@ -1908,9 +2039,151 @@ def real_data_phase(tag, card, device, tree):
     return rec, launches, exp
 
 
-def real_data_phases(card, device):
-    """Phases 9-12 (see the module docstring). Returns ({tag: record},
-    {tag: launches})."""
+# ---- [grids] kernel 2's exact sums and the direct kernels on the solve ------
+
+GRIDS_AEE_BAND = 0.05  # px, the float64 solve's AEE against the float32 one's
+
+
+def _grids_aee(theta0, staged, sensor, params, device):
+    """The EVAL path's AEE of a level-0 theta on a staged window (its eval
+    events and GT flow), in float32 on the card."""
+    from eincm_tpu_torch.evals.theta_metrics import evaluate_theta_array, prepare_eval_inputs
+    from eincm_tpu_torch.ops.resize import scale_theta_to_sensor_size
+
+    ev = staged.eval_events
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    edges = staged.window.edges.to(device, torch.float32)
+    edge_ts = staged.window.edge_ts.to(device, torch.float32)
+    exs, eys, ets, wstat = prepare_eval_inputs(f32(ev["x"]), f32(ev["y"]), f32(ev["t"]),
+                                               edges, sensor)
+    full = scale_theta_to_sensor_size(theta0.to(device, torch.float32), sensor)
+    _, _, evals, _ = evaluate_theta_array(full, exs, eys, ets, edges, edge_ts,
+                                          f32(staged.gt_flow), params, sensor,
+                                          window_statics=wstat)
+    return float(evals["AEE"])
+
+
+def _solve_twice(label, solver, window, prior, is_first):
+    """Solve one window twice on the card, the launch counters set to 0
+    just before each solve and read just after; the two final pyramids
+    must be bitwise equal. Returns (result, launches of one solve, ms of
+    each, loss evaluations of one solve)."""
+    from eincm_tpu_torch.ops import _build
+
+    out = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = solver(window, prior, is_first)
+        torch.cuda.synchronize()
+        out.append((res, _build.launch_counts(), (time.perf_counter() - t0) * 1e3))
+    (a, launches, ms_a), (b, launches_b, ms_b) = out
+    if not _finite_theta(a):
+        raise AssertionError(f"[grids] {label}: non-finite theta")
+    same = all(torch.equal(x, y) for x, y in zip(a.final_theta_pyr, b.final_theta_pyr))
+    if not same or launches != launches_b:
+        raise AssertionError(f"[grids] {label}: the two solves differ (theta bitwise "
+                             f"{same}, launches {launches} / {launches_b})")
+    evals = sum(s.n_fun_evals for s in a.theta_opt_states)
+    return a, launches, (ms_a, ms_b), evals
+
+
+def grids_phase(card, device, tree, dsec_rec, chain):
+    """[grids] (see the module docstring). `chain`: (MVSEC solver, its
+    config, window 1, its velocity, window 0's final pyramid)."""
+    from pathlib import Path
+
+    from eincm_tpu_torch.data.staging import stage_datasample
+    from eincm_tpu_torch.experiments.config import load_config
+    from eincm_tpu_torch.models.pyramid import make_window_solver
+    from eincm_tpu_torch.ops.splat import set_splat_wrap_compat
+    from eincm_tpu_torch.utils import workloads as wl
+
+    t0 = time.perf_counter()
+    config = Path(__file__).resolve().parent / "configs" / REAL_CASES["dsec"][0]
+    cfg = load_config(str(config), [*REAL_CASES["dsec"][1], f"dataset.root_dir={tree['root']}",
+                                    f"dataset.sequence_name={tree['sequence']}",
+                                    "solver.n_pyr_lvls=6"])
+    sensor = tuple(cfg.dataset.sensor_size)
+    loader = cfg.dataset.make_loader()
+    loader.get_ready()
+    sample = loader[1]
+    stage = lambda dtype: stage_datasample(
+        sample, device, edge_fn=cfg.edge.make_edge_fn(),
+        preprocess=cfg.edge.enable_image_preprocessing, pad_to=cfg.dataset.des_n_events,
+        dtype=dtype)
+    staged = stage(torch.float32)
+    staged64 = stage(torch.float64)
+    scfg = cfg.solver_config()
+    shapes = [scfg.level_shape(lvl) for lvl in range(scfg.n_pyr_lvls)]
+    print(f"[grids] {card}: DSEC window 1 ({int(len(sample['events']['x']))} events, "
+          f"{sensor[0]}x{sensor[1]}) staged in float32 and float64 in "
+          f"{time.perf_counter() - t0:.2f} s; {REAL_CASES['dsec'][0]} with "
+          f"solver.n_pyr_lvls=6: grids {shapes}, maxiters {scfg.theta_opt_maxiters}")
+    if shapes[0] != (32, 32):
+        raise AssertionError(f"[grids] the finest grid is {shapes[0]}, not 32x32")
+    solver = make_window_solver(scfg, device)
+    zero_aee = zero_flow_aee(sample, sensor)  # as [dsec] scores it
+    rec = {"card": card, "grids": shapes, "zero_flow_aee": zero_aee,
+           "dsec_5_level_aee": dsec_rec["aee"][1]}
+    for label, st, dtype in (("float32", staged, torch.float32),
+                             ("float64", staged64, torch.float64)):
+        res, launches, ms, evals = _solve_twice(
+            f"DSEC 32x32 {label}", solver, st.window, scfg.zero_pyramid(dtype, device=device),
+            True)
+        aee = _grids_aee(res.final_theta_pyr[0], st, sensor, cfg.loss_params, device)
+        launched = {k: n for k, n in launches.items() if n}
+        per_eval = {k: n / evals for k, n in launched.items()}
+        rec[label] = {"aee": aee, "solve_ms": list(ms), "evals": evals, "launches": launched,
+                      "launches_per_eval": per_eval,
+                      "iters": [s.total_iters for s in res.theta_opt_states],
+                      "statuses": [s.status for s in res.theta_opt_states]}
+        print(f"[grids] {card}: DSEC window 1 at 32x32 in {label}, solved twice: theta "
+              f"bitwise equal; {ms[0]:.1f} / {ms[1]:.1f} ms; AEE {aee:.4f} px (zero flow "
+              f"{zero_aee:.4f}; [dsec]'s 5-level solve {dsec_rec['aee'][1]:.4f}); iterations "
+              f"{rec[label]['iters']}; {evals} loss evaluations; launches {launched}, per "
+              f"evaluation { {k: round(v, 4) for k, v in per_eval.items()} }")
+        if not aee < zero_aee:
+            raise AssertionError(f"[grids] {label}: AEE {aee} not below zero flow's {zero_aee}")
+        if label == "float32" and not launches["interp_bwd_exact"]:
+            raise AssertionError(f"[grids] float32: kernel 2's exact sums not launched at "
+                                 f"32x32: {launched}")
+        if label == "float64":
+            missing = [k for k in DIRECT_KERNELS if not launches[k]]
+            if missing:
+                raise AssertionError(f"[grids] float64: direct kernels not launched: {missing}")
+            gap = abs(aee - rec["float32"]["aee"])
+            print(f"[grids] {card}: float64 AEE - float32 AEE {gap:.4f} px (limit "
+                  f"{GRIDS_AEE_BAND})")
+            if not gap <= GRIDS_AEE_BAND:
+                raise AssertionError(f"[grids] float64 AEE {aee} off the float32 one by {gap}")
+    del staged, staged64
+    # the wrap-compat switch on [chain]'s window 1, from window 0's final
+    mv_solver, mv_cfg, window1, vel1, prior = chain
+    set_splat_wrap_compat(True)
+    try:
+        res, launches, ms, evals = _solve_twice("wrap-compat chain window 1", mv_solver,
+                                                window1, prior, False)
+    finally:
+        set_splat_wrap_compat(False)
+    aee = wl.aee_at_events(res.final_theta_pyr[0], window1, vel1, mv_cfg.sensor_size)
+    launched = {k: n for k, n in launches.items() if n}
+    rec["wrap"] = {"aee": aee, "solve_ms": list(ms), "evals": evals, "launches": launched}
+    print(f"[grids] {card}: [chain]'s window 1 with the wrap-compat splat, solved twice: "
+          f"theta bitwise equal; {ms[0]:.1f} / {ms[1]:.1f} ms; AEE {aee:.4f} px (limit "
+          f"{MAX_MEAN_AEE}); launches {launched}")
+    if not aee <= MAX_MEAN_AEE:
+        raise AssertionError(f"[grids] wrap-compat: AEE {aee} > {MAX_MEAN_AEE}")
+    if not (launches["splat_direct_fwd"] and launches["splat_direct_bwd"]):
+        raise AssertionError(f"[grids] wrap-compat: the direct splat not launched: {launched}")
+    return rec
+
+
+def real_data_phases(card, device, grids=None):
+    """Phases 9-12 (see the module docstring), with `grids(tree, record)`
+    run on [dsec]'s tree right after [dsec] (its record under "grids").
+    Returns ({tag: record}, {tag: launches})."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -1954,6 +2227,9 @@ def real_data_phases(card, device):
         recs["dsec"] = rec
         del exp, gauss
         torch.cuda.empty_cache()
+        if grids is not None:
+            recs["grids"] = grids(tree, rec)
+            torch.cuda.empty_cache()
         # 13. [parallel] at DSEC's full size, on the same tree
         recs["parallel_dsec"], launches["parallel_dsec"] = parallel_dsec_phase(
             card, device, tree, rec)
@@ -2626,6 +2902,8 @@ def main(argv=None) -> int:
     for res, rec in wl.solve_chain(solver, cfg, mvsec, vels):
         k = rec["window"]
         chain_recs.append(rec)
+        if k == 0:
+            chain_w0_final = res.final_theta_pyr
         for th in res.final_theta_pyr:
             if not bool(torch.isfinite(th).all()):
                 raise AssertionError(f"window {k}: non-finite theta")
@@ -2760,7 +3038,10 @@ def main(argv=None) -> int:
 
     # ---- 9-12. the real-data path: DSEC, submission, MVSEC, ECD trees ------
     # (and 13. [parallel] at DSEC's size on the [dsec] tree)
-    real_rows, real_launches = real_data_phases(card, device)
+    real_rows, real_launches = real_data_phases(
+        card, device, lambda tree, rec: grids_phase(
+            card, device, tree, rec, (solver, cfg, mvsec[1], vels[1], chain_w0_final)))
+    grids_row = real_rows.pop("grids")
 
     # ---- 13. [parallel] one member: the schedules, the sharded EVAL, the
     # parallel experiment with its super-step checkpoint and resume --------
@@ -2791,7 +3072,9 @@ def main(argv=None) -> int:
 
     launches = {**{k: chain_launches[k] for k in CHAIN_KERNELS},
                 **{k: bench_launches[k] for k in BENCH_KERNELS},
-                **{k: f64_launches[k] + wrap_launches[k] for k in DIRECT_KERNELS}}
+                **{k: f64_launches[k] + wrap_launches[k] for k in DIRECT_KERNELS},
+                # kernel 2's exact sums: [grids]' float32 DSEC solve at 32x32
+                "interp_bwd_exact": grids_row["float32"]["launches"].get("interp_bwd_exact", 0)}
     kernels = []
     for name in SOURCES:
         m, d = rows[name]["mvsec"], rows[name]["dsec"]
@@ -2823,12 +3106,18 @@ def main(argv=None) -> int:
         if name in DIRECT_KERNELS:
             entry["f64_loss_launches"] = f64_launches[name]
             entry["wrap_loss_launches"] = wrap_launches[name]
+            entry["grids_f64_solve_launches"] = grids_row["float64"]["launches"].get(name, 0)
+            entry["grids_wrap_solve_launches"] = grids_row["wrap"]["launches"].get(name, 0)
+        if name == "interp_bwd_exact":
+            entry["grids_launches_per_loss_eval"] = (
+                grids_row["float32"]["launches_per_eval"]["interp_bwd_exact"])
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
         kernels.append(entry)
     paths = {"card": card, "armijo": {"windows": chain_recs, "mean_aee": mean_aee,
                                       "median_ms": chain_median_ms},
              "wolfe": wolfe_row, "eval": eval_rows, "experiment": exp_row, **real_rows,
+             "grids": grids_row,
              "parallel": par_row, "ranks": ranks_row, "bench": bench_row,
              "studies": studies_row, "h5": h5_row}
     if args.out:

@@ -59,23 +59,35 @@
 //       that event has a tap on the grid. What is left is the rate of
 //       shared-memory atomics (12M of them at 1.5M events), which float
 //       atomics with the same launch reach within a quarter at these grids;
-//     * float (above 16x16, where few events share a word and a partial
-//       grid per block costs more to write and sum than it saves): float
-//       atomicAdd on a shared-memory grid and one global atomicAdd per
-//       nonzero entry into a zeroed output, four blocks of 256 per SM.
+//     * exact (above 16x16, where few events share a word and a partial
+//       grid per block, summed by one block, costs more than it saves; and
+//       at any grid, up to the sensor's own size): one unit for the whole
+//       launch from a first kernel's maxima of |g| (exact.cuh), the terms
+//       added exactly into a band of rows of the grid in shared memory and
+//       the band's nonzero words into 64-bit sums in device memory, with
+//       integer atomics; a band re-reads the events; a third kernel rounds
+//       each sum to f32 once. The bands are as many as the grid needs to
+//       fit a block (one up to about 120x120 cells); without bands
+//       (kBanded false) every term goes to device memory, which beats
+//       three or more bands (ops/interp.py:plan_interp chooses).
+//       It replaces a float-atomic kernel, whose sums rounded in the
+//       order the threads arrived.
 //     The first two are one launch with no zeroed output: each block writes
 //     its partial grid as f32 to scratch, and the last block to arrive (a
 //     __threadfence and a ticket it resets) sums the partials in a fixed
 //     order (plan.slices interleaved slices of the blocks, each in block
 //     order, then the slices in order) and writes dtheta whole. On the same
-//     inputs the result is bitwise the same from run to run. That sum is a
-//     chain of round trips to L2, so a thread of it takes four words at a
-//     time and keeps eight loads in flight.
+//     inputs every mode's result is bitwise the same from run to run; the
+//     exact mode's also for every plan and event order. The last block's
+//     sum is a chain of round trips to L2, so a thread of it takes four
+//     words at a time and keeps eight loads in flight.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "common.cuh"
+#include "exact.cuh"
+#include "tile.cuh"
 
 namespace {
 
@@ -83,6 +95,7 @@ using eincm::clamp_idx;
 using eincm::sample2;
 using eincm::Taps;
 using eincm::taps_of;
+namespace exact = eincm::exact;
 
 constexpr int kMaxThreads = 1024;
 constexpr int kWideThreads = 512;  // kernels that may need > 64 registers
@@ -517,33 +530,56 @@ __global__ void __launch_bounds__(kMaxThreads)
   if (last_block(a.ticket)) sum_partials(a, m);
 }
 
-__device__ __forceinline__ void float_tap(float* acc, int w, int ky, int kx,
-                                          float uy, float vx, float g0,
-                                          float g1) {
-  float* a = acc + (ky * w + kx) * 2;
-  atomicAdd(a, __fmul_rn(__fmul_rn(vx, g0), uy));
-  atomicAdd(a + 1, __fmul_rn(__fmul_rn(vx, g1), uy));
-}
-
-// Above 16x16: float atomics on a shared-memory grid, then one global
-// atomicAdd per nonzero entry into the zeroed dtheta.
+// Above 16x16: one unit for the whole launch (exact.cuh), terms added
+// exactly into a band of rows of the grid in shared memory (kBanded), the
+// band's nonzero words then into the 64-bit sums in device memory; or
+// straight into those sums (kBanded false). Block (chunk, band) walks its
+// chunk's events; blockIdx.y is the band.
+template <bool kBanded>
 __global__ void __launch_bounds__(kMaxThreads)
-    interp_bwd_float_kernel(Events ev, Bwd a) {
-  extern __shared__ __align__(16) float acc[];
-  const int m = a.h * a.w * 2;
-  for (int i = threadIdx.x; i < m; i += blockDim.x) acc[i] = 0.f;
-  __syncthreads();
-  for_each_event(ev, a.g, first_event(ev, a.g), [&](float x, float y, float g0, float g1) {
-    const EventTaps t = event_taps(x, y, a.h, a.w, a.sy, a.sx);
-    if (t.iy0 && t.ix0) float_tap(acc, a.w, t.y0, t.x0, t.uy0, t.vx0, g0, g1);
-    if (t.iy1 && t.ix0) float_tap(acc, a.w, t.y1, t.x0, t.uy1, t.vx0, g0, g1);
-    if (t.iy0 && t.ix1) float_tap(acc, a.w, t.y0, t.x1, t.uy0, t.vx1, g0, g1);
-    if (t.iy1 && t.ix1) float_tap(acc, a.w, t.y1, t.x1, t.uy1, t.vx1, g0, g1);
+    interp_bwd_exact_kernel(Events ev, Bwd a, exact::Exact<float> x,
+                            int band_rows) {
+  extern __shared__ __align__(16) unsigned band_sums[];
+  const long long row_words = 2LL * a.w;
+  exact::Band<float> band{nullptr, nullptr, 0, 0};
+  if (kBanded) {
+    const int r0 = blockIdx.y * band_rows;
+    const int r1 = min(a.h, r0 + band_rows);
+    band.w0 = r0 * row_words;
+    band.w1 = r1 * row_words;
+    band.lo = band_sums;
+    band.hi = band_sums + (band.w1 - band.w0);
+    exact::zero_band(band);
+  }
+  const FirstEvent first = first_event(ev, a.g);
+  const int s = exact::launch_shift(x);  // its __syncthreads: the zeroed band too
+  const float scale = exact::Fixed<float>::pow2(s);
+  for_each_event(ev, a.g, first, [&](float x_, float y_, float g0, float g1) {
+    const EventTaps t = event_taps(x_, y_, a.h, a.w, a.sy, a.sx);
+    const bool on[4] = {t.iy0 && t.ix0, t.iy1 && t.ix0, t.iy0 && t.ix1,
+                        t.iy1 && t.ix1};
+    const long long cell_idx[4] = {(long long)t.y0 * a.w + t.x0, (long long)t.y1 * a.w + t.x0,
+                                   (long long)t.y0 * a.w + t.x1, (long long)t.y1 * a.w + t.x1};
+    const float c0[2] = {__fmul_rn(t.vx0, g0), __fmul_rn(t.vx1, g0)};
+    const float c1[2] = {__fmul_rn(t.vx0, g1), __fmul_rn(t.vx1, g1)};
+    const float uy[2] = {t.uy0, t.uy1};
+    long long word[8];
+    float term[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int tap = k >> 1;
+      term[k] = __fmul_rn((k & 1) ? c1[tap >> 1] : c0[tap >> 1], uy[tap & 1]);
+      word[k] = on[tap] ? 2 * cell_idx[tap] + (k & 1) : -1;
+    }
+    if (kBanded) {
+      exact::band_terms(band, x.flags, word, term, scale);
+    } else {
+      exact::global_terms(x, word, term, scale);
+    }
   });
-  __syncthreads();
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const float v = acc[i];
-    if (v != 0.f) atomicAdd(a.dtheta + i, v);  // NaN != 0, so NaN propagates
+  if (kBanded) {
+    __syncthreads();
+    exact::flush_band(band, x);
   }
 }
 
@@ -581,8 +617,8 @@ extern "C" int eincm_interp_fwd(const float* theta, const float* xs,
   return (int)cudaGetLastError();
 }
 
-// mode 0: registers (h, w in {1, 2, 4}), 1: fixed point, 2: float atomics
-// into a zeroed dtheta (partials and ticket unused)
+// mode 0: registers (h, w in {1, 2, 4}), 1: fixed point with a unit per
+// block (partials summed by the last block in a fixed order)
 extern "C" int eincm_interp_bwd(const float* g, const float* xs,
                                 const float* ys, float* dtheta,
                                 float* partials, unsigned* ticket,
@@ -594,8 +630,7 @@ extern "C" int eincm_interp_bwd(const float* g, const float* xs,
   const Events ev{xs, ys, n_events, head, groups, vec};
   const Bwd a{g, dtheta, partials, ticket, h, w, sy, sx, slices};
   const int m = h * w * 2;
-  if (mode != 2 && (slices < 1 || slices > blocks ||
-                    slices * (m % 4 ? m : m / 4) > threads))
+  if (slices < 1 || slices > blocks || slices * (m % 4 ? m : m / 4) > threads)
     return (int)cudaErrorInvalidValue;
   if (mode == 0) {
     if (bad_launch(blocks, threads, kWideThreads)) return (int)cudaErrorInvalidValue;
@@ -613,27 +648,54 @@ extern "C" int eincm_interp_bwd(const float* g, const float* xs,
     }
     return (int)cudaGetLastError();
   }
-  if (bad_launch(blocks, threads, kMaxThreads)) return (int)cudaErrorInvalidValue;
-  if (mode == 1) {
-    const size_t smem = sizeof(unsigned) * (2 * (size_t)m + (m + 3) / 4);
-    if (smem > 48 * 1024) {
-      cudaError_t err = cudaFuncSetAttribute(
-          interp_bwd_fixed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    interp_bwd_fixed_kernel<<<blocks, threads, smem, stream>>>(ev, a);
-  } else if (mode == 2) {
-    const size_t smem = sizeof(float) * (size_t)m;
-    if (smem > 48 * 1024) {
-      cudaError_t err = cudaFuncSetAttribute(
-          interp_bwd_float_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    interp_bwd_float_kernel<<<blocks, threads, smem, stream>>>(ev, a);
-  } else {
+  if (bad_launch(blocks, threads, kMaxThreads) || mode != 1)
     return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(unsigned) * (2 * (size_t)m + (m + 3) / 4);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        interp_bwd_fixed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
   }
+  interp_bwd_fixed_kernel<<<blocks, threads, smem, stream>>>(ev, a);
+  return (int)cudaGetLastError();
+}
+
+// The exact kernel of any grid: the prep (zeroed sums, partial maxima of
+// |g|), the accumulation over `blocks` chunks x ceil(h / band_rows) bands
+// of band_rows rows each (band_rows 0: no bands, every term into device
+// memory), and the finish into dtheta (written whole). `scratch`:
+// exact.cuh's ExactLayout for 2 h w words, 16-byte aligned.
+extern "C" int eincm_interp_bwd_exact(const float* g, const float* xs,
+                                      const float* ys, float* dtheta,
+                                      void* scratch, long long n_events,
+                                      long long head, long long groups,
+                                      int vec, int h, int w, float sy,
+                                      float sx, int band_rows, int blocks,
+                                      int threads, cudaStream_t stream) {
+  const long long m = 2LL * h * w;
+  const int bands = band_rows > 0 ? (h + band_rows - 1) / band_rows : 1;
+  const size_t smem = band_rows > 0 ? sizeof(unsigned) * 2 * (size_t)band_rows * 2 * w : 0;
+  if (bad_launch(blocks, threads, kMaxThreads) || h < 1 || w < 1 || band_rows < 0 ||
+      bands > 65535 || smem > (size_t)eincm::kMaxSmem - 1024 ||
+      (size_t)scratch % 16 || n_events < 1)
+    return (int)cudaErrorInvalidValue;
+  const Events ev{xs, ys, n_events, head, groups, vec};
+  const Bwd a{g, dtheta, nullptr, nullptr, h, w, sy, sx, 1};
+  const int prep = exact::prep_blocks(2 * n_events);
+  const exact::Exact<float> x(scratch, m, prep);
+  exact::exact_prep_kernel<float><<<prep, exact::kPrepThreads, 0, stream>>>(
+      g, 2 * n_events, x);
+  if (band_rows > 0) {
+    cudaError_t err = cudaFuncSetAttribute(interp_bwd_exact_kernel<true>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    interp_bwd_exact_kernel<true><<<dim3(blocks, bands), threads, smem, stream>>>(
+        ev, a, x, band_rows);
+  } else {
+    interp_bwd_exact_kernel<false><<<blocks, threads, 0, stream>>>(ev, a, x, 0);
+  }
+  exact::exact_finish_kernel<float><<<exact::finish_blocks(m), 256, 0, stream>>>(x, dtheta);
   return (int)cudaGetLastError();
 }

@@ -127,7 +127,7 @@ def check_cuda(name: str, tensors, shapes, dtype=torch.float32) -> None:
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
 
 
-# the direct kernels (csrc/direct.cu): one thread per event in a
+# the direct gathers (csrc/direct.cu): one thread per event in a
 # grid-stride loop of at most 16 blocks per SM of an H100 (132 SMs)
 DIRECT_THREADS = 256
 DIRECT_MAX_BLOCKS = 132 * 16
@@ -186,6 +186,13 @@ KERNELS: Dict[str, Kernel] = {
     "splat_fwd": Kernel(
         "splat", "eincm_splat_fwd", (P, P, P, P, I, LL, I, I, I, I, I, I, I, I, I, P)
     ),
+    # kernel 2 in exact sums, any grid (csrc/exact.cuh): (g, xs, ys, dtheta,
+    #  scratch, n_events, head, groups, vec, h, w, scale_y, scale_x,
+    #  band_rows, blocks, threads, stream)
+    "interp_bwd_exact": Kernel(
+        "interp", "eincm_interp_bwd_exact",
+        (P, P, P, P, P, LL, LL, LL, I, I, I, F, F, I, I, I, P),
+    ),
     # (wx, wy, grad_frames, dwx, dwy, n_refs, n_events, H, W, hw,
     #  stream_kernel, blocks, threads, vec, stream)
     "splat_bwd": Kernel(
@@ -210,10 +217,11 @@ KERNELS: Dict[str, Kernel] = {
         "interp_dense", "eincm_interp_dense", (P, P, P, P, LL, I, I, I, I, F, F, I, P)
     ),
     # the direct kernels of float64 and of the wrap-compat splat:
-    # (wx, wy, frames, n_refs, n_events, H, W, hw, f64, wrap, blocks,
-    #  threads, stream)
+    # (wx, wy, sums, frames, n_refs, n_events, H, W, hw, f64, wrap,
+    #  tile_rows, tile_cols, row_slabs, col_slabs, chunks, threads, stream)
     "splat_direct_fwd": Kernel(
-        "direct", "eincm_splat_direct_fwd", (P, P, P, I, LL, I, I, I, I, I, I, I, P)
+        "direct", "eincm_splat_direct_fwd",
+        (P, P, P, P, I, LL, I, I, I, I, I, I, I, I, I, I, I, P),
     ),
     # (wx, wy, grad_frames, dwx, dwy, n_refs, n_events, H, W, hw, f64, wrap,
     #  blocks, threads, stream)
@@ -225,10 +233,10 @@ KERNELS: Dict[str, Kernel] = {
     "interp_direct_fwd": Kernel(
         "direct", "eincm_interp_direct_fwd", (P, P, P, P, LL, I, I, D, D, I, I, P)
     ),
-    # (g, xs, ys, dtheta, n_events, h, w, scale_y, scale_x, blocks, threads,
-    #  stream), float64
+    # (g, xs, ys, dtheta, scratch, n_events, h, w, scale_y, scale_x,
+    #  band_rows, blocks, threads, stream), float64
     "interp_direct_bwd": Kernel(
-        "direct", "eincm_interp_direct_bwd", (P, P, P, P, LL, I, I, D, D, I, I, P)
+        "direct", "eincm_interp_direct_bwd", (P, P, P, P, P, LL, I, I, D, D, I, I, I, P)
     ),
 }
 

@@ -22,7 +22,9 @@ and refuse any other size; the plain version takes any.
 The direct kernels (`splat_direct_fwd_cuda`, `splat_direct_bwd_cuda`;
 `csrc/direct.cu`) take what the slab and stream kernels do not: float64
 coordinates and the wrap-compat splat, in float32 or float64, at any window
-size, one thread per event with global atomics.
+size. The direct forward runs the slab design too (`plan_splat` with 8-byte
+texels in float64) and its frames are exact sums as well; the direct
+backward is one thread per event.
 
 Dispatch (`ops/splat.py`): a CPU tensor takes the plain version; a CUDA
 tensor launches the kernels, and anything they do not take raises.
@@ -160,12 +162,14 @@ class SplatPlan:
         )
 
 
-def plan_splat(R: int, E: int, H: int, W: int, smem_budget: int = None) -> SplatPlan:
+def plan_splat(R: int, E: int, H: int, W: int, smem_budget: int = None,
+               texel_bytes: int = 4) -> SplatPlan:
     """The slab plan of the forward kernel for R refs of E events on an
     H x W sensor, with tiles of at most `smem_budget` bytes (default: the
-    largest for LARGE_EVENTS or more events per ref, else SMALL_BUDGET).
-    The same plan serves every window size: a block takes each event whose
-    window reaches its slab, up to two rows (a 5x5 window) past its edge
+    largest for LARGE_EVENTS or more events per ref, else SMALL_BUDGET) of
+    `texel_bytes` a texel (4; the float64 direct forward's 8). The same
+    plan serves every window size: a block takes each event whose window
+    reaches its slab, up to two rows (a 5x5 window) past its edge
     (csrc/splat.cu: `in_tile`), and adds only the taps on its own rows."""
     if smem_budget is None:
         smem_budget = SMEM_MAX if E >= LARGE_EVENTS else SMALL_BUDGET
@@ -173,20 +177,24 @@ def plan_splat(R: int, E: int, H: int, W: int, smem_budget: int = None) -> Splat
         raise ValueError(f"plan_splat: need R, E, H, W >= 1, got {(R, E, H, W)}")
     if not 16 <= smem_budget <= SMEM_MAX:
         raise ValueError(f"plan_splat: smem_budget {smem_budget} not in [16, {SMEM_MAX}]")
-    texels = smem_budget // 16 * 4  # the tile is zeroed as uint4
+    if texel_bytes not in (4, 8):
+        raise ValueError(f"plan_splat: texel_bytes {texel_bytes} not 4 or 8")
+    texels = smem_budget // 16 * (16 // texel_bytes)  # the tile is zeroed as uint4
     # whole rows where one fits, else column slabs of one row each
     col_slabs = -(-W // texels)
     tile_cols = -(-W // col_slabs)
     row_slabs = -(-H // max(1, texels // tile_cols))
     tile_rows = -(-H // row_slabs)
-    smem_bytes = 16 * -(-tile_rows * tile_cols // 4)  # zeroed as uint4
+    smem_bytes = 16 * -(-tile_rows * tile_cols * texel_bytes // 16)  # zeroed as uint4
     # blocks resident on one SM, as its 228 KB of shared memory allows
     # (1 KB of each is reserved), and threads to keep ~32 warps there
     per_sm = min(4, SMEM_PER_SM // (smem_bytes + QUEUE_BYTES + 1024))
     threads = {1: 1024, 2: 512}.get(per_sm, 256)
-    # enough chunks to fill the card, no more than the write-back share
-    # allows, and none without a run of events
-    want = -(-N_SM * per_sm // (R * row_slabs * col_slabs))
+    # the chunks of one wave of blocks (a second, partial wave of a few
+    # blocks takes as long as a whole one: the float64 direct forward at
+    # DSEC, 120 blocks against 144, PERF.md), no more than the
+    # write-back share allows, and none without a run of events
+    want = N_SM * per_sm // (R * row_slabs * col_slabs)
     cap = int(MAX_WRITEBACK_SHARE * 9 * E) // (H * W)
     runs = -(-E // (threads * EVENTS_PER_THREAD))
     chunks = max(1, min(want, cap, runs))
@@ -349,23 +357,30 @@ def _direct_dtype(name, warped_xs, window_size) -> torch.dtype:
 
 
 def splat_direct_fwd_cuda(warped_xs, warped_ys, sensor_size, window_size: int = 3,
-                          wrap: bool = False) -> torch.Tensor:
+                          wrap: bool = False, plan: SplatPlan = None) -> torch.Tensor:
     """Launch the direct forward: (R, E) float32 or float64 coordinates ->
     (R, H, W) frames of their dtype, `splat_plain(..., wrap=wrap)`'s
-    function."""
+    function, cut as `plan` (default: `plan_splat`'s, 8-byte texels in
+    float64) says; the frames are exact sums, bitwise the same for every
+    plan."""
     R, E = warped_xs.shape
     H, W = sensor_size
     dtype = _direct_dtype("splat_direct_fwd", warped_xs, window_size)
     check_cuda("splat_direct_fwd", (warped_xs, warped_ys), ((R, E), (R, E)), dtype)
-    frames = torch.zeros((R, H, W), dtype=dtype, device=warped_xs.device)
-    if R * E:
-        blocks, threads = direct_launch(R * E)
-        with torch.cuda.device(warped_xs.device):
-            KERNELS["splat_direct_fwd"](
-                warped_xs.data_ptr(), warped_ys.data_ptr(), frames.data_ptr(), R, E, H, W,
-                int(window_size) // 2, int(dtype == torch.float64), int(wrap), blocks,
-                threads, torch.cuda.current_stream().cuda_stream,
-            )
+    if not R * E:
+        return torch.zeros((R, H, W), dtype=dtype, device=warped_xs.device)
+    f64 = dtype == torch.float64
+    p = plan_splat(R, E, H, W, texel_bytes=8 if f64 else 4) if plan is None else plan
+    frames = torch.empty((R, H, W), dtype=dtype, device=warped_xs.device)
+    # the kernel's scratch: each texel's exact sum, 64 bits (128 in float64)
+    sums = torch.empty((2 if f64 else 1, R, H, W), dtype=torch.int64, device=warped_xs.device)
+    with torch.cuda.device(warped_xs.device):
+        KERNELS["splat_direct_fwd"](
+            warped_xs.data_ptr(), warped_ys.data_ptr(), sums.data_ptr(), frames.data_ptr(),
+            R, E, H, W, int(window_size) // 2, int(f64), int(wrap), p.tile_rows,
+            p.tile_cols, p.row_slabs, p.col_slabs, p.chunks, p.threads,
+            torch.cuda.current_stream().cuda_stream,
+        )
     return frames
 
 

@@ -433,7 +433,8 @@ def main(argv=None) -> int:
                                   lambda: ti.interp_fwd_cuda(theta, xs, ys, sensor, p))
                         if blocks > 8 * ti.N_SM:
                             continue  # a partial grid per block: too many to sum
-                        modes = ("registers",) if n <= 4 else ("fixed", "float")
+                        modes = ("registers",) if n <= 4 else (
+                            ("fixed",) + getattr(ti, "EXACT_MODES", ("float",)))
                         for mode in modes if threads <= 512 or n > 4 else ():
                             try:
                                 p = ti.plan_interp(E, n, n, True, offs, mode, blocks,

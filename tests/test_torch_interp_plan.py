@@ -17,6 +17,15 @@ fixed orders that the emulation here repeats with torch ops:
 Both then sum the blocks' f32 partial grids as `slices` interleaved slices
 in block order, and the slices in order.
 
+Above 16x16 (and in float64, tests/test_torch_direct_plan.py) the backward
+takes exact sums in one unit per launch (`csrc/exact.cuh`): the unit from
+the largest finite |g| of all events, every term rounded once, the
+integers summed into a band of rows in shared memory per block (32-bit
+halves with a carry) and the blocks' bands into 64-bit sums in device
+memory, each rounded to f32 once. The emulation below keeps the blocks and
+bands of the plan; the result is bitwise the same under any permutation of
+the events and any plan.
+
 Tolerance: 2e-6 x max |dtheta| against `torch.autograd.grad` of the plain
 version and against `jax.grad` of the JAX interp, both of which sum up to
 3600 f32 terms per cell in another order; the emulation's own sums are
@@ -168,19 +177,79 @@ def emulate_fixed(g, xs, ys, h, w, plan):
         assert q.numel() == 0 or int(q.abs().max()) <= 2**30
         sums = torch.zeros(M, dtype=torch.long).index_add_(0, word[finite], q)
         v = sums.to(F32) * torch.tensor(2.0**-s, dtype=F32)
-        bad_w, bad_t = word[~finite], term[~finite]
-        pos = torch.zeros(M, dtype=torch.bool).index_put_((bad_w[bad_t == np.inf],), torch.tensor(True))
-        neg = torch.zeros(M, dtype=torch.bool).index_put_((bad_w[bad_t == -np.inf],), torch.tensor(True))
-        nan = torch.zeros(M, dtype=torch.bool).index_put_((bad_w[torch.isnan(bad_t)],), torch.tensor(True))
-        v = torch.where(pos, torch.tensor(np.inf), v)
-        v = torch.where(neg, torch.tensor(-np.inf), v)
-        v = torch.where(nan | (pos & neg), torch.tensor(np.nan), v)
-        partials[b] = v
+        partials[b] = flags_decide(v, word, term, M)
     return sum_partials(partials, plan.slices).reshape(h, w, 2)
 
 
+def launch_shift(g, bits=30, max_shift=126):
+    """csrc/exact.cuh:Fixed::shift of the largest finite |g|: the unit 2^-s
+    with max |g| 2^s in [2^(bits-1), 2^bits)."""
+    a = g.abs()
+    a = a[torch.isfinite(a)]
+    gmax = float(a.max()) if a.numel() else 0.0
+    expo = (int(np.float32(gmax).view(np.uint32) >> 23) - 127 if bits == 30
+            else int(np.float64(gmax).view(np.uint64) >> np.uint64(52)) - 1023)
+    return min(bits - 1 - expo, max_shift)
+
+
+def halves_add(lo, hi, q, width):
+    """exact.cuh:band_terms on one word: lo += q with `width`-bit wrap, hi
+    moves on a carry or for a negative q; returns (lo, hi)."""
+    mask = (1 << width) - 1
+    u = q & mask
+    new_lo = (lo + u) & mask
+    up = (-1 if q < 0 else 0) + (1 if new_lo < lo else 0)
+    return new_lo, (hi + up) & mask
+
+
+def flags_decide(v, word, term, M):
+    """A word that got a non-finite term is +inf, -inf or NaN, as the float
+    sum would be."""
+    bad_w, bad_t = word[~torch.isfinite(term)], term[~torch.isfinite(term)]
+    pos = torch.zeros(M, dtype=torch.bool).index_put_((bad_w[bad_t == np.inf],), torch.tensor(True))
+    neg = torch.zeros(M, dtype=torch.bool).index_put_((bad_w[bad_t == -np.inf],), torch.tensor(True))
+    nan = torch.zeros(M, dtype=torch.bool).index_put_((bad_w[torch.isnan(bad_t)],), torch.tensor(True))
+    v = torch.where(pos, torch.tensor(np.inf, dtype=v.dtype), v)
+    v = torch.where(neg, torch.tensor(-np.inf, dtype=v.dtype), v)
+    return torch.where(nan | (pos & neg), torch.tensor(np.nan, dtype=v.dtype), v)
+
+
+def emulate_exact(g, xs, ys, h, w, plan, block_order=None):
+    """The exact mode: one unit for the launch; each block's terms summed
+    (exactly, as its band's 32-bit halves do) over the plan's chunks and
+    bands; the blocks' sums added into 64-bit words in `block_order` (the
+    order the blocks arrive; default: block order), each rounded to f32
+    once."""
+    M = 2 * h * w
+    cells, terms, on = event_terms(g, xs, ys, h, w)
+    E = xs.shape[0]
+    s = launch_shift(g)
+    owner, _ = owners(E, plan)
+    chunk = owner // plan.threads
+    word = (2 * cells[:, :, None] + torch.arange(2)).reshape(E, -1)
+    term = terms.reshape(E, -1)
+    keep = on[:, :, None].expand(-1, -1, 2).reshape(E, -1)
+    chunk = chunk[:, None].expand(-1, 8)[keep]
+    word, term = word[keep], term[keep]
+    finite = torch.isfinite(term)
+    q = torch.round(term[finite].double() * 2.0**s).long()
+    assert q.numel() == 0 or int(q.abs().max()) <= 2**30
+    rows_per_band = plan.band_rows or h
+    band = (word[finite] // (2 * w)) // rows_per_band
+    block = chunk[finite] * plan.bands + band
+    n_blocks = plan.blocks * plan.bands
+    per_block = torch.zeros(n_blocks, M, dtype=torch.long)
+    per_block.index_put_((block, word[finite]), q, accumulate=True)
+    total = torch.zeros(M, dtype=torch.long)
+    for b in (range(n_blocks) if block_order is None else block_order):
+        total += per_block[b]  # the flush: a 64-bit integer atomic per word
+    v = total.to(F32) * torch.tensor(2.0**-s, dtype=F32)
+    return flags_decide(v, word, term, M).reshape(h, w, 2)
+
+
 def emulate(g, xs, ys, h, w, plan):
-    fn = {"registers": emulate_registers, "fixed": emulate_fixed}[plan.mode]
+    fn = {"registers": emulate_registers, "fixed": emulate_fixed, "banded": emulate_exact,
+          "global": emulate_exact}[plan.mode]
     return fn(g, xs, ys, h, w, plan)
 
 
@@ -355,7 +424,8 @@ def test_backward_plain_version_matches_autograd(gh, gw):
 # ---- (b) the launch plan ------------------------------------------------------
 
 @pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
-@pytest.mark.parametrize("grid", [(1, 1), (4, 4), (16, 16), (32, 32), (5, 12), (64, 64), (128, 128)])
+@pytest.mark.parametrize("grid", [(1, 1), (4, 4), (16, 16), (32, 32), (5, 12), (64, 64), (128, 128),
+                                  (256, 256), (480, 640)])
 @pytest.mark.parametrize("E", [0, 1, 3, 30_000, 1_500_000])
 def test_plan_invariants(E, grid, backward):
     h, w = grid
@@ -375,7 +445,8 @@ def test_plan_invariants(E, grid, backward):
             assert p.vec == {0: 4, 2: 2}.get(at, 1)
         assert p.threads % 32 == 0 and 32 <= p.threads <= 1024
         assert 1 <= p.blocks <= max(1, -(-p.work // p.threads))
-        assert p.smem_bytes + (ti.STATIC_SMEM if backward else 0) <= ti.SMEM_BLOCK
+        static = (ti.STATIC_SMEM if p.mode in ti.MODES else ti.EXACT_STATIC_SMEM) if backward else 0
+        assert p.smem_bytes + static <= ti.SMEM_BLOCK
         if not backward:
             assert p.mode == ("staged" if 8 * h * w <= ti.FWD_STAGED_BYTES else "ldg")
             assert p.smem_bytes == (8 * h * w if p.mode == "staged" else 0)
@@ -383,15 +454,24 @@ def test_plan_invariants(E, grid, backward):
         words = 2 * h * w
         if max(h, w) <= 4:
             assert p.mode == "registers" and p.threads >= words
-        else:
-            assert p.mode == ("fixed" if words <= ti.BWD_FIXED_WORDS else "float")
+        elif words <= ti.BWD_FIXED_WORDS:
+            assert p.mode == "fixed"
+        else:  # exact sums in one unit per launch, in bands or not
+            assert p.mode in ti.EXACT_MODES
         if p.mode == "fixed":
             assert p.smem_bytes >= 9 * words
         # the last block sums slices x words partial sums at once
         assert p.slices >= 1 and p.slices & (p.slices - 1) == 0
         lanes = words // 4 if words % 4 == 0 else words
-        if p.mode == "float":
-            assert p.slices == 1  # no partial grids: atomics into the output
+        if p.mode in ti.EXACT_MODES:
+            assert p.slices == 1  # no partial grids: exact sums in device memory
+            if p.mode == "banded":
+                # the bands cover the grid's rows, each within one block's memory
+                assert p.bands == -(-h // p.band_rows) and (p.bands - 1) * p.band_rows < h
+                assert p.smem_bytes == 8 * p.band_rows * 2 * w
+                assert p.bands <= ti.BANDED_MAX_BANDS[False]
+            else:
+                assert p.band_rows == 0 and p.bands == 1 and p.smem_bytes == 0
         else:
             assert p.slices * lanes <= p.threads and p.slices <= p.blocks
 
@@ -410,7 +490,15 @@ def test_plan_gives_every_event_to_one_thread_once(E, grouped):
 
 def test_plan_refuses_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
-        ti.plan_interp(10, 129, 4)
+        ti.plan_interp(10, 0, 4)
+    with pytest.raises(ValueError):
+        ti.plan_interp(10, 4, 4, True, mode="float")  # the float-atomic mode is gone
+    with pytest.raises(ValueError):
+        ti.plan_interp(10, 4, 4, f64=True)  # the float64 forward has no plan
+    with pytest.raises(ValueError):
+        ti.plan_interp(10, 4, 4, True, mode="fixed", f64=True)
+    with pytest.raises(ValueError):
+        ti.plan_interp(10, 256, 256, True, mode="banded", band_rows=200)  # 819 KB a band
     with pytest.raises(ValueError):
         ti.plan_interp(-1, 4, 4)
     with pytest.raises(ValueError):
@@ -427,3 +515,157 @@ def test_plan_refuses_what_the_kernels_do_not_take():
         ti.plan_interp(10, 4, 4, blocks=0)
     with pytest.raises(ValueError):
         ti.plan_interp(10, 16, 16, True, threads=64)  # 128 threads sum 512 words
+
+
+# ---- (c) above 16x16: exact sums in one unit per launch ---------------------
+
+SENSOR_L = (300, 320)
+# 81x81 is pyramid_bases=(3, 3, 3, 3)'s finest grid; 256x256 needs more
+# shared memory than a block has (five bands); 40x72 is not square
+EXACT_GRIDS = [(32, 32), (64, 64), (81, 81), (128, 128), (256, 256), (40, 72)]
+
+
+def _events_l(rng, n=4000, clustered=800):
+    """`_events` on SENSOR_L: uniform, clustered on one pixel, the edges."""
+    HL, WL = SENSOR_L
+    xs = np.concatenate([rng.uniform(-3, WL + 2, n), rng.uniform(120.2, 120.4, clustered)])
+    ys = np.concatenate([rng.uniform(-3, HL + 2, n), rng.uniform(130.1, 130.3, clustered)])
+    ex = np.array([-1e4, 2.5, -0.5, 0.0, WL - 1.0, WL - 0.5, WL, -1.0, 1e10], np.float64)
+    ey = np.array([-1e4, 3.5, -0.5, 0.0, HL - 1.0, HL - 0.5, HL, 5.0, 3.0], np.float64)
+    xs, ys = np.concatenate([xs, ex]), np.concatenate([ys, ey])
+    order = rng.permutation(xs.size)
+    return xs[order].astype(np.float32), ys[order].astype(np.float32)
+
+
+def _exact_plan(E, h, w, mode, offsets=(0, 0, 0), **kw):
+    """A small launch of the exact kernel: 3 chunks of 128 threads (per band)."""
+    kw = {"blocks": 3, "threads": 128, "grouped": True, **kw}
+    return ti.plan_interp(E, h, w, True, offsets, mode, **kw)
+
+
+def _emulate_on(sensor, *args):
+    global H, W
+    saved = H, W
+    H, W = sensor
+    try:
+        return emulate(*args)
+    finally:
+        H, W = saved
+
+
+@pytest.mark.parametrize("mode", ti.EXACT_MODES)
+@pytest.mark.parametrize("gh,gw", EXACT_GRIDS)
+def test_exact_emulation_matches_autograd_and_jax(gh, gw, mode):
+    rng = np.random.default_rng(300 + gh + gw)
+    xs, ys = _events_l(rng)
+    g = rng.normal(0, 1, (xs.size, 2)).astype(np.float32)
+    plan = _exact_plan(xs.size, gh, gw, mode, (1, 1, 2))
+    assert plan.mode == mode and plan.groups > 3 * 128
+    if mode == "banded":
+        assert plan.bands == -(-gh // plan.band_rows) and plan.bands == {128: 2, 256: 5}.get(gh, 1)
+    args = tuple(map(torch.as_tensor, (g, xs, ys)))
+    got = _emulate_on(SENSOR_L, *args, gh, gw, plan)
+    th = torch.zeros(gh, gw, 2, requires_grad=True)
+    out = ti.interp_theta_at_events_plain(th, args[1], args[2], SENSOR_L)
+    _close(torch.autograd.grad(out, th, args[0])[0], got, TOL)
+    exact = ti.interp_bwd_plain(*args, (gh, gw, 2), SENSOR_L, torch.float64)
+    _close(exact, got, 2e-7)
+    jx, jy, jg = jnp.asarray(xs), jnp.asarray(ys), jnp.asarray(g)
+    ref = jax.grad(lambda t: jnp.vdot(jw.interp_theta_at_events(t, jx, jy, SENSOR_L), jg))(
+        jnp.zeros((gh, gw, 2), jnp.float32))
+    _close(ref, got, TOL)
+
+
+@pytest.mark.parametrize("gh,gw", EXACT_GRIDS)
+def test_exact_emulation_is_bitwise_order_free(gh, gw):
+    """The card's premise: the same bits under a random permutation of the
+    events (within blocks and across them), for another plan (chunks,
+    threads, bands, grouping) and whatever order the blocks arrive in."""
+    rng = np.random.default_rng(400 + gh + gw)
+    xs, ys = _events_l(rng)
+    g = (rng.normal(0, 1, (xs.size, 2)) * 10.0 ** rng.uniform(-2, 2, (xs.size, 1))).astype(np.float32)
+    args = tuple(map(torch.as_tensor, (g, xs, ys)))
+    base = _emulate_on(SENSOR_L, *args, gh, gw, _exact_plan(xs.size, gh, gw, "banded"))
+    perm = torch.as_tensor(rng.permutation(xs.size))
+    pargs = tuple(a[perm].contiguous() for a in args)
+    for plan in (_exact_plan(xs.size, gh, gw, "global"),
+                 _exact_plan(xs.size, gh, gw, "banded", blocks=5, threads=64,
+                             band_rows=max(1, gh // 7)),
+                 _exact_plan(xs.size, gh, gw, "banded", grouped=False)):
+        got = _emulate_on(SENSOR_L, *pargs, gh, gw, plan)
+        assert torch.equal(got, base), plan
+    plan = _exact_plan(xs.size, gh, gw, "banded", blocks=4)
+    order = rng.permutation(plan.blocks * plan.bands)
+    assert torch.equal(_emulate_on(SENSOR_L, *args, gh, gw, plan), base)
+    assert torch.equal(emulate_exact_on_l(args, gh, gw, plan, order), base)
+
+
+def emulate_exact_on_l(args, gh, gw, plan, order):
+    global H, W
+    saved = H, W
+    H, W = SENSOR_L
+    try:
+        return emulate_exact(*args, gh, gw, plan, block_order=order)
+    finally:
+        H, W = saved
+
+
+@pytest.mark.parametrize("gh,gw", [(32, 32), (40, 72)])
+def test_exact_emulation_nan_and_inf_pattern(gh, gw):
+    """Non-finite cotangents and coordinates poison the plain version's
+    entries (the flags), and leave the launch's unit to the finite |g|."""
+    rng = np.random.default_rng(12)
+    xs, ys = _events_l(rng)
+    g = rng.normal(0, 1, (xs.size, 2)).astype(np.float32)
+    HL, WL = SENSOR_L
+    xi = (np.round(xs) + 0.5) * gw / WL - 0.5
+    yi = (np.round(ys) + 0.5) * gh / HL - 0.5
+    inside = np.flatnonzero((xi > 0.05) & (xi < gw - 1.05) & (yi > 0.05) & (yi < gh - 1.05))
+    g[inside[0], 0] = np.inf
+    g[inside[1], 1] = -np.inf
+    g[inside[2]] = np.nan
+    ys[inside[3]] = np.nan
+    xs[inside[4]] = np.nan
+    xs[7], ys[8] = np.inf, -np.inf
+    args = tuple(map(torch.as_tensor, (g, xs, ys)))
+    th = torch.zeros(gh, gw, 2, requires_grad=True)
+    out = ti.interp_theta_at_events_plain(th, args[1], args[2], SENSOR_L)
+    ref = torch.autograd.grad(out, th, args[0])[0]
+    assert bool(torch.isnan(ref).any()) and bool(torch.isinf(ref).any())
+    for mode in ti.EXACT_MODES:
+        _close(ref, _emulate_on(SENSOR_L, *args, gh, gw, _exact_plan(xs.size, gh, gw, mode)), TOL)
+
+
+@pytest.mark.parametrize("width", [32, 64])
+def test_halves_carry_is_the_exact_sum_in_any_order(width):
+    """exact.cuh:band_terms keeps a word as (lo, hi) halves of `width` bits
+    (32 in float32, 64 in float64): lo wraps, hi takes the carry and the
+    sign of each term. Whatever the order, (hi, lo) is the exact sum modulo
+    2^(2 width), and the flush that adds (hi, lo) into device memory, the
+    carry out of lo into hi, keeps it so."""
+    rng = np.random.default_rng(width)
+    bound = 2 ** (30 if width == 32 else 62)
+    q = [int(v) for v in rng.integers(-bound, bound + 1, 3000, dtype=np.int64)]
+    q += [bound, -bound, 1, -1, 0]
+    exact = sum(q)
+    mask2 = (1 << (2 * width)) - 1
+    for _ in range(4):
+        order = rng.permutation(len(q))
+        lo = hi = 0
+        for i in order:
+            lo, hi = halves_add(lo, hi, q[i], width)
+        assert (hi << width) | lo == exact & mask2
+        # two blocks' words flushed into one in device memory, either order
+        half = len(order) // 2
+        blocks = []
+        for part in (order[:half], order[half:]):
+            b_lo = b_hi = 0
+            for i in part:
+                b_lo, b_hi = halves_add(b_lo, b_hi, q[i], width)
+            blocks.append((b_lo, b_hi))
+        for first, second in (blocks, blocks[::-1]):
+            g_lo, g_hi = first
+            mask = (1 << width) - 1
+            new = (g_lo + second[0]) & mask
+            g_hi = (g_hi + second[1] + (1 if new < g_lo else 0)) & mask
+            assert (g_hi << width) | new == exact & mask2

@@ -181,14 +181,17 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch):
     "gh,gw",
     [(1, 1), (2, 2), (4, 4), (8, 8), (16, 16),  # the chain's levels
      (1, 4), (4, 2), (3, 5), (5, 12),  # not square: registers and fixed point
-     (32, 32), (128, 128)],  # float atomics; theta not staged at 128x128
+     # exact sums in one unit per launch; theta not staged from 128x128;
+     # 256x256 (five bands) and 200x150 are above one block's shared memory
+     (32, 32), (64, 64), (81, 81), (128, 128), (256, 256), (200, 150), (40, 72)],
 )
 def test_interp_kernels_match_plain(cuda, gh, gw):
     """Forward within 1e-6 and bitwise on finite events; backward within
-    1e-6 of the plain version's terms summed in float64 (1e-5 for the float-atomic kernel
-    of the large grids) and, below them, bitwise the same twice. Whole
-    tensors, views that start 4 and 12 bytes into a 16-byte line, an event
-    count that is no multiple of 4, in groups of four and one by one."""
+    1e-6 of the plain version's terms summed in float64 and bitwise the same
+    twice at every grid (above 16x16 also in both exact modes and with the
+    events permuted). Whole tensors, views that start 4 and 12 bytes into a
+    16-byte line, an event count that is no multiple of 4, in groups of four
+    and one by one."""
     rng = np.random.default_rng(7)
     x, y = _coords(rng, 30_001, cuda)
     theta = torch.as_tensor(rng.normal(0, 3, (gh, gw, 2)).astype(np.float32), device=cuda)
@@ -212,13 +215,23 @@ def test_interp_kernels_match_plain(cuda, gh, gw):
             plan = ti.plan_interp(vx.shape[0], gh, gw, True, tuple(
                 map(ti.float_offset, (vx, vy, vg))), grouped=grouped)
             got = ti.interp_bwd_cuda(vg, vx, vy, (gh, gw, 2), SENSOR, plan)
-            _close(ref, got, 1e-5 if plan.mode == "float" else 1e-6)
-            if plan.mode != "float":
-                assert torch.equal(got, ti.interp_bwd_cuda(vg, vx, vy, (gh, gw, 2), SENSOR, plan))
+            _close(ref, got, 1e-6)
+            assert torch.equal(got, ti.interp_bwd_cuda(vg, vx, vy, (gh, gw, 2), SENSOR, plan))
+            if plan.mode in ti.EXACT_MODES:
+                perm = torch.as_tensor(rng.permutation(vx.shape[0]), device=cuda)
+                assert torch.equal(got, ti.interp_bwd_cuda(
+                    vg[perm].contiguous(), vx[perm].contiguous(), vy[perm].contiguous(),
+                    (gh, gw, 2), SENSOR))
+                for mode in ti.EXACT_MODES:
+                    other = ti.plan_interp(vx.shape[0], gh, gw, True, tuple(
+                        map(ti.float_offset, (vx, vy, vg))), mode, grouped=grouped)
+                    assert torch.equal(got, ti.interp_bwd_cuda(vg, vx, vy, (gh, gw, 2),
+                                                               SENSOR, other))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("gh,gw", [(1, 1), (2, 2), (4, 4), (8, 8), (16, 16)])
+@pytest.mark.parametrize("gh,gw", [(1, 1), (2, 2), (4, 4), (8, 8), (16, 16), (32, 32),
+                                   (256, 256)])
 def test_interp_bwd_every_event_on_one_cell(cuda, gh, gw):
     """The worst contention: 20k events inside one pixel, with cotangents
     of very different sizes and a NaN and an infinite one."""
@@ -305,7 +318,7 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         with pytest.raises(ValueError, match="window_size"):
             ts.splat_multi_ref(xs[None], xs[None], SENSOR, ws)
     with pytest.raises(ValueError):
-        ti.interp_fwd_cuda(torch.zeros(129, 4, 2, device=cuda), xs, xs, SENSOR)
+        ti.interp_fwd_cuda(torch.zeros(0, 4, 2, device=cuda), xs, xs, SENSOR)
     w = torch.zeros(100, 2, device=cuda).t()  # (2, 100), not contiguous
     with pytest.raises(ValueError):
         tk.splat_fwd_cuda(w, w, SENSOR)
@@ -815,7 +828,8 @@ def test_splat_direct_kernels_match_plain(cuda, dtype, wrap, window_size):
     """The direct forward and backward against `splat_plain(..., wrap)` and
     its autograd gradient, with events off every edge (some wrap), the
     sentinel, NaN and +-inf: float64 within 1e-12, float32 within 1e-5
-    (forward, atomics) and 2e-6 (backward)."""
+    (forward: taps rounded to 2^-24) and 2e-6 (backward); both bitwise the
+    same twice, the forward also for other plans (its sums are exact)."""
     rng = np.random.default_rng(24)
     per_ref = [_coords(rng, 20_000, cuda, spread=4.0) for _ in range(2)]
     wx = torch.stack([p[0] for p in per_ref]).to(dtype).contiguous()
@@ -834,14 +848,24 @@ def test_splat_direct_kernels_match_plain(cuda, dtype, wrap, window_size):
     _close(ry, ky, 1e-12 if f64 else 2e-6)
     assert _build.launch_counts()["splat_direct_fwd"] == 1
     assert _build.launch_counts()["splat_direct_bwd"] == 1
+    assert torch.equal(got, tk.splat_direct_fwd_cuda(wx, wy, SENSOR, window_size, wrap))
+    plan = tk.plan_splat(2, wx.shape[1], H, W, texel_bytes=8 if f64 else 4)
+    for p in (dataclasses.replace(plan, chunks=1), dataclasses.replace(plan, chunks=7),
+              tk.plan_splat(2, wx.shape[1], H, W, 4096, 8 if f64 else 4)):
+        assert torch.equal(got, tk.splat_direct_fwd_cuda(wx, wy, SENSOR, window_size, wrap, p))
+    again = tk.splat_direct_bwd_cuda(wx, wy, G, SENSOR, window_size, wrap)
+    assert torch.equal(again[0], kx) and torch.equal(again[1], ky)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("gh,gw", [(1, 1), (2, 2), (4, 4), (16, 16), (5, 12), (200, 150)])
+@pytest.mark.parametrize("gh,gw", [(1, 1), (2, 2), (4, 4), (16, 16), (5, 12), (32, 32),
+                                   (128, 128), (200, 150)])
 def test_interp_direct_kernels_match_plain(cuda, gh, gw):
     """The float64 direct forward and backward against the plain versions
     in float64 within 1e-12, on every grid (200x150 is above MAX_GRID),
-    with the sentinel, NaN and +-inf events; 20k events on one cell too."""
+    with the sentinel, NaN and +-inf events; 20k events on one cell too;
+    both bitwise the same twice, the backward also permuted and in both
+    exact modes."""
     rng = np.random.default_rng(25)
     x, y = (t.double() for t in _coords(rng, 30_001, cuda))
     theta = torch.as_tensor(rng.normal(0, 3, (gh, gw, 2)), device=cuda)
@@ -850,8 +874,18 @@ def test_interp_direct_kernels_match_plain(cuda, gh, gw):
     finite = torch.isfinite(x) & torch.isfinite(y)
     x, y = x[finite].contiguous(), y[finite].contiguous()
     g = torch.as_tensor(rng.normal(size=(x.shape[0], 2)), device=cuda)
-    _close(ti.interp_bwd_plain(g, x, y, (gh, gw, 2), SENSOR),
-           ti.interp_direct_bwd_cuda(g, x, y, (gh, gw, 2), SENSOR), 1e-12)
+    got = ti.interp_direct_bwd_cuda(g, x, y, (gh, gw, 2), SENSOR)
+    _close(ti.interp_bwd_plain(g, x, y, (gh, gw, 2), SENSOR), got, 1e-12)
+    assert torch.equal(got, ti.interp_direct_bwd_cuda(g, x, y, (gh, gw, 2), SENSOR))
+    perm = torch.as_tensor(rng.permutation(x.shape[0]), device=cuda)
+    assert torch.equal(got, ti.interp_direct_bwd_cuda(g[perm].contiguous(), x[perm].contiguous(),
+                                                      y[perm].contiguous(), (gh, gw, 2), SENSOR))
+    for mode in ti.EXACT_MODES:
+        plan = ti.plan_interp(x.shape[0], gh, gw, True, mode=mode, f64=True)
+        assert torch.equal(got, ti.interp_direct_bwd_cuda(g, x, y, (gh, gw, 2), SENSOR, plan))
+    th = torch.as_tensor(rng.normal(0, 3, (gh, gw, 2)), device=cuda)
+    assert torch.equal(ti.interp_direct_fwd_cuda(th, x, y, SENSOR),
+                       ti.interp_direct_fwd_cuda(th, x, y, SENSOR))
     x, y = (torch.as_tensor(rng.uniform(a, a + 0.2, 20_000), device=cuda) for a in (20.2, 30.1))
     g = torch.as_tensor(rng.normal(size=(20_000, 2)), device=cuda)
     _close(ti.interp_bwd_plain(g, x, y, (gh, gw, 2), SENSOR),

@@ -12,6 +12,7 @@ window and the same prior (`eincm_tpu_torch.compat`).
 """
 
 import dataclasses
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -43,7 +44,7 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _windows(n_windows, speed=3.0, rotate_deg=15.0):
+def _windows(n_windows, speed=3.0, rotate_deg=15.0, n_events=N_EVENTS):
     """Numpy windows whose GT velocity rotates per window."""
     edge_fn = iedt_edge_fn()
     out = []
@@ -51,12 +52,12 @@ def _windows(n_windows, speed=3.0, rotate_deg=15.0):
         phi = np.arctan2(-2.0, 3.0) + np.deg2rad(rotate_deg) * k
         vel = (speed * np.cos(phi), speed * np.sin(phi))
         dl = SyntheticDataLoader(
-            sensor_size=SENSOR, n_windows=1, des_n_events=N_EVENTS,
+            sensor_size=SENSOR, n_windows=1, des_n_events=n_events,
             velocity=vel, n_features=40, seed=1 + k,
         )
         dl.get_ready()
         w = stage_datasample(
-            dl[0], "cpu", edge_fn=edge_fn, pad_to=N_EVENTS, dtype=torch.float64
+            dl[0], "cpu", edge_fn=edge_fn, pad_to=n_events, dtype=torch.float64
         ).window
         out.append(([t.numpy() for t in w], vel))
     return out
@@ -106,6 +107,83 @@ def test_first_window_f64_identical_iterations(theta_ftol):
         tres.final_theta_pyr[0].numpy(), jtheta, rtol=0, atol=1e-6
     )
     assert tres.n_host_syncs == sum(s.n_fun_evals for s in tres.theta_opt_states)
+
+
+FINE_32 = [
+    {"n_pyr_lvls": 6, "theta_opt_maxiters": (4, 3, 3, 2, 2, 2), "pyramid_bases": None},
+    {"n_pyr_lvls": 5, "theta_opt_maxiters": (4, 3, 3, 2, 2), "pyramid_bases": (4, 2, 2, 2)},
+]
+FINE_32_IDS = ["6_levels", "bases_4222"]
+
+
+@pytest.mark.parametrize("levels", FINE_32, ids=FINE_32_IDS)
+def test_32x32_finest_grid_config_and_loss_match_jax(levels):
+    """The two configs' pyramids level by level, and the finest level's
+    float64 loss and gradient on the solve's window, against the JAX
+    package's (1e-12): the path on which the card's interp backward adds
+    its exact sums at 32x32."""
+    from eincm_tpu.models import loss as jl
+    from eincm_tpu_torch.experiments.config import load_config
+    from eincm_tpu_torch.models import loss as tl
+
+    jcfg = dataclasses.replace(_jax_cfg(None), handover_opt_maxiters=(), **levels)
+    tcfg = compat.solver_config_from_dict(dataclasses.asdict(jcfg))
+    shapes = [jcfg.level_shape(lvl) for lvl in range(jcfg.n_pyr_lvls)]
+    assert shapes[0] == (32, 32)
+    assert [tcfg.level_shape(lvl) for lvl in range(tcfg.n_pyr_lvls)] == shapes
+    # a shipped config with the override gives the same pyramid
+    override = (f"solver.n_pyr_lvls={jcfg.n_pyr_lvls}" if levels["pyramid_bases"] is None
+                else "solver.pyramid_bases=[4, 2, 2, 2]")
+    config = Path(__file__).resolve().parent.parent / "configs" / "dsec_test.yaml"
+    cfg = load_config(str(config), [override]).solver_config()
+    assert [cfg.level_shape(lvl) for lvl in range(cfg.n_pyr_lvls)] == shapes
+    (arrays, _), = _windows(1, n_events=4096)
+    theta = np.random.default_rng(3).normal(0, 2, (32, 32, 2))
+    with jax.enable_x64(True):
+        ja = [jnp.asarray(a) for a in arrays]
+        ws = jl.compute_window_statics(ja[0], ja[1], ja[3], SENSOR)
+        st = jl.LossStatics(SENSOR, jcfg.n_pyr_lvls)
+        jv, jg = jax.value_and_grad(lambda t: jl.solver_loss(
+            t, *ja, JLossParams(20.0, 35.0), 0, st, ws))(jnp.asarray(theta))
+        jv, jg = float(jv), np.asarray(jg)
+    ta = [torch.as_tensor(a) for a in arrays]
+    tws = tl.compute_window_statics(ta[0], ta[1], ta[3], SENSOR)
+    th = torch.as_tensor(theta).requires_grad_(True)
+    tv = tl.solver_loss(th, *ta, tl.LossParams(20.0, 35.0), 0,
+                        tl.LossStatics(SENSOR, tcfg.n_pyr_lvls), tws)
+    (tg,) = torch.autograd.grad(tv, th)
+    assert abs(float(tv.detach()) - jv) <= 1e-12 * abs(jv)
+    assert np.abs(tg.numpy() - jg).max() <= 1e-12 * np.abs(jg).max()
+
+
+# slow: the JAX package compiles a solver for each of five or six levels
+# (~18 s of ~25 s a case on one core)
+@pytest.mark.slow
+@pytest.mark.parametrize("levels", FINE_32, ids=FINE_32_IDS)
+def test_first_window_f64_32x32_finest_grid_matches_jax(levels):
+    """The configs' ways to a 32x32 finest grid (`solver.n_pyr_lvls=6`,
+    `solver.pyramid_bases=[4,2,2,2]`), the grids at which the card's
+    interp backward takes exact sums: per-level iteration counts and
+    statuses equal to the JAX package's, final theta within 1e-6 (4096
+    events and few iterations a level, to keep it short)."""
+    (arrays, _), = _windows(1, n_events=4096)
+    # the levels' own defaults (bases of 2, 15 handover iterations a level)
+    jcfg = dataclasses.replace(_jax_cfg(None), handover_opt_maxiters=(), **levels)
+    assert jcfg.level_shape(0) == (32, 32)
+    with jax.enable_x64(True):
+        sample = jp.WindowSample(*[jnp.asarray(a) for a in arrays])
+        jres = jp.make_window_solver(jcfg)(sample, jcfg.zero_pyramid(jnp.float64), True)
+        jstats, jtheta = _stats(jres), np.asarray(jres.final_theta_pyr[0])
+    tcfg = compat.solver_config_from_dict(dataclasses.asdict(jcfg))
+    assert tcfg.level_shape(0) == (32, 32)
+    tres = tp.make_window_solver(tcfg, "cpu")(
+        compat.window_sample_from_numpy(*arrays, device="cpu"),
+        tcfg.zero_pyramid(torch.float64, device="cpu"),
+        True,
+    )
+    assert _stats(tres) == jstats
+    assert tres.final_theta_pyr[0].shape == (32, 32, 2)
+    np.testing.assert_allclose(tres.final_theta_pyr[0].numpy(), jtheta, rtol=0, atol=1e-6)
 
 
 def test_handover_window_f64_matches_jax():
