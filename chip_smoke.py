@@ -31,9 +31,13 @@ Phases, each failing loudly (any failure exits non-zero):
    against the plain versions in the same precision, every one bitwise the
    same twice (the splat forward also with 1 and 7 event chunks, the
    float64 interp backward also permuted, in both modes, at 16x16, 32x32,
-   64x64 and 128x128), the float64 ones timed beside their bound and library
-   call; the splat forward's frames bitwise the same launched again and
-   with 1 and 7 event chunks (its sums are exact);
+   64x64, 128x128 and 256x256), the float64 ones timed beside their bound
+   and library call; a float32 splat at window 7 (no slab kernel is built
+   for it) through the router, forward and backward: the direct kernels
+   alone launched, against the plain version, bitwise the same twice and
+   with the events permuted, timed (`window7_f32` in their rows); the
+   splat forward's frames bitwise the same launched again and with 1 and 7
+   event chunks (its sums are exact);
 3. the measurement kernels (fused warp+splat, fully fused warp+splat,
    dense-layout interp) against their plain versions at the MVSEC shape
    (staged window 0, GT theta, both refs) and the DSEC shape of the fused
@@ -46,7 +50,18 @@ Phases, each failing loudly (any failure exits non-zero):
    launch counter read around it;
 4. the main path of the solve: a 6-window MVSEC-scale handover chain
    through `make_window_solver`, checked against the ground-truth flow,
-   with the launch counters read around the chain;
+   with the launch counters read around the chain; then [compat] the
+   JAX package's package-level names on the port (`from eincm_tpu_torch
+   import EINCMExperiment, ExperimentConfig, load_config`, the re-exports
+   of models, ops and edge), and the reference's jaxopt calling pattern
+   through `models/compat.py` over the real loss: the chain's window 1 at
+   its 16x16 level (512 parameters) from its prior, `ScipyMinimize` (BFGS,
+   the config's maxiter and gtol, has_aux, a callback) against a direct
+   `minimize_bfgs`, and the handover weight by `ScipyBoundedMinimize`
+   (30 steps over [0, 1]) against a direct `minimize_bounded_scalar`:
+   results, states, host reads and launches bitwise or exactly equal,
+   every callback bitwise the recorded history, kernels 1-4 launched, each
+   solve's ms, evaluations and host syncs printed;
 5. one DSEC-scale `solver_loss` value and gradient with the kernels (on
    the card, its splat backward through the stream kernel) against the
    plain versions (on CPU tensors); in float64 on the card (the direct
@@ -471,19 +486,19 @@ def grid_sample_interp(theta, xs, ys, sensor):
     return call, call()[0, :, 0, :].T
 
 
-def splat_planes(wx, wy, sensor):
+def splat_planes(wx, wy, sensor, hw=1):
     """The splat's dense separable weight planes, as the TPU formulates it:
-    U (R, H, E) holds each event's 3 row taps, V (R, E, W) its 3 column
-    taps, so the frames are U @ V. The backward's yardstick is the two
+    U (R, H, E) holds each event's 2 hw + 1 row taps, V (R, E, W) its
+    column taps, so the frames are U @ V. The backward's yardstick is the two
     products U^T G and V G^T it needs; the row sums with the derivative
     taps that follow them are left out. In the coordinates' dtype."""
     from eincm_tpu_torch.ops.splat_kernel import _gauss1d
 
     R, E = wx.shape
     H, W = sensor
-    d = torch.tensor([-1.0, 0.0, 1.0], dtype=wx.dtype, device=wx.device)
+    d = torch.arange(-hw, hw + 1, dtype=wx.dtype, device=wx.device)
     zero = torch.zeros((), dtype=wx.dtype, device=wx.device)
-    rows = torch.round(wy)[..., None] + d  # (R, E, 3)
+    rows = torch.round(wy)[..., None] + d  # (R, E, 2 hw + 1)
     cols = torch.round(wx)[..., None] + d
     vr = (rows >= 0) & (rows <= H - 1)
     vc = (cols >= 0) & (cols <= W - 1)
@@ -759,6 +774,7 @@ def check_kernels(tag, window, theta, sensor, rows):
     check_splat_window5(tag, wx, wy, wxe, wye, G, sensor, rows)
     del U, V, Ut
     check_direct(tag, theta, xs, ys, wx, wy, wxe, wye, G, sensor, rows)
+    check_window7(tag, wx, wy, wxe, wye, G, sensor, rows)
     return lib_interp_ms
 
 
@@ -806,7 +822,7 @@ def check_splat_window5(tag, wx, wy, wxe, wye, G, sensor, rows):
 
 
 # the float64 interp backward's grids beyond the chain's 16x16
-DIRECT_GRIDS = ((32, 32), (64, 64), (128, 128))
+DIRECT_GRIDS = ((32, 32), (64, 64), (128, 128), (256, 256))
 
 
 def check_direct(tag, theta, xs, ys, wx, wy, wxe, wye, G, sensor, rows):
@@ -955,6 +971,82 @@ def check_direct(tag, theta, xs, ys, wx, wy, wxe, wye, G, sensor, rows):
            cuda_ms(lambda: (torch.bmm(Ut, G64), torch.bmm(V, G64.transpose(1, 2))), reps),
            F64_OPS_PER_S,
            wrap_f32_ms=cuda_ms(lambda: sk.splat_direct_bwd_cuda(wx, wy, G, sensor, 3, True)))
+    del U, V, Ut, f_main
+    torch.cuda.empty_cache()
+
+
+def check_window7(tag, wx, wy, wxe, wye, G, sensor, rows):
+    """A float32 splat at window 7, which the slab kernels are not built
+    for, through the router (`ops/splat.py:splat_multi_ref`) forward and
+    backward, the launch counters read around it: the direct kernels alone
+    launched, within TOL_ATOMIC (forward) and TOL_GATHER (backward) of the
+    plain version on the window's events with the edge cases and slab-edge
+    events appended; bitwise the same twice, and with the events permuted
+    (the same frames, the gradient permuted alike). Times at the window's
+    own shape beside their bound, plain version and library call (the
+    planes of 7 taps), as `window7_*` in the direct kernels' rows."""
+    from eincm_tpu_torch.ops import _build
+    from eincm_tpu_torch.ops import splat as ts
+    from eincm_tpu_torch.ops import splat_kernel as sk
+
+    H, W = sensor
+    R, E = wx.shape
+    ws = 7
+
+    def routed(ax, ay):
+        ar, br = ax.clone().requires_grad_(True), ay.clone().requires_grad_(True)
+        frames = ts.splat_multi_ref(ar, br, sensor, ws)
+        dx, dy = torch.autograd.grad(frames, (ar, br), G)
+        return frames.detach(), dx, dy
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    f_k, dx_k, dy_k = routed(wxe, wye)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in _build.launch_counts().items() if n}
+    print(f"  splat window 7 through the router: launches {launches}")
+    if launches != {"splat_direct_fwd": 1, "splat_direct_bwd": 1}:
+        raise AssertionError(f"window 7: the router launched {launches}, not the direct "
+                             f"kernels once each")
+    ar, br = wxe.clone().requires_grad_(True), wye.clone().requires_grad_(True)
+    f_p = sk.splat_plain(ar, br, sensor, ws)
+    dx_p, dy_p = torch.autograd.grad(f_p, (ar, br), G)
+    err_f = max_err(f_k, f_p, TOL_ATOMIC, "splat_direct_fwd float32 window 7")
+    err_b = max(max_err(dx_k, dx_p, TOL_GATHER, "splat_direct_bwd float32 window 7 dwx"),
+                max_err(dy_k, dy_p, TOL_GATHER, "splat_direct_bwd float32 window 7 dwy"))
+    again = routed(wxe, wye)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    perm = torch.randperm(wxe.shape[1], generator=gen, device="cuda")
+    f_perm, dx_perm, dy_perm = routed(wxe[:, perm].contiguous(), wye[:, perm].contiguous())
+    if not all(same_bits(a, b) for a, b in zip(again, (f_k, dx_k, dy_k))):
+        raise AssertionError("window 7: two runs through the router differ")
+    if not (same_bits(f_perm, f_k) and same_bits(dx_perm, dx_k[:, perm])
+            and same_bits(dy_perm, dy_k[:, perm])):
+        raise AssertionError("window 7: the events permuted give other bits")
+    print("  splat window 7: bitwise the same twice and with the events permuted")
+    wxm, wym = wx.clone().requires_grad_(True), wy.clone().requires_grad_(True)
+    f_main = sk.splat_plain(wxm, wym, sensor, ws)
+    U, V = splat_planes(wx, wy, sensor, ws // 2)
+    Ut = U.transpose(1, 2)
+    reps = 3 if E > 100_000 else 10
+    for name, err, ms, plain_ms, n_bytes, ops, lib_ms in (
+        ("splat_direct_fwd", err_f, cuda_ms(lambda: sk.splat_direct_fwd_cuda(wx, wy, sensor, ws)),
+         cuda_ms(lambda: sk.splat_plain(wx, wy, sensor, ws)), 8 * R * E + 4 * R * H * W,
+         ops_splat(ws // 2) * R * E, cuda_ms(lambda: torch.bmm(U, V), reps)),
+        ("splat_direct_bwd", err_b,
+         cuda_ms(lambda: sk.splat_direct_bwd_cuda(wx, wy, G, sensor, ws)),
+         cuda_ms(lambda: torch.autograd.grad(f_main, (wxm, wym), G, retain_graph=True)),
+         16 * R * E + 4 * R * H * W, ops_splat_bwd(ws // 2) * R * E,
+         cuda_ms(lambda: (torch.bmm(Ut, G), torch.bmm(V, G.transpose(1, 2))), reps)),
+    ):
+        bound_ms, bound_by = bound(n_bytes, ops)
+        row = rows[name][tag]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["window7_f32"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                              "router_launches": launches[name]}
+        print(f"  {name} float32 window 7: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), library {lib_ms:.4f} ms")
     del U, V, Ut, f_main
     torch.cuda.empty_cache()
 
@@ -1197,6 +1289,204 @@ def compare_evals(phase, tag, k, p, what):
           f"(worst {worst:.3e}), AEE rel {aee_rel:.3e}, counts equal "
           f"(n_ee {int(k['n_ee'])}, n_pred {int(k['n_pred'])}, n_gt {int(k['n_gt'])})")
     return worst
+
+
+COMPAT_BOUNDED_MAXITER = 30  # the handover weight's golden-section steps
+
+
+def check_package_names():
+    """The JAX package's package-level names on the port: the three lazy
+    ones of `eincm_tpu_torch` and the re-exports of models, ops and edge
+    (20, 15 and 6 names, as eincm_tpu's). Returns {package: count}."""
+    import importlib
+    import types
+
+    from eincm_tpu_torch import EINCMExperiment, ExperimentConfig, load_config
+
+    counts = {}
+    for sub, want in (("models", 20), ("ops", 15), ("edge", 6)):
+        mod = importlib.import_module(f"eincm_tpu_torch.{sub}")
+        names = [n for n, v in vars(mod).items()
+                 if not n.startswith("_") and not isinstance(v, types.ModuleType)]
+        if len(names) != want or not all(callable(getattr(mod, n)) for n in names):
+            raise AssertionError(f"eincm_tpu_torch.{sub}: {len(names)} names, not {want}")
+        counts[sub] = len(names)
+    print(f"[compat] package-level names: {EINCMExperiment.__name__}, "
+          f"{ExperimentConfig.__name__}, {load_config.__name__}; re-exports {counts}")
+    return counts
+
+
+def compat_phase(card, device, cfg, window, prior):
+    """[compat] the reference's jaxopt calling pattern through the port's
+    wrappers (`models/compat.py`) over the real loss: [chain]'s window 1 at
+    its 16x16 level from its prior (window 0's final), `ScipyMinimize`
+    (BFGS, the config's maxiter and gtol, has_aux, a callback) against a
+    direct `minimize_bfgs`, then the handover weight between the prior and
+    that theta by `ScipyBoundedMinimize` against a direct
+    `minimize_bounded_scalar`; each pair bitwise equal (result, state,
+    every callback against the history), the launch counters set to 0 just
+    before each solve and read just after. Returns (record, launches of
+    the wrappers' solves)."""
+    from eincm_tpu_torch.models.bfgs import (
+        minimize_bfgs, minimize_bounded_scalar, value_and_grad,
+    )
+    from eincm_tpu_torch.models.compat import ScipyBoundedMinimize, ScipyMinimize
+    from eincm_tpu_torch.models.loss import compute_window_statics, solver_loss
+    from eincm_tpu_torch.ops import _build
+    from eincm_tpu_torch.utils import host
+
+    to_host = host.to_host
+    names = check_package_names()
+    wstat = compute_window_statics(window.xs, window.ys, window.edges, cfg.sensor_size)
+    statics = cfg.loss_statics
+    x0 = prior[0]
+    shape = x0.shape
+    args = tuple(window)  # xs, ys, ts, edges, edge_ts: jaxopt's run(x0, *args)
+    maxiter, gtol = cfg.theta_opt_maxiters[0], cfg.theta_gtol
+
+    def loss(theta, xs, ys, ts, edges, edge_ts):
+        return solver_loss(theta, xs, ys, ts, edges, edge_ts, cfg.params, 0, statics,
+                           wstat), {"level": 0}
+
+    def value(flat):
+        return solver_loss(flat.reshape(shape), *args, cfg.params, 0, statics, wstat)
+
+    def timed(fn):
+        """(fn(), wall ms, launches, device -> host reads through to_host)"""
+        reads = [0]
+
+        def counted(t):
+            reads[0] += 1
+            return to_host(t)
+
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        host.to_host = counted
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            host.to_host = to_host
+        return out, ms, _build.launch_counts(), reads[0]
+
+    def same_history(what, seen, hist, reshape):
+        if len(seen) != hist.n:
+            raise AssertionError(f"[compat] {what}: {len(seen)} callbacks, {hist.n} recorded")
+        for k, r in enumerate(seen):
+            x = hist.xs[k].reshape(shape) if reshape else hist.xs[k]
+            if not (same_bits(r.x, x) and same_bits(r.fun, hist.fs[k])):
+                raise AssertionError(f"[compat] {what}: callback {k} is not the history's")
+
+    def in_turns(what, wrapped, direct, check):
+        """wrapper, direct, direct, wrapper: each wrapped run checked against
+        the first direct run, the second direct run bitwise the first;
+        returns (the first wrapped and direct outputs, wrapped and direct
+        ms, the wrapped run's launches and host reads)."""
+        turns = [timed(f) for f in (wrapped, direct, direct, wrapped)]
+        ref, ref2 = turns[1][0], turns[2][0]
+        if not all(same_bits(a, b) for a, b in zip(direct_tensors(ref), direct_tensors(ref2))):
+            raise AssertionError(f"[compat] {what}: two direct solves differ")
+        for out, _, launched, reads in (turns[0], turns[3]):
+            check(out, ref, reads, turns[1][3])
+            if launched != turns[1][2]:
+                raise AssertionError(f"[compat] {what}: launches {launched} != the direct "
+                                     f"solve's {turns[1][2]}")
+        return (turns[0][0], ref, [turns[0][1], turns[3][1]], [turns[1][1], turns[2][1]],
+                turns[0][2], turns[0][3])
+
+    def direct_tensors(out):
+        """The tensors of a direct solve's (result, history)."""
+        res, hist = out
+        if isinstance(res, tuple) and not hasattr(res, "x"):  # the golden section's (w, f)
+            return [*res, hist.xs, hist.fs]
+        return [res.x, res.fun_val, res.grad, hist.xs, hist.fs]
+
+    def theta_wrapped():
+        seen = []
+        solver = ScipyMinimize(fun=loss, method="BFGS", maxiter=maxiter,
+                               options={"gtol": gtol}, has_aux=True, callback=seen.append)
+        return solver.run(x0, *args), seen, solver.history
+
+    def theta_direct():
+        return minimize_bfgs(value_and_grad(value), x0.reshape(-1), maxiter=maxiter, gtol=gtol,
+                             record_history=True, fun=value)
+
+    fields = ("iter_num", "total_iters", "n_fun_evals", "n_attempts", "success", "status",
+              "n_host_syncs")
+
+    def theta_check(out, ref, reads, direct_reads):
+        (step, seen, history), (res, hist) = out, ref
+        st = step.state
+        if [getattr(st, f) for f in fields] != [getattr(res, f) for f in fields]:
+            raise AssertionError(f"[compat] theta: state {[getattr(st, f) for f in fields]} "
+                                 f"!= the direct solve's {[getattr(res, f) for f in fields]}")
+        if not (same_bits(step.params, res.x.reshape(shape)) and same_bits(st.x, step.params)
+                and same_bits(st.fun_val, res.fun_val) and same_bits(st.grad, res.grad)):
+            raise AssertionError("[compat] theta: params or loss not bitwise the direct solve's")
+        same_history("theta", seen, hist, True)
+        if not (same_bits(history.xs, hist.xs) and same_bits(history.fs, hist.fs)):
+            raise AssertionError("[compat] theta: the wrapper's history is not the direct one's")
+        if not reads == direct_reads == st.n_host_syncs:
+            raise AssertionError(f"[compat] theta: host reads {reads} / {direct_reads} != "
+                                 f"{st.n_host_syncs}")
+
+    (step, seen, _), _, ms_w, ms_d, launch_w, reads_w = in_turns(
+        "theta", theta_wrapped, theta_direct, theta_check)
+    st = step.state
+    theta = step.params
+
+    def handover(w):
+        return solver_loss(w * x0 + (1.0 - w) * theta, *args, cfg.params, 0, statics, wstat)
+
+    def ho_wrapped():
+        bseen = []
+        bsolver = ScipyBoundedMinimize(fun=handover, maxiter=COMPAT_BOUNDED_MAXITER,
+                                       callback=bseen.append)
+        return bsolver.run(None, (0.0, 1.0)), bseen
+
+    def ho_direct():
+        return minimize_bounded_scalar(handover, (0.0, 1.0), maxiter=COMPAT_BOUNDED_MAXITER,
+                                       record_history=True, device=device)
+
+    def ho_check(out, ref, reads, direct_reads):
+        (bstep, bseen), ((w_d, f_d), bhist) = out, ref
+        if not (same_bits(bstep.params, w_d) and same_bits(bstep.state.fun_val, f_d)):
+            raise AssertionError("[compat] handover: (w, f) not bitwise the direct solve's")
+        if not (bstep.state.success and bstep.state.iter_num == COMPAT_BOUNDED_MAXITER):
+            raise AssertionError(f"[compat] handover: state {bstep.state}")
+        same_history("handover", bseen, bhist, False)
+        # the wrapper reads (w, f) once for its `success`; the golden section none
+        if (reads, direct_reads) != (1, 0):
+            raise AssertionError(f"[compat] handover: host reads {reads} / {direct_reads} "
+                                 f"!= 1 / 0")
+
+    (bstep, bseen), (_, bhist), ms_bw, ms_bd, launch_bw, reads_bw = in_turns(
+        "handover", ho_wrapped, ho_direct, ho_check)
+
+    launches = {k: launch_w[k] + launch_bw[k] for k in launch_w}
+    rec = {"card": card, "package_names": names, "theta": {
+        "ms": ms_w, "direct_ms": ms_d, "evals": st.n_fun_evals, "iters": st.total_iters,
+        "status": st.status, "host_syncs": reads_w, "callbacks": len(seen),
+        "loss": float(st.fun_val), "launches": {k: launch_w[k] for k in CHAIN_KERNELS}},
+        "handover": {
+        "ms": ms_bw, "direct_ms": ms_bd, "evals": bhist.n, "host_syncs": reads_bw,
+        "callbacks": len(bseen), "w": float(bstep.params), "loss": float(bstep.state.fun_val),
+        "launches": {k: launch_bw[k] for k in CHAIN_KERNELS}}}
+    for what, r in (("ScipyMinimize", rec["theta"]), ("ScipyBoundedMinimize", rec["handover"])):
+        print(f"[compat] {card}: {what}: wrapper {r['ms'][0]:.1f} / {r['ms'][1]:.1f} ms, "
+              f"direct {r['direct_ms'][0]:.1f} / {r['direct_ms'][1]:.1f} ms (in turns: "
+              f"wrapper, direct, direct, wrapper), {r['evals']} evaluations, "
+              f"{r['host_syncs']} host syncs, {r['callbacks']} callbacks, launches "
+              f"{r['launches']}; bitwise the direct solve's")
+    print(f"[compat] theta: {st.total_iters} iterations, status {st.status}, loss "
+          f"{float(st.fun_val):.7f} from {float(value(x0.reshape(-1))):.7f}; handover weight "
+          f"{float(bstep.params):.6f}")
+    missing = [k for k in CHAIN_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"[compat] kernels not launched: {missing}")
+    return rec, launches
 
 
 def wolfe_chain(cfg, windows, vels, device):
@@ -2925,6 +3215,8 @@ def main(argv=None) -> int:
     missing = [k for k in CHAIN_KERNELS if chain_launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
+    # [compat] the jaxopt-style wrappers over window 1's 16x16 level
+    compat_row, compat_launches = compat_phase(card, device, cfg, mvsec[1], chain_w0_final)
 
     # ---- 5. DSEC-scale loss: kernels on the card vs plain on CPU -----------
     params = LossParams(alpha=2000.0, beta=4000.0)
@@ -3090,6 +3382,7 @@ def main(argv=None) -> int:
             entry["dsec_loss_launches"] = dsec_launches[name]
             entry["wolfe_launches"] = wolfe_launches[name]
             entry["wolfe_launches_per_loss_eval"] = wolfe_launches[name] / wevals
+            entry["compat_launches"] = compat_launches[name]
             entry["experiment_launches"] = exp_launches[name]
             for tag, counts in real_launches.items():
                 entry[f"{tag}_launches"] = counts[name]
@@ -3116,7 +3409,7 @@ def main(argv=None) -> int:
         kernels.append(entry)
     paths = {"card": card, "armijo": {"windows": chain_recs, "mean_aee": mean_aee,
                                       "median_ms": chain_median_ms},
-             "wolfe": wolfe_row, "eval": eval_rows, "experiment": exp_row, **real_rows,
+             "compat": compat_row, "wolfe": wolfe_row, "eval": eval_rows, "experiment": exp_row, **real_rows,
              "grids": grids_row,
              "parallel": par_row, "ranks": ranks_row, "bench": bench_row,
              "studies": studies_row, "h5": h5_row}

@@ -10,9 +10,12 @@ module uses its plain PyTorch version. The package never imports JAX.
 Top-level API:
 
     from eincm_tpu_torch import (
-        SolverConfig, HandoverSettings, WindowSample, LossParams,
-        make_window_solver, solve_window,
+        SolverConfig, HandoverSettings, WindowSample, solve_window,
+        make_window_solver, LossParams, ExperimentConfig, EINCMExperiment,
     )
+
+`ExperimentConfig`, `load_config` and `EINCMExperiment` load on first
+access, as in the JAX package, so `import eincm_tpu_torch` stays light.
 """
 
 __version__ = "0.1.0"
@@ -26,3 +29,16 @@ from eincm_tpu_torch.models.pyramid import (
     make_window_solver,
     solve_window,
 )
+
+
+def __getattr__(name):
+    # heavier layers load lazily so `import eincm_tpu_torch` stays light
+    if name in ("ExperimentConfig", "load_config"):
+        from eincm_tpu_torch.experiments import config as _c
+
+        return getattr(_c, name)
+    if name == "EINCMExperiment":
+        from eincm_tpu_torch.experiments.manager import EINCMExperiment
+
+        return EINCMExperiment
+    raise AttributeError(name)

@@ -36,7 +36,10 @@ where kernel 8 samples theta. The TPU versions' `b` (band height) and
 
 Forward only; nothing in the solver or the loss calls these. Dispatch: CPU
 tensors take the plain version; CUDA tensors launch the kernel, and
-anything it does not take raises.
+anything it does not take raises. Both kernels and their plain versions
+raise for a window other than 3 and 5: the production splat takes those
+on its direct kernels (`ops/splat.py`), and these measurement vehicles are
+built for the slab kernels' windows only.
 """
 
 from __future__ import annotations

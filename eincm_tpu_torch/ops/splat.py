@@ -5,12 +5,14 @@ Reference: src/utils/event_utils.py:13-77. The splat itself lives in
 module is the router the loss calls, plus the plain event counts.
 
 Routing: CPU tensors take the plain version. On the card, float64
-coordinates and every call while the wrap-compat switch is on launch the
-direct kernels (`csrc/direct.cu`: float32 or float64, any window size;
-the JAX package keeps these calls off its Pallas kernels the same way,
+coordinates, every call while the wrap-compat switch is on and a window
+size the slab kernels are not built for (`WINDOW_SIZES`: 3 and 5) launch
+the direct kernels (`csrc/direct.cu`: float32 or float64, any window of
+1 or more, with 2 (w // 2) + 1 taps a side as in the JAX package, which
+keeps float64 and wrapped calls off its Pallas kernels the same way,
 eincm_tpu/ops/splat.py:173-177, :347-352); every other CUDA tensor
-launches the slab and stream kernels, which take float32 at windows 3 and
-5. Whatever a kernel does not take raises.
+launches the slab and stream kernels. Whatever a kernel does not take
+raises.
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ from typing import Tuple
 
 import torch
 
-from eincm_tpu_torch.ops.splat_kernel import _SplatCuda, _SplatDirect, splat_plain
+from eincm_tpu_torch.ops.splat_kernel import (
+    WINDOW_SIZES, _SplatCuda, _SplatDirect, splat_plain,
+)
 
 # Opt-in reproduction of the reference's negative-index wrap (splat mass at
 # coordinate -k lands on the opposite sensor edge; src/utils/event_utils.py:
@@ -42,13 +46,15 @@ def splat_multi_ref(
 ) -> torch.Tensor:
     """(n_refs, E) warped coordinates -> (n_refs, H, W) IWEs, every ref in
     one launch. CPU tensors take the plain version; on the card, float64
-    coordinates (the condition is warped_xs's dtype) and the wrap-compat
-    switch take the direct kernels, and float32 the slab kernels."""
+    coordinates (the condition is warped_xs's dtype), the wrap-compat
+    switch and a window other than 3 and 5 take the direct kernels, and
+    float32 at windows 3 and 5 the slab kernels."""
     if warped_xs.device.type == "cpu" and warped_ys.device.type == "cpu":
         return splat_plain(
             warped_xs, warped_ys, sensor_size, window_size, wrap=_SPLAT_WRAP_COMPAT
         )
-    if _SPLAT_WRAP_COMPAT or warped_xs.dtype == torch.float64:
+    if (_SPLAT_WRAP_COMPAT or warped_xs.dtype == torch.float64
+            or int(window_size) not in WINDOW_SIZES):
         return _SplatDirect.apply(warped_xs, warped_ys, tuple(sensor_size), window_size,
                                   _SPLAT_WRAP_COMPAT)
     return _SplatCuda.apply(warped_xs, warped_ys, tuple(sensor_size), window_size)

@@ -21,8 +21,8 @@ and refuse any other size; the plain version takes any.
 
 The direct kernels (`splat_direct_fwd_cuda`, `splat_direct_bwd_cuda`;
 `csrc/direct.cu`) take what the slab and stream kernels do not: float64
-coordinates and the wrap-compat splat, in float32 or float64, at any window
-size. The direct forward runs the slab design too (`plan_splat` with 8-byte
+coordinates, the wrap-compat splat and every other window size (1 and up),
+in float32 or float64. The direct forward runs the slab design too (`plan_splat` with 8-byte
 texels in float64) and its frames are exact sums as well; the direct
 backward is one thread per event.
 

@@ -314,9 +314,13 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         ti.interp_theta_at_events(theta.double(), xs, xs, SENSOR)
     with pytest.raises(TypeError):
         ts.splat_multi_ref(xs.double()[None], xs[None], SENSOR)
-    for ws in (1, 4, 7):  # the kernels are built for windows 3 and 5
+    # the slab kernels are built for windows 3 and 5, and refuse others; the
+    # router takes those to the direct kernels, which refuse a window below 1
+    for ws in (1, 4, 7):
         with pytest.raises(ValueError, match="window_size"):
-            ts.splat_multi_ref(xs[None], xs[None], SENSOR, ws)
+            tk.splat_fwd_cuda(xs[None], xs[None], SENSOR, ws)
+    with pytest.raises(ValueError, match="window_size"):
+        ts.splat_multi_ref(xs[None], xs[None], SENSOR, 0)
     with pytest.raises(ValueError):
         ti.interp_fwd_cuda(torch.zeros(0, 4, 2, device=cuda), xs, xs, SENSOR)
     w = torch.zeros(100, 2, device=cuda).t()  # (2, 100), not contiguous
@@ -931,6 +935,46 @@ def test_routers_launch_the_direct_kernels(cuda, case):
         assert launched == {"interp_fwd", "interp_bwd", "splat_direct_fwd", "splat_direct_bwd"}
         _close(val_p, val_k, 1e-5)
         _close(grad_p, grad_k, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window_size", [1, 4, 7, 9])
+def test_router_takes_other_windows_to_the_direct_kernels(cuda, window_size):
+    """A float32 splat at a window the slab kernels are not built for goes
+    through the router to the direct kernels, forward and backward, and
+    matches the plain version and its autograd gradient (1e-5 and 2e-6,
+    as the direct kernels' own test); windows 3 and 5 keep the slab
+    kernels; the frames are bitwise the same twice and with the events
+    permuted, the gradient bitwise the same twice."""
+    rng = np.random.default_rng(27)
+    per_ref = [_coords(rng, 20_000, cuda, spread=5.0) for _ in range(2)]
+    wx = torch.stack([p[0] for p in per_ref]).contiguous()
+    wy = torch.stack([p[1] for p in per_ref]).contiguous()
+    G = torch.as_tensor(rng.normal(size=(2, H, W)), dtype=torch.float32, device=cuda)
+
+    def run(a, b, splat):
+        a, b = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        frames = splat(a, b, SENSOR, window_size)
+        return frames.detach(), torch.autograd.grad(frames, (a, b), G)
+
+    _build.reset_launch_counts()
+    f_k, (dx_k, dy_k) = run(wx, wy, ts.splat_multi_ref)
+    counts = _build.launch_counts()
+    assert {k for k, n in counts.items() if n} == {"splat_direct_fwd", "splat_direct_bwd"}
+    f_p, (dx_p, dy_p) = run(wx, wy, tk.splat_plain)
+    _close(f_p, f_k, 1e-5)
+    _close(dx_p, dx_k, 2e-6)
+    _close(dy_p, dy_k, 2e-6)
+    f_2, (dx_2, dy_2) = run(wx, wy, ts.splat_multi_ref)
+    assert torch.equal(f_2, f_k) and torch.equal(dx_2, dx_k) and torch.equal(dy_2, dy_k)
+    perm = torch.as_tensor(rng.permutation(wx.shape[1]), device=cuda)
+    f_perm, _ = run(wx[:, perm].contiguous(), wy[:, perm].contiguous(), ts.splat_multi_ref)
+    assert torch.equal(f_perm, f_k)
+    for ws in (3, 5):
+        _build.reset_launch_counts()
+        ts.splat_multi_ref(wx, wy, SENSOR, ws)
+        assert _build.launch_counts()["splat_fwd"] == 1
+        assert _build.launch_counts()["splat_direct_fwd"] == 0
 
 
 # ---- the Wolfe solve and the EVAL path on the card --------------------------
