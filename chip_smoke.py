@@ -193,7 +193,20 @@ Phases, each failing loudly (any failure exits non-zero):
    file of the same scene (extensible-array chunks, gzip and shuffle) read
    the same way (its MB/s beside the Blosc-Zstd file's): window 0's sample
    bitwise the Blosc-Zstd file's, staged and solved likewise, its AEE below
-   zero flow's and within H5_AEE_BAND of the Blosc-Zstd window's.
+   zero flow's and within H5_AEE_BAND of the Blosc-Zstd window's; then the
+   feature fixtures of tests/data/hdf5_features/ (committed datatypes,
+   compound types, variable-length sequences, object and region
+   references, external links, an external data file, virtual datasets
+   with hyperslab, all, unlimited and printf-style mappings and a missing
+   source, an empty dataset) held to their manifest (references by the
+   paths and elements they point to), and its virtual DSEC events file
+   (events/x, y, t, p in four hyperslab mappings over the latest-format
+   file, copied beside it; ms_to_idx an external link into it; t_offset
+   of a committed datatype) read, loaded, staged and solved likewise:
+   window 0's sample and final theta bitwise the latest-format file's.
+   Kernels 7 and 8 at window 7 ([fused]) go through their route, the warp
+   and the direct splat (kernel 1 first for kernel 8), held to their plain
+   versions and bitwise the same twice.
 
 Every kernel's time stands beside its bound: the least time the card could
 take for the same work, the longer of the bytes it must move (each input
@@ -1130,6 +1143,8 @@ def check_bench_kernels(tag, xs, ys, ts, t_refs, theta, sensor, rows, lib_interp
            kernel=p8.kernel, scatter_ms=by_kernel["scatter"], cluster_ms=by_kernel["cluster"],
            window5_ms=cuda_ms(lambda: sf.fully_fused_warp_splat_cuda(
                xi, yi, ts, theta, t0, sensor, 5)))
+    check_fused_route(tag, exi, eyi, ets, ethx, ethy, theta, xi, yi, ts, thx, thy, t0, sensor,
+                      rows)
 
     # the worst contention, and the counters' wrap: 40k events inside one
     # texel on a tile edge, kept there by a zero theta (kernel 8) or zero
@@ -1178,6 +1193,45 @@ def check_bench_kernels(tag, xs, ys, ts, t_refs, theta, sensor, rows, lib_interp
            dot3_ms=cuda_ms(lambda: ip.interp_dense_cuda(theta, xs, ys, sensor, "dot3")),
            bf16_ms=cuda_ms(lambda: ip.interp_dense_cuda(theta, xs, ys, sensor, "bf16")),
            layout_ops_ms=ops_dense(h, w) * E / F32_OPS_PER_S * 1e3)
+
+
+def check_fused_route(tag, exi, eyi, ets, ethx, ethy, theta, xi, yi, ts, thx, thy, t0,
+                      sensor, rows, ws=7):
+    """Kernels 7 and 8 at a window the cluster kernels are not built for,
+    through the frame functions, the launch counters read around each: the
+    warp and the direct splat launched (and kernel 1 for kernel 8), within
+    TOL_ATOMIC of the plain version on the events with the edge cases
+    (rounded: kernel 8's route takes whole coordinates only), bitwise the
+    same twice; times at the window's shape, as `window7_route` in the
+    kernels' rows."""
+    from eincm_tpu_torch.experimental import splat_fused as sf
+    from eincm_tpu_torch.ops import _build
+
+    rx, ry = torch.round(exi), torch.round(eyi)
+    for name, frame, plain, args, main, want in (
+            ("fused_warp_splat", sf.fused_warp_splat_frame, sf.fused_warp_splat_frame_plain,
+             (rx, ry, ets, ethx, ethy), (xi, yi, ts, thx, thy), {"splat_direct_fwd": 1}),
+            ("fully_fused_warp_splat", sf.fully_fused_warp_splat_frame,
+             sf.fully_fused_warp_splat_frame_plain, (rx, ry, ets, theta), (xi, yi, ts, theta),
+             {"interp_fwd": 1, "splat_direct_fwd": 1})):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        k, _ = frame(*args, t0, sensor, ws)
+        torch.cuda.synchronize()
+        launched = {n: c for n, c in _build.launch_counts().items() if c}
+        if launched != want:
+            raise AssertionError(f"{name} window {ws}: launched {launched}, not {want}")
+        err = max_err(k, plain(*args, t0, sensor, ws), TOL_ATOMIC,
+                      f"{name} window {ws} (warp + direct splat)")
+        if not same_bits(k, frame(*args, t0, sensor, ws)[0]):
+            raise AssertionError(f"{name} window {ws}: two runs differ")
+        route = {"max_abs_err": err, "launches": launched,
+                 "ms": cuda_ms(lambda: frame(*main, t0, sensor, ws)),
+                 "plain_ms": cuda_ms(lambda: plain(*main, t0, sensor, ws))}
+        rows[name][tag][f"window{ws}_route"] = route
+        print(f"  {name} at {tag}, window {ws}: routed to {sorted(launched)}, max |err| "
+              f"{err:.3g}, bitwise the same twice; {route['ms']:.4f} ms, plain "
+              f"{route['plain_ms']:.4f} ms")
 
 
 def count_syncs(fn):
@@ -2868,22 +2922,50 @@ def studies_phase(card, device):
 CODEC_FIXTURES = "tests/data/codecs"  # written by tests/make_codec_fixtures.py
 HDF5_FIXTURES = "tests/data/hdf5"  # written by tests/make_hdf5_fixtures.py
 LATEST_EVENTS = "dsec_events_latest.h5"  # HDF5_FIXTURES' DSEC file of events.h5's scene
+# written by tests/make_hdf5_feature_fixtures.py: its virtual DSEC file maps
+# LATEST_EVENTS, which lies beside it in a DSEC tree
+HDF5_FEATURES = "tests/data/hdf5_features"
+VIRTUAL_EVENTS = "dsec_events_virtual.h5"
 H5_AEE_BAND = 0.05  # px: the latest-format window's AEE against the Blosc-Zstd one's
 ZSTD_RATE_S = 0.5  # the Zstd decoder is timed over at least this long
 H5_DES_N_EVENTS = 100_000  # events a window of the fixture's tree (~130k written)
 EVENT_KEYS = ("events/x", "events/y", "events/t", "events/p", "ms_to_idx", "t_offset")
 
 
-def payload_sha(a) -> str:
-    """sha256 of an array's bytes; an object array of bytes (variable-length
-    strings) hashes as each element's 8-byte little-endian length and
-    bytes, in C order."""
+def payload_sha(a, deref=None) -> str:
+    """sha256 of an array's bytes; an object array hashes as each element's
+    8-byte little-endian length and bytes, in C order: a variable-length
+    string as itself, a sequence as its dtype, shape and bytes, a
+    reference as `deref(ref)` (tests/make_hdf5_feature_fixtures.py)."""
     import hashlib
 
-    if a.dtype == object:
-        return hashlib.sha256(b"".join(len(x).to_bytes(8, "little") + x
-                                       for x in a.reshape(-1))).hexdigest()
-    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+    if a.dtype != object:
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+    parts = []
+    for x in a.reshape(-1):
+        if isinstance(x, np.ndarray):
+            x = f"{x.dtype.str}{x.shape}".encode() + np.ascontiguousarray(x).tobytes()
+        elif not isinstance(x, bytes):
+            x = deref(x)
+        parts.append(len(x).to_bytes(8, "little") + x)
+    return hashlib.sha256(b"".join(parts)).hexdigest()
+
+
+def h5_lite_deref(f):
+    """`payload_sha`'s `deref` through h5_lite: an object's path; a
+    region's path and its elements' payload_sha."""
+    from eincm_tpu_torch.utils import h5_lite
+
+    def deref(ref) -> bytes:
+        if not ref:
+            return b"null"
+        path = f.dereference(ref)
+        if isinstance(ref, h5_lite.RegionReference):
+            sel = f.read_region(ref)
+            return f"{path}:{sel.dtype.str}{sel.shape}:{payload_sha(sel)}".encode()
+        return path.encode()
+
+    return deref
 
 
 def check_codec_fixtures(root):
@@ -2891,9 +2973,13 @@ def check_codec_fixtures(root):
     manifest.json: each file by its sha256 and size, then each payload,
     decoded by the port (a `.zst` frame by `zstd_decompress`, a `.blosc`
     chunk by `blosc.decompress`, an HDF5 dataset by `h5_lite`; native
-    decoders where the library is built), by its sha256 (`payload_sha`),
-    dtype and shape. Returns {kind: [payloads, decoded bytes]}."""
+    decoders where the library is built), by its sha256 (`payload_sha`;
+    references by the paths and data they point to), dtype (a compound's
+    in full) and shape, and each empty dataset as `Empty` of its dtype;
+    the manifest's `env` set meanwhile (directories relative to `root`).
+    Returns {kind: [payloads, decoded bytes]}."""
     import hashlib
+    import os
     from pathlib import Path
 
     from eincm_tpu_torch.native import blosc as nb
@@ -2905,28 +2991,50 @@ def check_codec_fixtures(root):
         data = (root / rel).read_bytes()
         if len(data) != f["bytes"] or hashlib.sha256(data).hexdigest() != f["sha256"]:
             raise AssertionError(f"[h5] {rel}: not the file its manifest names")
-    counts: dict = {}
-    for key, p in manifest["payloads"].items():
-        rel, _, dataset = key.partition(":")
-        dtype, shape = np.dtype(p["dtype"]), tuple(p["shape"])
-        if dataset:
-            with h5_lite.File(root / rel) as f:
-                a = f.read(dataset)
-            kind = rel
-        else:
-            raw = (root / rel).read_bytes()
-            if rel.endswith(".zst"):
-                raw = nb.zstd_decompress(raw, dtype.itemsize * math.prod(shape))
-                kind = "zstd"
+    saved = {k: os.environ.get(k) for k in manifest.get("env", {})}
+    os.environ.update({k: str((root / v).resolve()) for k, v in manifest.get("env", {}).items()})
+    try:
+        counts: dict = {}
+        for key, p in manifest["payloads"].items():
+            rel, _, dataset = key.partition(":")
+            dtype, shape = np.dtype(p["dtype"]), tuple(p["shape"])
+            if dataset:
+                with h5_lite.File(root / rel) as f:
+                    a = f.read(dataset)
+                    if a.dtype == object:
+                        sha = payload_sha(a, h5_lite_deref(f))
+                kind = rel
             else:
-                raw = blosc.decompress(raw)
-                kind = "blosc"
-            a = np.frombuffer(raw, dtype).reshape(shape)
-        if a.dtype != dtype or a.shape != shape or payload_sha(a) != p["sha256"]:
-            raise AssertionError(f"[h5] {key}: decoded to other data ({a.dtype}, {a.shape})")
-        c = counts.setdefault(kind, [0, 0])
-        c[0] += 1
-        c[1] += sum(map(len, a.reshape(-1))) if a.dtype == object else a.nbytes
+                raw = (root / rel).read_bytes()
+                if rel.endswith(".zst"):
+                    raw = nb.zstd_decompress(raw, dtype.itemsize * math.prod(shape))
+                    kind = "zstd"
+                else:
+                    raw = blosc.decompress(raw)
+                    kind = "blosc"
+                a = np.frombuffer(raw, dtype).reshape(shape)
+            if a.dtype != object:
+                sha = payload_sha(a)
+            if (a.dtype.str != dtype.str or a.shape != shape or sha != p["sha256"]
+                    or str(a.dtype) != p.get("dtype_full", str(a.dtype))):
+                raise AssertionError(f"[h5] {key}: decoded to other data ({a.dtype}, "
+                                     f"{a.shape})")
+            c = counts.setdefault(kind, [0, 0])
+            c[0] += 1
+            c[1] += (sum(len(x) if isinstance(x, bytes) else getattr(x, "nbytes", 8)
+                         for x in a.reshape(-1)) if a.dtype == object else a.nbytes)
+        for key, dtype in manifest.get("empty", {}).items():
+            rel, _, dataset = key.partition(":")
+            with h5_lite.File(root / rel) as f:
+                got = f.read_value(dataset)
+            if got != h5_lite.Empty(dtype):
+                raise AssertionError(f"[h5] {key}: read as {got!r}, not Empty({dtype})")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     return counts
 
 
@@ -2957,7 +3065,7 @@ def _h5_window(label, events, tree, sensor, device, cfg, solver):
     DSEC window (IEDT edges, padded) and solved on the card from a zero
     prior, the launch counters set to 0 just before the solve and read just
     after it: finite theta, kernels 1-4 launched, the AEE below zero
-    flow's. Returns (record, sample, launches)."""
+    flow's. Returns (record, sample, launches, final theta pyramid)."""
     from eincm_tpu_torch.data import DSECDataLoader
     from eincm_tpu_torch.data.staging import stage_datasample
     from eincm_tpu_torch.experiments.config import EdgeConfig
@@ -3003,7 +3111,7 @@ def _h5_window(label, events, tree, sensor, device, cfg, solver):
         raise AssertionError(f"[h5] {label}: kernels not launched: {missing}")
     if not aee < zero:
         raise AssertionError(f"[h5] {label}: AEE {aee} not below zero flow's {zero}")
-    return rec, sample, launches
+    return rec, sample, launches, res.final_theta_pyr
 
 
 def h5_phase(card, device):
@@ -3013,8 +3121,13 @@ def h5_phase(card, device):
     frame; then, in a DSEC tree of the scene of both, the Blosc-Zstd
     events.h5 and the latest-format one (`_h5_window` each): window 0's
     sample bitwise the same, the latest-format window's AEE within
-    H5_AEE_BAND of the Blosc-Zstd window's. Returns (record, {"blosc_zstd":
-    launches, "latest": launches})."""
+    H5_AEE_BAND of the Blosc-Zstd window's; then tests/data/hdf5_features/
+    against its manifest (committed types, compounds, sequences,
+    references, external links and data files, virtual and empty
+    datasets) and its virtual DSEC file, with the latest-format file
+    beside it as its mappings and link name it: window 0's sample and
+    final theta bitwise the latest-format file's. Returns (record,
+    {"blosc_zstd": launches, "latest": launches, "virtual": launches})."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -3035,14 +3148,24 @@ def h5_phase(card, device):
     t0 = time.perf_counter()
     h5_counts = check_codec_fixtures(h5_root)
     h5_check_s = time.perf_counter() - t0
+    features_root = Path(__file__).resolve().parent / HDF5_FEATURES
+    t0 = time.perf_counter()
+    feature_counts = check_codec_fixtures(features_root)
+    features_check_s = time.perf_counter() - t0
     rec = {"card": card, "native_load_s": build_s, "check_s": check_s,
            "fixtures": {k: {"payloads": c[0], "bytes": c[1]} for k, c in counts.items()},
            "hdf5_check_s": h5_check_s,
-           "hdf5_fixtures": {k: {"datasets": c[0], "bytes": c[1]} for k, c in h5_counts.items()}}
+           "hdf5_fixtures": {k: {"datasets": c[0], "bytes": c[1]} for k, c in h5_counts.items()},
+           "hdf5_features_check_s": features_check_s,
+           "hdf5_features": {k: {"datasets": c[0], "bytes": c[1]}
+                             for k, c in feature_counts.items()}}
     print(f"[h5] {card}: every codec fixture matches its manifest, decoded natively in "
           f"{check_s:.3f} s: {rec['fixtures']} (library loaded in {build_s:.2f} s)")
     print(f"[h5] {card}: every HDF5 fixture (superblocks 0, 2, 3; the v4 chunk indexes) "
           f"matches its manifest through h5_lite in {h5_check_s:.3f} s: {rec['hdf5_fixtures']}")
+    print(f"[h5] {card}: every HDF5 feature fixture (committed types, compounds, sequences, "
+          f"references, external links and files, virtual and empty datasets) matches its "
+          f"manifest through h5_lite in {features_check_s:.3f} s: {rec['hdf5_features']}")
 
     manifest = json.loads((root / "manifest.json").read_text())
     rel, p = max(((k, v) for k, v in manifest["payloads"].items() if k.endswith(".zst")),
@@ -3063,20 +3186,33 @@ def h5_phase(card, device):
     sensor = (benchmarks.DSEC_H, benchmarks.DSEC_W)
     cfg = SolverConfig(**benchmarks.dsec_config_kwargs())
     solver = make_window_solver(cfg, device)
-    runs, samples, launches = {}, {}, {}
+    runs, samples, launches, thetas = {}, {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         tree = dataset_trees.write_dsec_tree(Path(tmp), **manifest["events_tree"])
         events = tree["root"] / f"Train/train_events/{tree['sequence']}/events/left/events.h5"
         for label, src in (("blosc_zstd", root / "events.h5"),
-                           ("latest", h5_root / LATEST_EVENTS)):
+                           ("latest", h5_root / LATEST_EVENTS),
+                           ("virtual", features_root / VIRTUAL_EVENTS)):
             shutil.copyfile(src, events)
-            runs[label], samples[label], launches[label] = _h5_window(
+            if label == "virtual":  # its mappings' and link's source, beside it
+                shutil.copyfile(h5_root / LATEST_EVENTS, events.parent / LATEST_EVENTS)
+            runs[label], samples[label], launches[label], thetas[label] = _h5_window(
                 f"{card}: {label}", events, tree, sensor, device, cfg, solver)
     _same_sample(samples["blosc_zstd"], samples["latest"],
                  "[h5] window 0 of the latest-format file against the Blosc-Zstd file's")
+    _same_sample(samples["latest"], samples["virtual"],
+                 "[h5] window 0 of the virtual file against the latest-format file's")
+    if not all(same_bits(a, b) for a, b in zip(thetas["latest"], thetas["virtual"])):
+        raise AssertionError("[h5] window 0's final theta from the virtual file is not the "
+                             "latest-format file's, bitwise")
     gap = abs(runs["latest"]["aee"] - runs["blosc_zstd"]["aee"])
     rec.update(runs["blosc_zstd"])
     rec["latest"] = {**runs["latest"], "aee_gap_to_blosc_zstd": gap}
+    rec["virtual"] = runs["virtual"]
+    print(f"[h5] {card}: virtual events.h5 (4 hyperslab mappings a dataset, ms_to_idx by an "
+          f"external link, t_offset of a committed type) read at "
+          f"{runs['virtual']['read_mb_per_s']:.1f} MB/s (h5_lite, host clock); window 0's "
+          "sample and final theta bitwise the latest-format file's")
     print(f"[h5] {card}: latest-format events.h5 read at {runs['latest']['read_mb_per_s']:.1f} "
           f"MB/s, Blosc-Zstd at {runs['blosc_zstd']['read_mb_per_s']:.1f} MB/s (h5_lite, host "
           f"clock); window 0 bitwise the same; AEE {runs['latest']['aee']:.4f} px against "
@@ -3359,7 +3495,7 @@ def main(argv=None) -> int:
     # ---- 16. [studies] the seven studies at reduced size ------------------
     studies_row, studies_launches = studies_phase(card, device)
 
-    # ---- 17. [h5] the codec and HDF5 fixtures, the Zstd rate, two DSEC files --
+    # ---- 17. [h5] the codec and HDF5 fixtures, the Zstd rate, three DSEC files --
     h5_row, h5_launches = h5_phase(card, device)
 
     launches = {**{k: chain_launches[k] for k in CHAIN_KERNELS},
@@ -3393,6 +3529,7 @@ def main(argv=None) -> int:
             entry["studies_launches"] = studies_launches[name]
             entry["h5_launches"] = h5_launches["blosc_zstd"][name]
             entry["h5_latest_launches"] = h5_launches["latest"][name]
+            entry["h5_virtual_launches"] = h5_launches["virtual"][name]
         if name == "splat_fwd":
             entry["eval_launches_per_call"] = 2
             entry["eval_prepare_launches"] = 1

@@ -59,7 +59,7 @@ class HDF5FileReader:
     def read_attr(self, key: str) -> Any:
         assert self.h5_file is not None, "open the file first"
         if self.backend == "h5_lite":
-            return self.h5_file.read(key)[()]
+            return self.h5_file.read_value(key)
         return self.h5_file[key][()]
 
     def __enter__(self):

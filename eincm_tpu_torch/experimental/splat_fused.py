@@ -18,9 +18,9 @@ through device memory. Here they never leave the kernel:
 
 Per event cx = xi - thx * (ts - t_ref), cy likewise, then the
 (2 hw + 1)^2 Gaussian taps around (round(cx), round(cy)), hw =
-window_size // 2 (window_size 3 or 5), with the production splat's drop
-semantics. xi and yi
-are used as given, not rounded: callers pass rounded coordinates.
+window_size // 2 (any window of 1 or more, as the JAX functions take),
+with the production splat's drop semantics. xi and yi are used as given,
+not rounded: callers pass rounded coordinates.
 
 Both return `(frame (H, W), ok)`. On the TPU `ok` said whether the row
 bands of sorted events covered every event (a frame with `ok` False had
@@ -35,11 +35,15 @@ where kernel 8 samples theta. The TPU versions' `b` (band height) and
 `interpret` arguments only shaped that band tiling and are dropped.
 
 Forward only; nothing in the solver or the loss calls these. Dispatch: CPU
-tensors take the plain version; CUDA tensors launch the kernel, and
-anything it does not take raises. Both kernels and their plain versions
-raise for a window other than 3 and 5: the production splat takes those
-on its direct kernels (`ops/splat.py`), and these measurement vehicles are
-built for the slab kernels' windows only.
+tensors take the plain version; CUDA tensors launch the kernel at windows
+3 and 5 (`WINDOW_SIZES`, which the cluster kernels are built for) and, at
+any other window, are routed by that argument as the production splat
+routes it (`ops/splat.py`): the warp as the plain version computes it,
+then the direct splat kernel (`csrc/direct.cu`), with kernel 1 sampling
+theta first for kernel 8. Kernel 1 samples at rounded coordinates where
+kernel 8 samples at those given, so kernel 8's route refuses coordinates
+that are not whole numbers, naming them, rather than give another answer.
+Anything a kernel does not take raises.
 """
 
 from __future__ import annotations
@@ -53,10 +57,11 @@ import torch
 
 from eincm_tpu_torch.ops._build import KERNELS, active_clusters, check_cuda
 from eincm_tpu_torch.ops.interp import (
-    FWD_STAGED_BYTES, _scales, interp_theta_at_events_plain,
+    FWD_STAGED_BYTES, _scales, interp_fwd_cuda, interp_theta_at_events_plain,
 )
 from eincm_tpu_torch.ops.splat_kernel import (
-    N_SM, SMEM_BLOCK, SMEM_PER_SM, half_window, splat_plain,
+    N_SM, SMEM_BLOCK, SMEM_PER_SM, WINDOW_SIZES, half_window, splat_direct_fwd_cuda,
+    splat_plain,
 )
 
 # The two kernels of kernels 7 and 8 (csrc/fused.cu). The cluster kernel
@@ -86,11 +91,16 @@ def _ok(frame: torch.Tensor) -> torch.Tensor:
     return torch.ones((), dtype=torch.bool, device=frame.device)
 
 
-def _warp_splat_plain(xi, yi, ts, thx, thy, t_ref, sensor_size, window_size):
+def _check_window(name: str, window_size) -> int:
+    if int(window_size) < 1:
+        raise ValueError(f"{name}: window_size {window_size} < 1")
+    return int(window_size)
+
+
+def _warp(xi, yi, ts, thx, thy, t_ref):
+    """The warped coordinates (cx, cy), as the kernels compute them."""
     dt = ts - t_ref
-    cx = xi - thx * dt
-    cy = yi - thy * dt
-    return splat_plain(cx[None], cy[None], sensor_size, window_size)[0]
+    return xi - thx * dt, yi - thy * dt
 
 
 def fused_warp_splat_frame_plain(
@@ -98,10 +108,9 @@ def fused_warp_splat_frame_plain(
 ) -> torch.Tensor:
     """The plain version of kernel 7: the displacement as two torch ops,
     then the (2 hw + 1)-tap plain splat. Returns the (H, W) frame."""
-    half_window(window_size)
-    return _warp_splat_plain(
-        xi, yi, ts, thx, thy, _f32(t_ref), sensor_size, window_size
-    )
+    ws = _check_window("fused_warp_splat", window_size)
+    cx, cy = _warp(xi, yi, ts, thx, thy, _f32(t_ref))
+    return splat_plain(cx[None], cy[None], sensor_size, ws)[0]
 
 
 def fully_fused_warp_splat_frame_plain(
@@ -109,10 +118,51 @@ def fully_fused_warp_splat_frame_plain(
 ) -> torch.Tensor:
     """The plain version of kernel 8: the production interp's plain version
     at (xi, yi) as given, then kernel 7's plain version."""
-    half_window(window_size)
+    _check_window("fully_fused_warp_splat", window_size)
     th = interp_theta_at_events_plain(theta, xi, yi, sensor_size, round_coords=False)
-    return _warp_splat_plain(
-        xi, yi, ts, th[:, 0], th[:, 1], _f32(t_ref), sensor_size, window_size
+    return fused_warp_splat_frame_plain(
+        xi, yi, ts, th[:, 0], th[:, 1], t_ref, sensor_size, window_size
+    )
+
+
+def fused_warp_splat_routed(
+    xi, yi, ts, thx, thy, t_ref, sensor_size, window_size: int
+) -> torch.Tensor:
+    """Kernel 7 at a window the cluster kernels are not built for, on the
+    card: the plain version's warp, then the direct splat kernel (exact
+    sums: the same bits for any event order)."""
+    e = xi.shape[0]
+    check_cuda("fused_warp_splat", (xi, yi, ts, thx, thy), [(e,)] * 5)
+    cx, cy = _warp(xi, yi, ts, thx, thy, _f32(t_ref))
+    return splat_direct_fwd_cuda(
+        cx[None], cy[None], sensor_size, _check_window("fused_warp_splat", window_size)
+    )[0]
+
+
+def fully_fused_warp_splat_routed(
+    xi, yi, ts, theta, t_ref, sensor_size, window_size: int
+) -> torch.Tensor:
+    """Kernel 8 at a window the cluster kernels are not built for, on the
+    card: kernel 1 samples theta, then kernel 7's route. Kernel 1 rounds
+    the coordinates, so every finite xi and yi must be a whole number."""
+    e = xi.shape[0]
+    h, w, _ = theta.shape
+    check_cuda("fully_fused_warp_splat", (xi, yi, ts, theta), [(e,)] * 3 + [(h, w, 2)])
+    _check_window("fully_fused_warp_splat", window_size)
+    frac = (torch.isfinite(xi) & (xi != torch.round(xi))) | (
+        torch.isfinite(yi) & (yi != torch.round(yi)))
+    n = int(frac.sum())
+    if n:
+        i = int(frac.nonzero()[0, 0])
+        raise ValueError(
+            f"fully_fused_warp_splat: window_size {window_size} runs kernel 1, which samples "
+            f"theta at rounded coordinates, and {n} events have an xi or yi that is not a "
+            f"whole number (event {i}: xi {float(xi[i])!r}, yi {float(yi[i])!r}); kernel 8 "
+            "and the plain version sample them as given")
+    th = interp_fwd_cuda(theta, xi, yi, sensor_size)
+    return fused_warp_splat_routed(
+        xi, yi, ts, th[:, 0].contiguous(), th[:, 1].contiguous(), t_ref, sensor_size,
+        window_size,
     )
 
 
@@ -342,6 +392,10 @@ def fused_warp_splat_frame(
         frame = fused_warp_splat_frame_plain(
             xi, yi, ts, thx, thy, t_ref, sensor_size, window_size
         )
+    elif int(window_size) not in WINDOW_SIZES:
+        frame = fused_warp_splat_routed(
+            xi, yi, ts, thx, thy, t_ref, sensor_size, window_size
+        )
     else:
         frame = fused_warp_splat_cuda(
             xi, yi, ts, thx, thy, t_ref, sensor_size, window_size
@@ -366,6 +420,10 @@ def fully_fused_warp_splat_frame(
     """
     if all(t.device.type == "cpu" for t in (xi, yi, ts, theta)):
         frame = fully_fused_warp_splat_frame_plain(
+            xi, yi, ts, theta, t_ref, sensor_size, window_size
+        )
+    elif int(window_size) not in WINDOW_SIZES:
+        frame = fully_fused_warp_splat_routed(
             xi, yi, ts, theta, t_ref, sensor_size, window_size
         )
     else:

@@ -7,12 +7,16 @@ keys and values and each package reads the other's artifacts. YAML is read
 by `utils/yaml_lite.py` (no PyYAML on the card's machine).
 
 What the port does not run raises `NotImplementedError` instead of giving
-a different run: `jax_config` and `compilation_cache_dir` (XLA settings
-have no meaning in PyTorch), and more than one `distributed.
-local_device_ids` (one device per process). The solver switches `splat_impl`,
-`interp_impl`, `splat_multiref_stacked` and `scan_levels` choose between
-implementations of one function in the JAX package; the port has one of
-each, so they are accepted and ignored.
+a different run: a `jax_config` flag other than `jax_enable_x64` (naming
+the flag), and more than one `distributed.local_device_ids` (one device
+per process). The solver switches `splat_impl`, `interp_impl`,
+`splat_multiref_stacked` and `scan_levels` choose between implementations
+of one function in the JAX package; the port has one of each, so they are
+accepted and ignored. So are `jax_config={jax_enable_x64: ...}` (the
+reference's default: the JAX package's solve casts its inputs to float32
+and its results do not depend on the flag; the port's dtypes are its own)
+and `compilation_cache_dir` (the XLA compilation cache: the port compiles
+no XLA programs).
 """
 
 from __future__ import annotations
@@ -27,6 +31,10 @@ from eincm_tpu_torch.models.loss import LossParams
 from eincm_tpu_torch.models.pyramid import HandoverSettings, SolverConfig
 from eincm_tpu_torch.parallel.distributed import DistributedConfig, check_local_device_ids
 from eincm_tpu_torch.utils import yaml_lite
+
+
+# the jax_config flags the port takes and ignores (module docstring)
+IGNORED_JAX_FLAGS = ("jax_enable_x64",)
 
 
 @dataclass
@@ -253,8 +261,8 @@ class ExperimentConfig:
     output_dir: str = "outputs"
     experiment_name: str = "eincm"
     seed: int = 0
-    # the JAX package's jax.config flags and XLA compilation cache: must
-    # stay empty here
+    # the JAX package's jax.config flags and XLA compilation cache: only
+    # jax_enable_x64 and the cache are taken here, with no effect
     jax_config: Dict[str, Any] = field(default_factory=dict)
     # matplotlib rcParams applied before the PLOT phase (reference:
     # src/experiments/e00/__main__.py:29-31)
@@ -267,15 +275,11 @@ class ExperimentConfig:
     def check_runnable(self):
         """Raise for settings the port does not run."""
         check_local_device_ids(self.distributed)
-        if self.jax_config:
+        others = [k for k in self.jax_config if k not in IGNORED_JAX_FLAGS]
+        if others:
             raise NotImplementedError(
-                f"jax_config {self.jax_config!r}: JAX flags have no meaning in "
-                "the PyTorch port"
-            )
-        if self.compilation_cache_dir:
-            raise NotImplementedError(
-                "compilation_cache_dir: the XLA compilation cache has no "
-                "meaning in the PyTorch port"
+                f"jax_config: {', '.join(map(str, others))}: JAX flags other than "
+                f"{', '.join(IGNORED_JAX_FLAGS)} have no meaning in the PyTorch port"
             )
 
     @property

@@ -15,18 +15,25 @@ live in `utils/h5_latest.py`:
   link messages, compact or dense (fractal heap, version 2 B-tree name
   index), so a path such as `davis/left/events` resolves; soft links are
   followed as h5py follows them;
-- scalar and simple dataspaces;
+- scalar, simple and null dataspaces (`read` of a null one raises
+  TypeError, as numpy does on h5py's dataset; `read_value` gives `Empty`);
 - fixed-point and IEEE floating-point datatypes, little or big endian;
   enumerations (h5py's bool enum as numpy `bool`, any other as its base
   integer type); fixed-length strings as `S{n}` and variable-length
   strings as an object array of `bytes` (from the global heap), padded
-  and cut as h5py gives them;
+  and cut as h5py gives them; compound types as h5py's structured dtype
+  (nested, with array, enum, bool and string members; {r, i} as complex);
+  array types; variable-length sequences as an object array of 1-D
+  arrays; object and dataset region references as an object array of
+  `Reference` / `RegionReference` (`dereference`, `read_region`);
+- committed datatypes: a message shared in another object header;
 - fill values (the old and the new message), wherever h5py uses them:
   storage never allocated, chunks that no index lists;
 - layout messages version 3 and 4: compact, contiguous, and chunked
   through the version 1 chunk B-tree or any of version 4's five chunk
   indexes (single chunk, implicit, fixed array, extensible array, version
-  2 B-tree);
+  2 B-tree); virtual datasets (their sources in this file, in others or
+  missing, unlimited and printf-style mappings); external data files;
 - the filters deflate, shuffle, Fletcher-32 (checked and stripped: a
   mismatch raises naming the chunk), h5py's LZF (32000), Blosc (32001, as
   hdf5plugin writes it for real DSEC files: `utils/blosc.py`, every codec
@@ -34,15 +41,20 @@ live in `utils/h5_latest.py`:
   frames). LZF and Zstd chunks go through the native library
   (`native/blosc.cpp`, `native/zstd.cpp`); LZF has a plain Python decoder
   where it did not build, Zstd none: without it filter 32015 and Blosc's
-  Zstd raise.
+  Zstd raise;
+- external links, followed into the file they name as soft links are.
+
+The structures that point at other objects or files live in
+`utils/h5_features.py`, which also says where HDF5 looks for a file that
+a link, a virtual dataset or an external data file names; a file opened
+on the way is opened once and closed with the file that reached it.
 
 Anything else raises `UnsupportedHDF5`, naming the file, the object and the
-feature ("filter 32008 (bitshuffle)", "datatype class 6 (compound)",
-"virtual layout", "an external link", "a shared message"); it never
-returns a guess. A malformed file raises `ValueError`: every field is
-bounds-checked, and an index, heap or B-tree that points back at itself
-raises instead of looping. A contiguous dataset is read with one
-`np.fromfile`.
+feature ("filter 32008 (bitshuffle)", "datatype class 5 (opaque)", "a
+message shared through the SOHM table"); it never returns a guess. A
+malformed file raises `ValueError`: every field is bounds-checked, and an
+index, heap, B-tree or link chain that points back at itself raises
+instead of looping. A contiguous dataset is read with one `np.fromfile`.
 
 `write_h5(path, {path: array})` writes contiguous datasets and scalars in
 the version 0 format (h5py reads them); the loaders never call it.
@@ -60,7 +72,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from eincm_tpu_torch.native import blosc as native_blosc
-from eincm_tpu_torch.utils import blosc, h5_latest
+from eincm_tpu_torch.utils import blosc, h5_features, h5_latest
+from eincm_tpu_torch.utils.h5_features import (
+    Empty, Reference, RegionReference, UnsupportedHDF5,
+)
 from eincm_tpu_torch.utils.h5_latest import Cursor, check_sum
 
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
@@ -87,43 +102,114 @@ _SYMBOL_ENTRY = struct.Struct("<QQI4x16s")
 # `_fill`'s answer for an undefined fill value: zeros in a chunk no index
 # lists, but nothing at all where no storage was ever allocated (h5py fails)
 _UNDEFINED_FILL = b""
-_MAX_SOFT_LINKS = 16  # soft links followed in one lookup, as HDF5 (H5L_NUM_LINKS)
-# a variable-length element: its length, then the global heap object's ID
+# soft and external links followed in one lookup, as HDF5 (H5L_NUM_LINKS)
+_MAX_SOFT_LINKS = 16
+# a variable-length element: its length, then the global heap object's ID;
+# a dataset region reference: the global heap object's ID
 _VLEN = np.dtype([("n", "<u4"), ("collection", "<u8"), ("index", "<u4")])
-
-
-class UnsupportedHDF5(ValueError):
-    """An HDF5 feature outside the subset this module reads."""
+_REGION = np.dtype([("collection", "<u8"), ("index", "<u4")])
+_OBJECT_KINDS = ("vlen string", "vlen", "reference", "region reference")
 
 
 class _Type:
     """A dataset's datatype: the numpy dtype its elements are stored as,
-    and what h5py makes of them ("plain", "bool", "string" with its padding
-    (0 null-terminated, 1 null-padded, 2 space-padded), "vlen string")."""
+    and what h5py makes of them (`kind`: "plain", "bool", "string" with its
+    padding `pad` (0 null-terminated, 1 null-padded, 2 space-padded), "vlen
+    string", "vlen" (a sequence of `base`), "array" (`dims` of `base`),
+    "compound" (`members`: (name, offset, type)), "reference", "region
+    reference")."""
 
-    __slots__ = ("storage", "kind", "pad")
+    __slots__ = ("storage", "kind", "pad", "base", "dims", "members")
 
-    def __init__(self, storage: np.dtype, kind: str = "plain", pad: int = 0):
+    def __init__(self, storage: np.dtype, kind: str = "plain", pad: int = 0, base=None,
+                 dims: Tuple[int, ...] = (), members=()):
         self.storage, self.kind, self.pad = storage, kind, pad
+        self.base, self.dims, self.members = base, dims, tuple(members)
+
+    @property
+    def out(self) -> np.dtype:
+        """The dtype h5py gives."""
+        if self.kind in ("plain", "string"):
+            return self.storage
+        if self.kind == "bool":
+            return np.dtype(bool)
+        if self.kind in _OBJECT_KINDS:
+            return np.dtype(object)
+        if self.kind == "array":
+            return np.dtype((self.base.out, self.dims))
+        names = [m[0] for m in self.members]
+        types = [m[2] for m in self.members]
+        f = types[0].storage
+        # h5py reads a compound {r, i} of two equal floats as numpy complex
+        if (names == ["r", "i"] and all(t.kind == "plain" and t.storage == f for t in types)
+                and f.kind == "f" and f.itemsize in (4, 8)
+                and [m[1] for m in self.members] == [0, f.itemsize]
+                and self.storage.itemsize == 2 * f.itemsize):
+            return np.dtype(f"{f.byteorder if f.byteorder in '<>' else '='}c{2 * f.itemsize}")
+        return np.dtype({"names": names, "formats": [t.out for t in types],
+                         "offsets": [m[1] for m in self.members],
+                         "itemsize": self.storage.itemsize})
+
+    @property
+    def converts(self) -> bool:
+        """Whether h5py's elements differ from the stored bytes."""
+        if self.kind == "compound":
+            return self.out != self.storage or any(m[2].converts for m in self.members)
+        if self.kind == "array":
+            return self.base.converts
+        return not (self.kind == "plain" or self.kind == "string" and self.pad == 1)
+
+    @property
+    def io(self) -> np.dtype:
+        """The dtype the storage is read as: an array type's elements as
+        opaque bytes (numpy would fold its dimensions into the shape)."""
+        return np.dtype(f"V{self.storage.itemsize}") if self.kind == "array" else self.storage
+
+
+class _Opened:
+    """What a file shares with the files it opened through external links
+    and virtual datasets: those files, by (device, inode), each opened once
+    and closed with it, and the virtual datasets being read (a dataset
+    that is its own source raises)."""
+
+    def __init__(self):
+        self.files: Dict[Tuple[int, int], "File"] = {}
+        self.reading: set = set()
 
 
 class File:
     """One HDF5 file opened for reading: `read(path)` gives a dataset as a
-    numpy array (a 0-d array for a scalar)."""
+    numpy array (a 0-d array for a scalar), `read_value(path)` as h5py's
+    `f[path][()]`, `dereference(ref)` a reference's path and
+    `read_region(ref)` a region reference's elements."""
 
-    def __init__(self, path):
+    def __init__(self, path, _opened: Optional[_Opened] = None):
         self.path = Path(path)
         self._f = open(self.path, "rb")
         try:
-            self._size = os.fstat(self._f.fileno()).st_size
+            st = os.fstat(self._f.fileno())
+            self._size = st.st_size
+            # the directory HDF5 resolves external names against (H5F_EXTPATH)
+            self._origin = os.path.dirname(os.path.abspath(self.path))
+            self._owner = _opened is None
+            self._opened = _Opened() if _opened is None else _opened
             self._groups: Dict[int, Dict[str, Tuple[str, object]]] = {}  # _links by address
+            self._shared_msgs: Dict[Tuple[int, int], bytes] = {}
+            self._sharing: set = set()
+            self._paths: Optional[Dict[int, str]] = None
             self._global_heap = h5_latest.GlobalHeap(self._read, str(self.path))
             self._root = self._superblock()
         except BaseException:
             self._f.close()
             raise
+        self._opened.files.setdefault((st.st_dev, st.st_ino), self)
 
     def close(self):
+        if self._owner:
+            for f in self._opened.files.values():
+                if f is not self:
+                    f._f.close()
+            self._opened.files.clear()
         self._f.close()
 
     def __enter__(self):
@@ -149,6 +235,21 @@ class File:
         if len(data) != n:
             raise ValueError(f"{self.path}: truncated at byte {addr} (+{n})")
         return data
+
+    def _open(self, name: str, kind: str) -> Optional["File"]:
+        """The file that `name` names from this one (an external link's,
+        kind "link", or a virtual dataset's source, "vds") at the first
+        place HDF5 looks where one exists (`h5_features.candidates`), opened
+        once; None where there is none."""
+        for path in h5_features.candidates(name, kind, self._origin):
+            if not os.path.isfile(path):
+                continue
+            st = os.stat(path)
+            key = (st.st_dev, st.st_ino)
+            if key not in self._opened.files:
+                File(path, self._opened)  # registers itself
+            return self._opened.files[key]
+        return None
 
     def _superblock(self) -> int:
         head = self._read(0, min(16, self._size))
@@ -242,39 +343,80 @@ class File:
             c = Cursor(body, self._where(obj, "continuation message"))
             blocks.append((c.u64(), c.u64()))
         if flags & 0x02:
-            raise self._unsupported(obj, "a shared message")
+            body = self._shared(mtype, body, obj)
         out.append((mtype, body))
+
+    def _shared(self, mtype: int, body: bytes, obj: str) -> bytes:
+        """The body of a message shared in another object header (a
+        committed datatype): that header's first message of its type."""
+        where = self._where(obj, f"message {mtype:#x}")
+        addr = h5_features.shared_address(body, where)
+        key = (addr, mtype)
+        if key not in self._shared_msgs:
+            if key in self._sharing:
+                raise ValueError(f"{where}: shared from the object header at {addr}, which "
+                                 "shares it back (a cycle)")
+            self._sharing.add(key)
+            try:
+                found = [b for t, b in self._messages(addr, f"{obj} (shared from {addr})")
+                         if t == mtype]
+            finally:
+                self._sharing.discard(key)
+            if not found:
+                raise ValueError(f"{where}: shared from the object header at {addr}, which "
+                                 f"holds no message {mtype:#x}")
+            self._shared_msgs[key] = found[0]
+        return self._shared_msgs[key]
 
     # -------------------------------------------------------------- groups
 
     def _find(self, parts: List[str]) -> Tuple[int, str]:
+        """(its object header's address, its path) of the object at `parts`
+        in this file."""
+        f, addr, obj = self._locate(parts)
+        if f is not self:
+            raise KeyError(f"{self.path}: {obj} is in {f.path}")
+        return addr, obj
+
+    def _locate(self, parts: List[str]) -> Tuple["File", int, str]:
+        """(the file that holds it, its object header's address, its path)
+        of the object at `parts`, links followed into other files."""
         return self._resolve(self._root, "/", parts, [0])
 
     def _resolve(self, addr: int, obj: str, parts: List[str], hops: List[int]):
-        for name in parts:
-            links = self._links(addr, obj)
-            if name not in links:
-                raise KeyError(f"{self.path}: no object {name!r} in {obj}")
-            kind, target = links[name]
-            child = obj.rstrip("/") + "/" + name
-            if kind == "soft":
-                hops[0] += 1
-                if hops[0] > _MAX_SOFT_LINKS:
-                    raise ValueError(f"{self.path}: {child}: more than {_MAX_SOFT_LINKS} "
-                                     "soft links")
-                start = (self._root, "/") if target.startswith("/") else (addr, obj)
-                addr, _ = self._resolve(*start, [p for p in target.split("/")
-                                                 if p not in ("", ".")], hops)
-            elif kind == "hard":
-                addr = target
-            else:
-                raise self._unsupported(child, f"{kind} ({target})")
-            obj = child
-        return addr, obj
+        if not parts:
+            return self, addr, obj
+        name, rest = parts[0], parts[1:]
+        links = self._links(addr, obj)
+        if name not in links:
+            raise KeyError(f"{self.path}: no object {name!r} in {obj}")
+        kind, target = links[name]
+        child = obj.rstrip("/") + "/" + name
+        if kind == "hard":
+            return self._resolve(target, child, rest, hops)
+        if kind not in ("soft", "external"):
+            raise self._unsupported(child, f"{kind} ({target})")
+        hops[0] += 1
+        if hops[0] > _MAX_SOFT_LINKS:
+            raise ValueError(f"{self.path}: {child}: more than {_MAX_SOFT_LINKS} soft links and "
+                             "external links in one lookup (a cycle?)")
+        if kind == "soft":
+            start = (self._root, "/") if target.startswith("/") else (addr, obj)
+            f, at, _ = self._resolve(*start, _parts(target), hops)
+        else:
+            name, path = target
+            f = self._open(name, "link")
+            if f is None:
+                raise KeyError(f"{self.path}: {child}: an external link to {name}:{path}, and "
+                               f"no file {name!r} in "
+                               f"{h5_features.candidates(name, 'link', self._origin)}")
+            f, at, _ = f._resolve(f._root, "/", _parts(path), hops)
+        return f._resolve(at, child, rest, hops)
 
     def _links(self, addr: int, obj: str) -> Dict[str, Tuple[str, object]]:
-        """{name: ("hard", header address) | ("soft", path) | (other kind,
-        its description)} of the group at `addr`."""
+        """{name: ("hard", header address) | ("soft", path) | ("external",
+        (file, path)) | (other kind, its description)} of the group at
+        `addr`."""
         if addr not in self._groups:
             self._groups[addr] = self._group_links(addr, obj)
         return self._groups[addr]
@@ -324,20 +466,24 @@ class File:
         value = c.take(c.u16())
         if kind == 1:
             return name, ("soft", value.decode("utf-8"))
-        if kind == 64:
+        if kind == 64:  # flags, then the file's and the object's names
             file, _, path = value[1:].rstrip(b"\0").partition(b"\0")
-            return name, ("an external link", f"to {file.decode(errors='replace')}:"
-                                              f"{path.decode(errors='replace')}")
+            return name, ("external", (file.decode("utf-8"), path.decode("utf-8")))
         return name, ("a user-defined link", f"type {kind}")
 
-    def _symbol_table(self, btree: int, heap: int, obj: str) -> Dict[str, Tuple[str, object]]:
+    def _local_heap(self, heap: int, obj: str) -> bytes:
+        """The data segment of the local heap at `heap`."""
         hw = self._where(obj, f"local heap at {heap}")
         hd = Cursor(self._read(heap, 32), hw)
         if hd.take(4) != b"HEAP":
             raise ValueError(f"{hw}: bad local heap signature")
         hd.take(4)
         seg_size, _, seg_addr = hd.u64(), hd.u64(), hd.u64()
-        names = self._read(seg_addr, seg_size)
+        return self._read(seg_addr, seg_size)
+
+    def _symbol_table(self, btree: int, heap: int, obj: str) -> Dict[str, Tuple[str, object]]:
+        hw = self._where(obj, f"local heap at {heap}")
+        names = self._local_heap(heap, obj)
         out: Dict[str, Tuple[str, object]] = {}
         for snod in self._btree1(btree, 0, obj):
             sw = self._where(obj, f"symbol node at {snod}")
@@ -392,25 +538,49 @@ class File:
 
     def read(self, path: str) -> np.ndarray:
         """The dataset at `path` ('a/b/c'), as h5py's `np.asarray(f[path])`."""
-        parts = [p for p in path.split("/") if p]
-        addr, obj = self._find(parts)
-        msgs = self._messages(addr, obj)
+        f, addr, obj = self._locate(_parts(path))
+        return f._dataset(addr, obj)
+
+    def read_value(self, path: str):
+        """The dataset at `path` as h5py's `f[path][()]`: a numpy scalar for
+        a scalar, `Empty(dtype)` for a null dataspace, else the array."""
+        f, addr, obj = self._locate(_parts(path))
+        _, shape, _, t = f._header(addr, obj)
+        if shape is None:
+            return Empty(t.out)
+        return f._dataset(addr, obj)[()]
+
+    def _header(self, addr: int, obj: str):
+        """(first message of each type, shape (None: a null dataspace),
+        maximum shape, datatype) of the dataset at `addr`."""
         by_type: Dict[int, bytes] = {}
-        for t, b in msgs:
+        for t, b in self._messages(addr, obj):
             by_type.setdefault(t, b)
         if _LAYOUT not in by_type:
             raise KeyError(f"{self.path}: {obj} is not a dataset")
         for t in (_DATASPACE, _DATATYPE):
             if t not in by_type:
                 raise ValueError(f"{self.path}: {obj}: a dataset without message {t:#x}")
-        if _EXTERNAL in by_type:
-            raise self._unsupported(obj, "external data files")
         shape, maxshape = self._dataspace(by_type[_DATASPACE], obj)
         dtype = self._datatype(Cursor(by_type[_DATATYPE], self._where(obj, "datatype")), obj)
-        fill = self._fill(by_type, dtype.storage, obj)
-        filters = self._filters(by_type[_FILTER], obj) if _FILTER in by_type else []
-        raw = self._data(by_type[_LAYOUT], shape, maxshape, dtype.storage, filters, fill, obj)
-        return self._convert(raw, dtype, obj)
+        return by_type, shape, maxshape, dtype
+
+    def _dataset(self, addr: int, obj: str) -> np.ndarray:
+        by_type, shape, maxshape, t = self._header(addr, obj)
+        if shape is None:  # numpy's answer to h5py's Empty dataset
+            raise TypeError(f"{self.path}: {obj}: Empty datasets have no numpy representation")
+        fill = self._fill(by_type, t.storage, obj)
+        layout = by_type[_LAYOUT]
+        if layout[:2] == b"\x04\x03":  # layout message version 4, virtual
+            return self._virtual(layout, shape, t, fill, addr, obj)
+        if _EXTERNAL in by_type:
+            raw = self._external_data(by_type[_EXTERNAL], shape, t.io, obj)
+        else:
+            filters = self._filters(by_type[_FILTER], obj) if _FILTER in by_type else []
+            raw = self._data(layout, shape, maxshape, t.io, filters, fill, obj)
+        if t.kind == "array":  # h5py folds the element's dimensions into the shape
+            raw = np.ascontiguousarray(raw).view(t.base.storage).reshape(shape + t.dims)
+        return self._convert(raw, t, obj)
 
     def _dataspace(self, b: bytes, obj: str):
         c = Cursor(b, self._where(obj, "dataspace"))
@@ -419,7 +589,7 @@ class File:
             c.take(5)
         elif version == 2:
             if c.u8() == 2:
-                raise self._unsupported(obj, "a null dataspace")
+                return None, None
         else:
             raise self._unsupported(obj, f"dataspace message v{version}")
         if version == 1 and flags & 0x02:
@@ -443,6 +613,17 @@ class File:
                 raise ValueError(f"{self.path}: {obj}: a {size}-byte string padded "
                                  f"by rule {bits & 0x0F}")
             return _Type(np.dtype(f"S{size}"), "string", bits & 0x0F)
+        if cls == 6:
+            return self._compound(c, version, bits & 0xFFFF, size, obj)
+        if cls == 7:  # references: an object header's address, a region's heap object
+            kind = bits & 0x0F
+            if version == 4 or kind > 1:
+                raise self._unsupported(obj, f"a reference of type {kind} in datatype "
+                                        f"message v{version} (H5R_ref_t)")
+            want = ("<u8", "reference") if kind == 0 else (_REGION, "region reference")
+            if size != np.dtype(want[0]).itemsize:
+                raise ValueError(f"{self.path}: {obj}: a {size}-byte {want[1]}")
+            return _Type(np.dtype(want[0]), want[1])
         if cls == 8:  # enumeration: base type, names, values
             base = self._datatype(c, obj)
             if base.kind != "plain" or base.storage.kind not in "iu" or (
@@ -451,11 +632,8 @@ class File:
                                         f"as {size} bytes")
             names = []
             for _ in range(bits & 0xFFFF):
-                end = c.buf.find(b"\0", c.pos)
-                if end < 0:
-                    raise ValueError(f"{c.where}: an enumeration name without its end")
-                names.append(c.take(end - c.pos))
-                c.take(1 + (0 if version >= 3 else -(len(names[-1]) + 1) % 8))
+                names.append(_name(c))
+                c.take(0 if version >= 3 else -(len(names[-1]) + 1) % 8)
             values = np.frombuffer(c.take(len(names) * size), base.storage).tolist()
             # h5py gives the enum {FALSE: 0, TRUE: 1} as numpy bool, any other
             # as its base type
@@ -463,13 +641,65 @@ class File:
                 return _Type(base.storage, "bool")
             return base
         if cls == 9:  # variable-length: a sequence or a string of its base type
-            self._datatype(c, obj)
-            if bits & 0x0F != 1:
-                raise self._unsupported(obj, "datatype class 9 (variable-length) sequence")
+            base = self._datatype(c, obj)
             if size != _VLEN.itemsize:
-                raise ValueError(f"{self.path}: {obj}: a {size}-byte variable-length string")
-            return _Type(_VLEN, "vlen string")
+                raise ValueError(f"{self.path}: {obj}: a {size}-byte variable-length type")
+            if bits & 0x0F == 1:
+                return _Type(_VLEN, "vlen string")
+            if bits & 0x0F != 0:
+                raise ValueError(f"{self.path}: {obj}: variable-length type {bits & 0x0F}")
+            if base.out.hasobject:
+                raise self._unsupported(obj, f"a variable-length sequence of {base.kind}")
+            return _Type(_VLEN, "vlen", base=base)
+        if cls == 10:  # array: dimensions (and, before version 3, a permutation)
+            ndims = c.u8()
+            c.take(3 if version < 3 else 0)
+            dims = tuple(c.u32() for _ in range(ndims))
+            c.take(4 * ndims if version < 3 else 0)
+            base = self._datatype(c, obj)
+            return self._array(base, dims, size, obj)
         raise self._unsupported(obj, f"datatype class {cls} ({_CLASSES.get(cls, 'unknown')})")
+
+    def _array(self, base: _Type, dims: Tuple[int, ...], size: int, obj: str) -> _Type:
+        if base.out.hasobject:
+            raise self._unsupported(obj, f"an array of {base.kind}")
+        if not dims or math.prod(dims) * base.storage.itemsize != size:
+            raise ValueError(f"{self.path}: {obj}: an array {dims} of "
+                             f"{base.storage.itemsize}-byte elements in {size} bytes")
+        return _Type(np.dtype((base.storage, dims)), "array", base=base, dims=dims)
+
+    def _compound(self, c: Cursor, version: int, n: int, size: int, obj: str) -> _Type:
+        """A compound type (datatype message versions 1 to 4): each member's
+        name, byte offset (and, in version 1, dimensions) and type."""
+        members = []
+        for _ in range(n):
+            name = _name(c)
+            c.take(0 if version >= 3 else -(len(name) + 1) % 8)
+            dims: Tuple[int, ...] = ()
+            if version == 1:
+                offset, ndims = c.u32(), c.u8()
+                c.take(3 + 4 + 4)  # reserved, permutation, reserved
+                dims = tuple(c.u32() for _ in range(4))[:ndims]
+            elif version == 2:
+                offset = c.u32()
+            else:  # as few bytes as the compound's size needs
+                offset = c.uint(h5_latest._bytes_for(size))
+            t = self._datatype(c, obj)
+            if dims:
+                t = self._array(t, dims, math.prod(dims) * t.storage.itemsize, obj)
+            if t.out.hasobject:
+                raise self._unsupported(obj, f"a {t.kind} member of a compound type")
+            if offset + t.storage.itemsize > size:
+                raise ValueError(f"{self.path}: {obj}: compound member {name!r} of "
+                                 f"{t.storage.itemsize} bytes at {offset} of {size}")
+            members.append((name.decode("utf-8"), offset, t))
+        try:
+            storage = np.dtype({"names": [m[0] for m in members],
+                                "formats": [m[2].storage for m in members],
+                                "offsets": [m[1] for m in members], "itemsize": size})
+        except (ValueError, TypeError) as e:
+            raise ValueError(f"{self.path}: {obj}: compound type: {e}") from None
+        return _Type(storage, "compound", members=members)
 
     def _number(self, c: Cursor, cls: int, bits: int, size: int, obj: str) -> np.dtype:
         order = ">" if bits & 0x01 else "<"
@@ -764,10 +994,147 @@ class File:
                 raw = out.tobytes() + raw[n * width:]
         return raw
 
+    def _external_data(self, body: bytes, shape, storage: np.dtype, obj: str) -> np.ndarray:
+        """A dataset stored in external data files: each slot's bytes of
+        its file, in order, where HDF5 looks for it (a relative name from
+        the working directory, or HDF5_EXTFILE_PREFIX)."""
+        where = self._where(obj, "external data files")
+        heap, slots = h5_features.external_files(body, where)
+        names = self._local_heap(heap, obj)
+        count = math.prod(shape)
+        need, parts = count * storage.itemsize, []
+        for name_off, offset, size in slots:
+            if need <= 0:
+                break
+            name = _cstr(names, name_off, where).decode("utf-8")
+            n = need if size == UNDEF else min(size, need)
+            parts.append(h5_features.read_external(
+                h5_features.candidates(name, "efile", self._origin)[0], offset, n, where))
+            need -= n
+        if need > 0:
+            raise ValueError(f"{where}: its files hold {need} bytes fewer than the dataset's "
+                             f"{count * storage.itemsize}")
+        return np.frombuffer(b"".join(parts), storage, count).reshape(shape)
+
+    def _virtual(self, layout: bytes, shape, t: _Type, fill, addr: int, obj: str) -> np.ndarray:
+        """A virtual dataset as h5py's default view reads it: the fill
+        value, then each mapping's source elements in its virtual
+        selection; a missing source file or dataset leaves the fill value.
+        A dimension with unlimited mappings takes the extent their sources
+        give now; a printf-style mapping (`%b`) takes sources 0, 1, ... up
+        to the first missing one."""
+        where = self._where(obj, "virtual layout")
+        if t.out.hasobject:
+            raise self._unsupported(obj, f"a virtual dataset of {t.kind}")
+        c = Cursor(layout, where, 2)
+        maps = h5_features.vds_mappings(self._global_heap.get(c.u64(), c.u32()), where)
+        key = (str(self.path), addr)
+        if key in self._opened.reading:
+            raise ValueError(f"{where}: a virtual dataset that is its own source")
+        self._opened.reading.add(key)
+        try:
+            return self._map(maps, shape, t, fill, obj, where)
+        finally:
+            self._opened.reading.discard(key)
+
+    def _map(self, maps, shape, t: _Type, fill, obj: str, where: str) -> np.ndarray:
+        sources: Dict[Tuple[str, str], Optional[np.ndarray]] = {}
+
+        def source(file: str, dset: str) -> Optional[np.ndarray]:
+            if (file, dset) not in sources:
+                f = self if file == "." else self._open(file, "vds")
+                try:
+                    sources[file, dset] = None if f is None else f.read(dset)
+                except KeyError:  # no such dataset: as a missing file
+                    sources[file, dset] = None
+            return sources[file, dset]
+
+        rank = len(shape)
+        plans, unlimited, limited = [], {}, [0] * rank
+        for file0, dset0, ssel, vsel in maps:
+            d = vsel.unlimited_dim()
+            file, printf_file = h5_features.printf_name(file0, where)
+            dset, printf_dset = h5_features.printf_name(dset0, where)
+            if printf_file or printf_dset:  # source j fills block j
+                if d is None or vsel.regular[d][3] is None or ssel.unlimited_dim() is not None:
+                    raise ValueError(f"{where}: printf-style source names ({file0}:{dset0}) "
+                                     "need unlimited blocks of a virtual selection and a "
+                                     "limited source selection")
+                j = 0
+                while True:
+                    src = source(h5_features.printf_name(file0, where, j)[0],
+                                 h5_features.printf_name(dset0, where, j)[0])
+                    if src is None:
+                        break
+                    plans.append((vsel.block(d, j), src, ssel))
+                    j += 1
+                unlimited[d] = max(unlimited.get(d, 0), vsel.with_count(d, j).extent(d))
+            elif d is not None:
+                sd = ssel.unlimited_dim()
+                src = source(file, dset)
+                if sd is None:
+                    raise ValueError(f"{where}: an unlimited virtual selection mapped from a "
+                                     "limited source selection")
+                sclip = ssel.clip(sd, src.shape[sd]) if src is not None else None
+                n = sclip.along(sd) if sclip is not None else 0
+                vblock = vsel.regular[d][3]
+                if vblock is not None and n % vblock:
+                    raise ValueError(f"{where}: {n} source elements along dimension {sd} do "
+                                     f"not fill blocks of {vblock}")
+                vclip = vsel.with_count(d, n if vblock is None else n // vblock)
+                if src is not None:
+                    plans.append((vclip, src, sclip))
+                unlimited[d] = max(unlimited.get(d, 0), vclip.extent(d))
+            else:
+                src = source(file, dset)
+                for k in range(rank):
+                    limited[k] = max(limited[k], vsel.extent(k))
+                if src is not None:
+                    plans.append((vsel, src, ssel))
+        shape = tuple(max(unlimited[k], limited[k]) if k in unlimited else n
+                      for k, n in enumerate(shape))
+        first = self._convert(self._filled((1,), t.storage, fill or None, obj), t, obj)
+        out = np.empty(shape, t.out)
+        out[...] = first[0]
+        flat = out.reshape(-1)
+        for vsel, src, ssel in plans:
+            vbox, sbox = vsel.slices(len(shape)), ssel.slices(src.ndim)
+            if vbox is not None and sbox is not None and all(  # boxes: no index arrays
+                    b.stop is None or b.stop <= n for b, n in zip(vbox, shape)) and all(
+                    b.stop is None or b.stop <= n for b, n in zip(sbox, src.shape)):
+                dst, part = out[vbox], src[sbox]
+                if dst.size != part.size:
+                    raise ValueError(f"{where}: a mapping of {part.size} source elements "
+                                     f"to {dst.size} virtual ones")
+                out[vbox] = self._as_type(part, t.out, obj).reshape(dst.shape)
+                continue
+            vi, si = vsel.indices(shape, where), ssel.indices(src.shape, where)
+            if len(vi) != len(si):
+                raise ValueError(f"{where}: a mapping of {len(si)} source elements to "
+                                 f"{len(vi)} virtual ones")
+            flat[vi] = self._as_type(src.reshape(-1)[si], t.out, obj)
+        return out
+
+    def _as_type(self, a: np.ndarray, dtype: np.dtype, obj: str) -> np.ndarray:
+        """A virtual dataset's source elements in its own dtype, as HDF5
+        converts numbers: integers saturated at the target's range, integers
+        and floats to floats rounded."""
+        if a.dtype == dtype:
+            return a
+        if a.dtype.kind in "iu" and dtype.kind in "iu":
+            info = np.iinfo(dtype)
+            return np.clip(a, max(info.min, np.iinfo(a.dtype).min),
+                           min(info.max, np.iinfo(a.dtype).max)).astype(dtype)
+        if a.dtype.kind in "iuf" and dtype.kind == "f":
+            return a.astype(dtype)
+        raise self._unsupported(obj, f"a source of {a.dtype} in a virtual dataset of {dtype}")
+
     def _convert(self, a: np.ndarray, t: _Type, obj: str) -> np.ndarray:
         """Stored elements as h5py gives them."""
         if t.kind == "plain":
             return a
+        if t.kind == "array":  # its dimensions already folded into the shape
+            return self._convert(a, t.base, obj)
         if t.kind == "bool":  # as h5py's bool enum (int8): other bases convert by value
             if a.dtype == np.int8:
                 return a.view(np.bool_)
@@ -787,18 +1154,134 @@ class File:
                 end = np.where(keep.any(axis=1), n - keep[:, ::-1].argmax(axis=1), 0)
             b[pos[None, :] >= end[:, None]] = 0
             return b.view(a.dtype).reshape(a.shape)
+        if t.kind == "compound":
+            out_dtype = t.out
+            if not t.converts:
+                return a
+            if out_dtype.kind == "c":
+                return np.ascontiguousarray(a).view(out_dtype).reshape(a.shape)
+            out = np.empty(a.shape, out_dtype)
+            for name, _, m in t.members:
+                out[name] = self._convert(a[name], m, obj)
+            return out
         out = np.empty(a.shape, object)
         flat = out.reshape(-1)
+        if t.kind == "reference":
+            for i, addr in enumerate(a.reshape(-1).tolist()):
+                flat[i] = Reference(str(self.path), addr)
+            return out
+        if t.kind == "region reference":
+            for i, (collection, index) in enumerate(a.reshape(-1).tolist()):
+                flat[i] = RegionReference(str(self.path), collection, index)
+            return out
         for i, (n, collection, index) in enumerate(a.reshape(-1).tolist()):
-            if n == 0:
-                flat[i] = b""
-                continue
-            data = self._global_heap.get(collection, index)
-            if n > len(data):
-                raise ValueError(f"{self.path}: {obj}: a {n}-byte string in a "
-                                 f"{len(data)}-byte heap object")
-            flat[i] = data[:n].split(b"\0", 1)[0]  # h5py reads it as a C string
+            if t.kind == "vlen":  # n elements of the base type
+                size = n * t.base.storage.itemsize
+                data = self._global_heap.get(collection, index) if n else b""
+            else:  # a string of n bytes
+                if n == 0:
+                    flat[i] = b""
+                    continue
+                size, data = n, self._global_heap.get(collection, index)
+            if size > len(data):
+                raise ValueError(f"{self.path}: {obj}: {size} bytes of a variable-length "
+                                 f"element in a {len(data)}-byte heap object")
+            if t.kind == "vlen":
+                seq = np.frombuffer(data, t.base.io, n)
+                if t.base.kind == "array":
+                    seq = seq.view(t.base.base.storage).reshape((n,) + t.base.dims)
+                seq = self._convert(seq, t.base, obj)
+                # h5py labels a sequence's stored numbers with the machine's
+                # byte order, whatever the file's (its elements are read raw)
+                flat[i] = (seq.view(seq.dtype.newbyteorder("=")) if seq.dtype.kind in "iufc"
+                           else seq).copy()
+            else:
+                flat[i] = data[:n].split(b"\0", 1)[0]  # h5py reads it as a C string
         return out
+
+    # ---------------------------------------------------------- references
+
+    def _file_of(self, ref: Reference) -> "File":
+        """The open file that `ref` was read from."""
+        for f in self._opened.files.values():
+            if str(f.path) == ref.file:
+                return f
+        raise ValueError(f"{self.path}: {ref!r} was read from a file this one did not open")
+
+    def _region(self, ref: RegionReference) -> Tuple[int, "h5_features.Selection"]:
+        """(the dataset's object header, the selection) of a region
+        reference's heap object."""
+        if not isinstance(ref, RegionReference) or not ref:
+            raise ValueError(f"{self.path}: {ref!r} is not a dataset region reference")
+        where = f"{self.path}: region reference {ref.addr}:{ref.index}"
+        c = Cursor(self._global_heap.get(ref.addr, ref.index), where)
+        return c.u64(), h5_features.decode_selection(c)
+
+    def dereference(self, ref: Reference) -> str:
+        """The path of the object that `ref` (object or region reference)
+        points to, as h5py's `f[ref].name`: the first path to it that a
+        walk of the groups finds (`_object_paths`)."""
+        f = self._file_of(ref)
+        if f is not self:
+            return f.dereference(ref)
+        if not ref:
+            raise ValueError(f"{self.path}: a null reference")
+        addr = f._region(ref)[0] if isinstance(ref, RegionReference) else ref.addr
+        paths = self._object_paths()
+        if addr not in paths:
+            raise KeyError(f"{self.path}: no group links the object at {addr}")
+        return paths[addr]
+
+    def read_region(self, ref: RegionReference) -> np.ndarray:
+        """The elements that a dataset region reference selects, in HDF5's
+        order, as h5py's `f[ref][ref]`: shaped as h5py guesses the
+        selection's shape (`h5_features.Selection.guess_shape`)."""
+        f = self._file_of(ref)
+        addr, sel = f._region(ref)
+        obj = f.dereference(ref)
+        data = f._dataset(addr, obj)
+        flat = sel.indices(data.shape, f._where(obj, "region"))
+        return data.reshape(-1)[flat].reshape(sel.guess_shape(data.shape, flat))
+
+    def _object_paths(self) -> Dict[int, str]:
+        """{object header: its first path}, the groups walked depth first as
+        HDF5's H5Iget_name walks them: each group's hard links in their
+        stored order (a symbol table's by name, link messages as written,
+        a dense group's by its name index)."""
+        if self._paths is None:
+            paths, seen = {self._root: "/"}, {self._root}
+
+            def walk(addr: int, obj: str) -> None:
+                try:
+                    links = self._links(addr, obj)
+                except KeyError:  # not a group
+                    return
+                for name, (kind, target) in links.items():
+                    if kind != "hard":
+                        continue
+                    child = obj.rstrip("/") + "/" + name
+                    paths.setdefault(target, child)
+                    if target not in seen:
+                        seen.add(target)
+                        walk(target, child)
+
+            walk(self._root, "/")
+            self._paths = paths
+        return self._paths
+
+
+def _parts(path: str) -> List[str]:
+    return [p for p in path.split("/") if p not in ("", ".")]
+
+
+def _name(c: Cursor) -> bytes:
+    """A null-terminated name at the cursor, its null taken."""
+    end = c.buf.find(b"\0", c.pos)
+    if end < 0:
+        raise ValueError(f"{c.where}: a name without its end")
+    name = c.take(end - c.pos)
+    c.take(1)
+    return name
 
 
 def _cstr(buf: bytes, off: int, where: str) -> bytes:

@@ -5,8 +5,9 @@ The DSEC submission format is 16-bit 3-channel PNG
 needs a downloaded binary). `write_png16` writes that subset (8- or
 16-bit, greyscale or RGB, filter type 0) and `read_png16` reads it with all
 five filter types. `read_png` reads every colour type and bit depth of a
-non-interlaced PNG as the JAX package's `imageio.imread` (PIL) gives it,
-for `data/readers.py:imread_gray`; an interlaced PNG raises.
+PNG, plain or interlaced (Adam7: seven passes, each a small image of its
+own filtered rows), as the JAX package's `imageio.imread` (PIL) gives it,
+for `data/readers.py:imread_gray`.
 
 Carried over from eincm_tpu/utils/png16.py; the reader's per-byte loops
 are vectorized (rows of None, Sub and Up filters row by row, images with
@@ -68,6 +69,10 @@ def write_png16(path, img: np.ndarray) -> None:
 _KINDS = {0: "greyscale", 2: "RGB", 3: "palette", 4: "greyscale + alpha", 6: "RGBA"}
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# the seven passes of Adam7 interlacing: (first column, first row, column
+# step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _decode(path):
@@ -93,8 +98,8 @@ def _decode(path):
     if ihdr is None:
         raise ValueError(f"{path}: a PNG without its IHDR")
     w, h, depth, color_type, _, _, interlace = ihdr
-    if interlace != 0:
-        raise ValueError(f"{path}: an interlaced PNG is not supported")
+    if interlace > 1:
+        raise ValueError(f"{path}: interlace method {interlace}")
     if depth not in _DEPTHS.get(color_type, ()):
         raise ValueError(f"{path}: PNG colour type {color_type} "
                          f"({_KINDS.get(color_type, 'unknown')}) at {depth} bits is not a "
@@ -102,12 +107,30 @@ def _decode(path):
     if color_type == 3 and plte is None:
         raise ValueError(f"{path}: a palette PNG without its PLTE")
     c = _CHANNELS[color_type]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    out = np.empty((h, w, c), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in passes:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:  # an empty pass has no rows, not even filter bytes
+            continue
+        stride = -(-pw * c * depth // 8)
+        n = ph * (stride + 1)
+        if pos + n > raw.size:
+            raise ValueError(f"{path}: {raw.size} bytes of image data, fewer than its rows need")
+        out[y0::dy, x0::dx] = _samples(raw[pos:pos + n], pw, ph, c, depth, path)
+        pos += n
+    if pos != raw.size:
+        raise ValueError(f"{path}: {raw.size} bytes of image data, not {pos}")
+    return depth, color_type, plte, out
+
+
+def _samples(raw: np.ndarray, w: int, h: int, c: int, depth: int, path) -> np.ndarray:
+    """The (h, w, c) samples of one image (or Adam7 pass) of filtered
+    rows: uint8 below 16 bits, each sample in one byte, else uint16."""
     bypp = max(1, c * depth // 8)  # the filters' unit: bytes per pixel, at least one
     stride = -(-w * c * depth // 8)
-
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (stride + 1):
-        raise ValueError(f"{path}: {raw.size} bytes of image data, not {h * (stride + 1)}")
     raw = raw.reshape(h, stride + 1)
     ftypes, lines = raw[:, 0], raw[:, 1:].reshape(h, stride // bypp, bypp)
     if ftypes.max(initial=0) > 4:
@@ -116,17 +139,16 @@ def _decode(path):
         _unfilter_diagonals(ftypes, lines))
     out = out.reshape(h, stride)
     if depth == 16:
-        return depth, color_type, plte, (
-            np.frombuffer(out.tobytes(), ">u2").reshape(h, w, c).astype(np.uint16))
+        return np.frombuffer(out.tobytes(), ">u2").reshape(h, w, c).astype(np.uint16)
     if depth < 8:  # samples packed from the high bit
         shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
         out = ((out[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)[:, :w]
-    return depth, color_type, plte, out.reshape(h, w, c)
+    return out.reshape(h, w, c)
 
 
 def read_png16(path) -> np.ndarray:
     """Read a PNG written by `write_png16` (or any filter-0/sub/up/avg/paeth
-    non-interlaced grey/RGB PNG) into uint8/uint16."""
+    grey/RGB PNG, interlaced or not) into uint8/uint16."""
     depth, color_type, _, img = _decode(path)
     if color_type not in (0, 2) or depth not in (8, 16):
         raise ValueError(f"{path}: PNG colour type {color_type} "
@@ -136,7 +158,7 @@ def read_png16(path) -> np.ndarray:
 
 
 def read_png(path) -> np.ndarray:
-    """Read any non-interlaced PNG as imageio's PIL plugin gives it (the JAX
+    """Read any PNG as imageio's PIL plugin gives it (the JAX
     package's `imageio.imread`): 1-bit grey as bool (bitwise), 2- and 4-bit grey
     scaled to uint8, 8- and 16-bit grey as uint8 and uint16; a palette
     expanded through PLTE to RGB (its tRNS dropped); RGB, RGBA and

@@ -171,11 +171,11 @@ def test_h5py_reads_write_h5(tmp_path):
     ("compound", "datatype class 6 \\(compound\\)"),
 ])
 def test_unsupported_features_raise(tmp_path, what, feature):
-    """Compound types and Zstd dictionaries raise UnsupportedHDF5 naming the
-    feature. Fletcher-32, strings and bools, refused here until h5_lite read
-    them, now read bitwise as the JAX package's reader (h5py) reads them,
-    and a chunk whose Fletcher-32 does not match raises as h5py refuses
-    it."""
+    """Zstd dictionaries raise UnsupportedHDF5 naming the feature.
+    Fletcher-32, strings, bools and compound types, refused here until
+    h5_lite read them, now read bitwise as the JAX package's reader (h5py)
+    reads them, and a chunk whose Fletcher-32 does not match raises as h5py
+    refuses it."""
     path = tmp_path / f"{what}.h5"
     with h5py.File(path, "w") as f:
         if what == "zstd_dictionary":  # a chunk whose frame names a dictionary
@@ -195,7 +195,7 @@ def test_unsupported_features_raise(tmp_path, what, feature):
             f["d"] = np.array([True, False])
         else:
             f["d"] = np.zeros(3, [("a", "i4"), ("b", "f8")])
-    if what in ("fletcher32", "string", "bool"):
+    if what in ("fletcher32", "string", "bool", "compound"):
         from eincm_tpu.data.readers import HDF5FileReader
 
         with HDF5FileReader(path) as r:

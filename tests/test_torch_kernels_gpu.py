@@ -351,6 +351,63 @@ def test_fused_warp_splat_matches_plain(cuda, window_size):
         )
 
 
+@pytest.mark.parametrize("window_size,route", [(3, "kernel"), (5, "kernel"), (1, "routed"),
+                                               (4, "routed"), (7, "routed"), (9, "routed")])
+@pytest.mark.parametrize("kernel", [7, 8])
+def test_fused_frames_route_by_window(monkeypatch, kernel, window_size, route):
+    """Off the CPU (the meta device, which no kernel sees), kernels 7 and 8
+    take windows 3 and 5 and route every other window to the warp and the
+    direct splat (`*_routed`)."""
+    seen = []
+    names = (("fused_warp_splat", 7), ("fully_fused_warp_splat", 8))
+    for name, k in names:
+        for suffix, label in (("_cuda", "kernel"), ("_routed", "routed")):
+            monkeypatch.setattr(tf, name + suffix, lambda *a, k=k, label=label: (
+                seen.append((k, label, a[-1])) or torch.zeros(SENSOR)))
+    e = torch.zeros(10, device="meta")
+    if kernel == 7:
+        tf.fused_warp_splat_frame(e, e, e, e, e, 0.5, SENSOR, window_size)
+    else:
+        tf.fully_fused_warp_splat_frame(e, e, e, torch.zeros(4, 4, 2, device="meta"), 0.5,
+                                        SENSOR, window_size)
+    assert seen == [(kernel, route, window_size)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window_size", [1, 4, 7, 9])
+def test_fused_frames_at_other_windows_launch_the_direct_splat(cuda, window_size):
+    """Kernels 7 and 8 at windows the cluster kernels are not built for:
+    the direct splat launched (and kernel 1 for kernel 8), within 1e-5 of
+    the plain version, bitwise the same twice and with the events
+    permuted; kernel 8's route refuses coordinates that are not whole,
+    naming them."""
+    rng = np.random.default_rng(10)
+    x, y, ts = _events_ts(rng, 30_000, cuda)
+    x, y = torch.round(x), torch.round(y)
+    thx = torch.as_tensor(rng.normal(0, 3, x.shape[0]).astype(np.float32), device=cuda)
+    thy = torch.as_tensor(rng.normal(0, 3, x.shape[0]).astype(np.float32), device=cuda)
+    theta = torch.as_tensor(rng.normal(0, 3, (16, 16, 2)).astype(np.float32), device=cuda)
+    perm = torch.as_tensor(rng.permutation(x.shape[0]), device=cuda)
+    cases = (
+        (tf.fused_warp_splat_frame, tf.fused_warp_splat_frame_plain, (x, y, ts, thx, thy),
+         {"splat_direct_fwd": 1}),
+        (tf.fully_fused_warp_splat_frame, tf.fully_fused_warp_splat_frame_plain,
+         (x, y, ts, theta), {"interp_fwd": 1, "splat_direct_fwd": 1}))
+    for frame_fn, plain_fn, args, launches in cases:
+        _build.reset_launch_counts()
+        got, ok = frame_fn(*args, 0.37, SENSOR, window_size)
+        torch.cuda.synchronize()
+        assert bool(ok)
+        assert {k: n for k, n in _build.launch_counts().items() if n} == launches
+        _close(plain_fn(*args, 0.37, SENSOR, window_size), got, 1e-5)
+        again, _ = frame_fn(*args, 0.37, SENSOR, window_size)
+        permuted = [a[perm].contiguous() if a.dim() == 1 else a for a in args]
+        shuffled, _ = frame_fn(*permuted, 0.37, SENSOR, window_size)
+        assert torch.equal(got, again) and torch.equal(got, shuffled)
+    with pytest.raises(ValueError, match="not a whole number"):
+        tf.fully_fused_warp_splat_frame(x + 0.25, y, ts, theta, 0.37, SENSOR, window_size)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("window_size", [3, 5])
 @pytest.mark.parametrize("gh,gw", [(1, 1), (16, 16), (128, 128)])

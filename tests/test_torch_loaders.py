@@ -359,8 +359,9 @@ def test_imread_gray_matches_the_jax_package(tmp_path, kind):
 def test_imread_gray_refuses_other_pngs(tmp_path):
     """What the port refused until it read them (RGBA, a palette, 16-bit
     grey) reads as the JAX package's imread_gray reads it; an 8-bit grey +
-    alpha PNG still raises, as the JAX function does (IndexError there),
-    and an interlaced PNG raises naming the cause."""
+    alpha PNG still raises, as the JAX function does (IndexError there).
+    An interlaced PNG, refused here until the port read it, reads as the
+    JAX function reads it; an unknown interlace method raises naming it."""
     from PIL import Image
 
     from eincm_tpu.data.readers import imread_gray as jax_imread_gray
@@ -380,9 +381,105 @@ def test_imread_gray_refuses_other_pngs(tmp_path):
         jax_imread_gray(tmp_path / "la.png")
     with pytest.raises(ValueError, match="grey \\+ alpha"):
         imread_gray(tmp_path / "la.png")
-    _png(tmp_path / "i.png", [bytes(5)] * 4, 5, 8, 0, interlace=1)
-    with pytest.raises(ValueError, match="an interlaced PNG is not supported"):
-        imread_gray(tmp_path / "i.png")
+    _adam7_png(tmp_path / "i.png", rng.integers(0, 256, (4, 5, 1), dtype=np.uint8), 8, 0)
+    ref, got = jax_imread_gray(tmp_path / "i.png"), imread_gray(tmp_path / "i.png")
+    assert got.dtype == ref.dtype and got.shape == ref.shape and got.tobytes() == ref.tobytes()
+    _png(tmp_path / "m.png", [bytes(5)] * 4, 5, 8, 0, interlace=2)
+    with pytest.raises(ValueError, match="interlace method 2"):
+        imread_gray(tmp_path / "m.png")
+
+
+def _filtered(rows: np.ndarray, bypp: int, first: int) -> bytes:
+    """Rows of bytes (n, stride) filtered as a PNG encoder filters them,
+    row i by filter (first + i) % 5, each with its filter byte."""
+    prev, out = np.zeros(rows.shape[1], int), []
+    for y, line in enumerate(rows.astype(int)):
+        f = (first + y) % 5
+        left = np.concatenate([np.zeros(bypp, int), line[:-bypp]])
+        upleft = np.concatenate([np.zeros(bypp, int), prev[:-bypp]])
+        if f == 4:
+            p = left + prev - upleft
+            pa, pb, pc = abs(p - left), abs(p - prev), abs(p - upleft)
+            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, upleft))
+        else:
+            pred = [0 * line, left, prev, (left + prev) // 2][f]
+        out.append(bytes([f]) + ((line - pred) % 256).astype(np.uint8).tobytes())
+        prev = line
+    return b"".join(out)
+
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def _adam7_png(path, samples, depth, color_type, plte=None, trns=None):
+    """An Adam7-interlaced PNG of (h, w, c) samples at `depth` bits, each
+    pass's rows filtered by filters 0-4 in turn (PIL writes no interlaced
+    PNG)."""
+    import struct
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    h, w, c = samples.shape
+    bypp = max(1, c * depth // 8)
+    raw = b""
+    for k, (x0, y0, dx, dy) in enumerate(ADAM7):
+        sub = samples[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        if depth == 16:
+            rows = np.frombuffer(sub.astype(">u2").tobytes(), np.uint8).reshape(len(sub), -1)
+        elif depth == 8:
+            rows = sub.reshape(len(sub), -1).astype(np.uint8)
+        else:
+            bits = np.unpackbits(sub.reshape(len(sub), -1, 1).astype(np.uint8), axis=2)
+            rows = np.packbits(bits[..., 8 - depth:].reshape(len(sub), -1), axis=1)
+        raw += _filtered(rows, bypp, k)
+    path.write_bytes(b"\x89PNG\r\n\x1a\n"
+                     + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color_type, 0, 0, 1))
+                     + (chunk(b"PLTE", plte.tobytes()) if plte is not None else b"")
+                     + (chunk(b"tRNS", trns) if trns is not None else b"")
+                     + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+# every colour type and depth that png16.read_png reads: (colour type, depth)
+ADAM7_KINDS = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1), (3, 2),
+               (3, 4), (3, 8), (4, 8), (4, 16), (6, 8), (6, 16)]
+
+
+@pytest.mark.parametrize("shape", [(9, 13), (1, 1), (5, 2), (17, 33)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("color_type,depth", ADAM7_KINDS, ids=lambda v: str(v))
+def test_interlaced_png_matches_imageio(tmp_path, color_type, depth, shape):
+    """An Adam7-interlaced PNG of every colour type and depth that png16
+    reads (written here: seven passes, each with its own filter rows, empty
+    passes left out), at sizes with every pass, with empty ones, and a
+    single pixel: read_png gives imageio.v2.imread's dtype, shape and
+    bytes, and imread_gray the JAX package's."""
+    import imageio.v2 as imageio
+
+    from eincm_tpu.data.readers import imread_gray as jax_imread_gray
+    from eincm_tpu_torch.utils.png16 import read_png
+
+    rng = np.random.default_rng(depth * 16 + color_type)
+    c = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color_type]
+    top = (1 << depth) - 1
+    plte = None
+    if color_type == 3:
+        top = min(top, 5)  # indices of a 6-entry palette
+        plte = rng.integers(0, 256, (top + 1, 3), dtype=np.uint8)
+    samples = rng.integers(0, top + 1, (*shape, c)).astype(np.uint16 if depth == 16 else np.uint8)
+    path = tmp_path / "i.png"
+    _adam7_png(path, samples, depth, color_type, plte)
+    ref, got = imageio.imread(path), read_png(path)
+    assert got.dtype == ref.dtype and got.shape == ref.shape, (got.dtype, ref.dtype, got.shape)
+    assert got.tobytes() == np.asarray(ref).tobytes()
+    if c != 2 or depth == 16:  # an 8-bit grey + alpha PNG has no luminance (above)
+        ref, got = jax_imread_gray(path), imread_gray(path)
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert got.tobytes() == ref.tobytes()
 
 
 # ---- trees written by utils/dataset_trees.py (h5_lite's writer) --------------

@@ -1,6 +1,8 @@
 """The fused warp+splat (kernels 7 and 8): eincm_tpu_torch's plain version
 vs eincm_tpu/experimental/splat_fused.py's Pallas kernels in interpret
-mode, on the 320x384 sensor of tests/test_splat_pallas.py.
+mode, on the 320x384 sensor of tests/test_splat_pallas.py, at windows 3
+and 5 (the card's kernels) and 1, 4, 7 and 9 (which the card routes to
+the warp and the direct splat).
 
 Tolerances, relative to max |JAX frame|:
 - kernel 7: 1e-5. Both warp with the same f32 operations; the JAX kernel
@@ -101,7 +103,7 @@ def _t(*arrays):
     return [torch.as_tensor(a) for a in arrays]
 
 
-@pytest.mark.parametrize("window_size", [3, 5])
+@pytest.mark.parametrize("window_size", [3, 5, 1, 4, 7, 9])
 def test_fused_warp_splat_vs_pallas(window_size):
     rng = np.random.default_rng(window_size)
     xi, yi, ts = _events(rng)
@@ -141,6 +143,30 @@ def test_fully_fused_warp_splat_vs_pallas(gh, gw, window_size):
         )
         assert bool(ok_t)
         _close(ref, got, 1e-4)
+
+
+@pytest.mark.parametrize("window_size", [1, 4, 7, 9])
+def test_fully_fused_other_windows_vs_pallas(window_size):
+    """Kernel 8's plain version at windows the cluster kernels are not
+    built for (the card routes them, `fully_fused_warp_splat_routed`),
+    against the JAX kernel, which takes any window: 2 (w // 2) + 1 taps a
+    side, an even window as the next odd one."""
+    rng = np.random.default_rng(50 + window_size)
+    xi, yi, ts = _events(rng)
+    theta = rng.normal(0, 1, (2, 2, 2)).astype(np.float32)
+    m = _off_ties(xi, yi, ts, *_port_velocities(theta, xi, yi))
+    xi, yi, ts = xi[m], yi[m], ts[m]
+    t_ref = T_REFS[1]
+    ref, ok = _k8(
+        *map(jnp.asarray, (xi, yi, ts, theta)), jnp.float32(t_ref),
+        sensor_size=SENSOR, window_size=window_size, interpret=True,
+    )
+    assert bool(ok)
+    got, ok_t = tf.fully_fused_warp_splat_frame(
+        *_t(xi, yi, ts, theta), t_ref, SENSOR, window_size
+    )
+    assert bool(ok_t)
+    _close(ref, got, 1e-4)
 
 
 def test_fully_fused_boundary_row_carries_mass():
@@ -204,16 +230,25 @@ def test_unsorted_events_match_the_two_kernel_path(kernel):
 
 
 def test_window_sizes_and_launch_counts():
+    """Both plain versions take any window of 1 or more (those the kernels
+    refused until the card routed them: 1, 4, 7), each the plain splat of
+    the warped events; window 0 raises; the CPU launches nothing."""
+    from eincm_tpu_torch.ops.splat_kernel import splat_plain
+
     _build.reset_launch_counts()
     xi = torch.tensor([10.0, 20.0])
     ts = torch.tensor([0.2, 0.7])
     th = torch.ones(2)
-    for ws in (3, 5):
+    for ws in (3, 5, 1, 4, 7):
         frame, ok = tf.fused_warp_splat_frame(xi, xi, ts, th, th, 0.5, SENSOR, ws)
         assert frame.shape == SENSOR and bool(ok)
-    for ws in (1, 4, 7):
-        with pytest.raises(ValueError, match="window_size"):
-            tf.fused_warp_splat_frame(xi, xi, ts, th, th, 0.5, SENSOR, ws)
-    frame, _ = tf.fully_fused_warp_splat_frame(xi, xi, ts, torch.zeros(4, 4, 2), 0.5, SENSOR)
-    assert frame.shape == SENSOR
+        c = xi - th * (ts - 0.5)
+        assert torch.equal(frame, splat_plain(c[None], c[None], SENSOR, ws)[0])
+        frame8, _ = tf.fully_fused_warp_splat_frame(xi, xi, ts, torch.zeros(4, 4, 2), 0.5,
+                                                    SENSOR, ws)
+        assert torch.equal(frame8, splat_plain(xi[None], xi[None], SENSOR, ws)[0])
+    for fn, args in ((tf.fused_warp_splat_frame, (xi, xi, ts, th, th)),
+                     (tf.fully_fused_warp_splat_frame, (xi, xi, ts, torch.zeros(4, 4, 2)))):
+        with pytest.raises(ValueError, match="window_size 0 < 1"):
+            fn(*args, 0.5, SENSOR, 0)
     assert set(_build.launch_counts().values()) == {0}
