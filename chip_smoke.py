@@ -31,8 +31,13 @@ Phases, each failing loudly (any failure exits non-zero):
    against the plain versions in the same precision, every one bitwise the
    same twice (the splat forward also with 1 and 7 event chunks, the
    float64 interp backward also permuted, in both modes, at 16x16, 32x32,
-   64x64, 128x128 and 256x256), the float64 ones timed beside their bound
-   and library call; a float32 splat at window 7 (no slab kernel is built
+   64x64, 128x128 and 256x256; the splat backward at windows 1, 3, 4, 5,
+   7, 9 and 11 in both precisions with and without the wrap, and the
+   interp forward in both precisions, rounded and at fractional
+   coordinates as given, each also permuted and for every plan), the
+   float64 ones and the float32 wrap and unrounded rows timed beside their
+   bound and library call, with the one-thread-per-event gathers' times
+   printed beside the redesigned ones'; a float32 splat at window 7 (no slab kernel is built
    for it) through the router, forward and backward: the direct kernels
    alone launched, against the plain version, bitwise the same twice and
    with the events permuted, timed (`window7_f32` in their rows); the
@@ -205,8 +210,10 @@ Phases, each failing loudly (any failure exits non-zero):
    of a committed datatype) read, loaded, staged and solved likewise:
    window 0's sample and final theta bitwise the latest-format file's.
    Kernels 7 and 8 at window 7 ([fused]) go through their route, the warp
-   and the direct splat (kernel 1 first for kernel 8), held to their plain
-   versions and bitwise the same twice.
+   and the direct splat (the float32 direct interp forward first for
+   kernel 8, at the coordinates as given), held to their plain versions on
+   whole and fractional coordinates, bitwise the same twice, with no
+   synchronizing call.
 
 Every kernel's time stands beside its bound: the least time the card could
 take for the same work, the longer of the bytes it must move (each input
@@ -836,19 +843,141 @@ def check_splat_window5(tag, wx, wy, wxe, wye, G, sensor, rows):
 
 # the float64 interp backward's grids beyond the chain's 16x16
 DIRECT_GRIDS = ((32, 32), (64, 64), (128, 128), (256, 256))
+# the windows the direct backward is held at: hw 0-4 unrolled, 5 (window
+# 11) the runtime loop
+DIRECT_WINDOWS = (1, 3, 4, 5, 7, 9, 11)
+# the one-thread-per-event gathers that the direct splat backward and
+# interp forward replaced, ms at these shapes on an NVIDIA H100 80GB HBM3
+# at 700.00 W (PERF.md §6), printed beside this run's times
+GATHER_BEFORE_MS = {
+    ("splat_direct_bwd", "mvsec", "float64"): 0.0067,
+    ("splat_direct_bwd", "dsec", "float64"): 0.1366,
+    ("splat_direct_bwd", "dsec", "float32 wrap"): 0.0715,
+    ("splat_direct_bwd", "mvsec", "float32 window 7"): 0.0141,
+    ("splat_direct_bwd", "dsec", "float32 window 7"): 0.3004,
+    ("interp_direct_fwd", "mvsec", "float64"): 0.0040,
+    ("interp_direct_fwd", "dsec", "float64"): 0.0315,
+}
+
+
+def print_before(name, tag, case, ms):
+    before = GATHER_BEFORE_MS.get((name, tag, case))
+    if before is not None:
+        print(f"  {name} {case} at {tag}: {ms:.4f} ms, the one-thread gather before "
+              f"{before:.4f} ms "
+              f"({before / ms:.2f}x)")
+
+
+def fractional(xs, ys, H, W, seed):
+    """The events moved by up to half a pixel, with the edge cases appended
+    (the half-integer ties among them)."""
+    gen = torch.Generator(device=xs.device).manual_seed(seed)
+    u = torch.rand(2, xs.shape[0], generator=gen, device=xs.device) - 0.5
+    return with_edges(xs + u[0], ys + u[1], H, W)
+
+
+def check_direct_interp(tag, theta, xs, ys, sensor):
+    """The direct interp forward in float64 and float32, rounded and at the
+    coordinates as given, on fractional events with the edge cases: within
+    TOL_F64 (float64) and TOL_GATHER (float32) of the plain version, bitwise
+    the same twice, with the events permuted and for every plan."""
+    from eincm_tpu_torch.ops import interp as ti
+
+    H, W = sensor
+    h, w, _ = theta.shape
+    fx, fy = fractional(xs, ys, H, W, 61)
+    gen = torch.Generator(device="cuda").manual_seed(62)
+    perm = torch.randperm(fx.shape[0], generator=gen, device="cuda")
+    err = {}
+    for dtype, tol in ((torch.float64, TOL_F64), (torch.float32, TOL_GATHER)):
+        th, x, y = theta.to(dtype), fx.to(dtype), fy.to(dtype)
+        for rnd in (True, False):
+            what = f"interp_direct_fwd {str(dtype)[6:]}{'' if rnd else ' unrounded'}"
+            k = ti.interp_direct_fwd_cuda(th, x, y, sensor, rnd)
+            err[dtype, rnd] = max_err(
+                k, ti.interp_theta_at_events_plain(th, x, y, sensor, round_coords=rnd), tol,
+                what)
+            again = [ti.interp_direct_fwd_cuda(th, x, y, sensor, rnd)]
+            again += [ti.interp_direct_fwd_cuda(th, x, y, sensor, rnd, ti.plan_direct_interp(
+                x.shape[0], h, w, dtype == torch.float64, n, staged=staged))
+                for n in (1, 2) for staged in (True, False)]
+            if not all(same_bits(a, k) for a in again):
+                raise AssertionError(f"{what}: not bitwise the same twice and for every plan")
+            kp = ti.interp_direct_fwd_cuda(th, x[perm].contiguous(), y[perm].contiguous(),
+                                           sensor, rnd)
+            if not same_bits(kp, k[perm]):
+                raise AssertionError(f"{what}: the events permuted give other bits")
+    print(f"  interp_direct_fwd at {tag}: bitwise the same twice, permuted and for every "
+          f"plan (1 or 2 events a thread, theta staged or gathered)")
+    return err
+
+
+def check_direct_bwd(tag, wxe, wye, G, sensor):
+    """The direct splat backward at DIRECT_WINDOWS in float32 and float64,
+    with and without the wrap, on the window's warped (fractional) events
+    with the edge cases and slab-edge events (half-integer ties among them):
+    within TOL_GATHER (float32) and TOL_F64 (float64) of the plain version's
+    autograd gradient, bitwise the same twice, with the events permuted and
+    for every plan."""
+    from eincm_tpu_torch.ops import splat_kernel as sk
+
+    H, W = sensor
+    R, E = wxe.shape
+    gen = torch.Generator(device="cuda").manual_seed(63)
+    perm = torch.randperm(E, generator=gen, device="cuda")
+    err = {}
+    for dtype, tol in ((torch.float32, TOL_GATHER), (torch.float64, TOL_F64)):
+        ax, ay, Gd = wxe.to(dtype).contiguous(), wye.to(dtype).contiguous(), G.to(dtype)
+        apx, apy = ax[:, perm].contiguous(), ay[:, perm].contiguous()
+        for wrap in (False, True):
+            for ws in DIRECT_WINDOWS:
+                what = f"splat_direct_bwd {str(dtype)[6:]} window {ws}{' wrap' if wrap else ''}"
+                ar, br = ax.clone().requires_grad_(True), ay.clone().requires_grad_(True)
+                d_p = torch.autograd.grad(sk.splat_plain(ar, br, sensor, ws, wrap=wrap),
+                                          (ar, br), Gd)
+                del ar, br
+                d_k = sk.splat_direct_bwd_cuda(ax, ay, Gd, sensor, ws, wrap)
+                torch.cuda.synchronize()
+                e = max(max_err(d_k[0], d_p[0], tol, f"{what} dwx"),
+                        max_err(d_k[1], d_p[1], tol, f"{what} dwy"))
+                err[dtype, wrap, ws] = e
+                del d_p
+                f64 = dtype == torch.float64
+                plans = [sk.plan_direct_bwd(R, E, H, W, ws, f64, wrap, kernel="gather",
+                                            per_thread=n) for n in (1, 2)]
+                plans += [] if f64 or wrap or ws // 2 not in sk.SLAB_HW else [
+                    sk.plan_direct_bwd(R, E, H, W, ws, kernel="slab")]
+                again = [sk.splat_direct_bwd_cuda(ax, ay, Gd, sensor, ws, wrap)]
+                again += [sk.splat_direct_bwd_cuda(ax, ay, Gd, sensor, ws, wrap, p)
+                          for p in plans]
+                if not all(same_bits(a[0], d_k[0]) and same_bits(a[1], d_k[1])
+                           for a in again):
+                    raise AssertionError(f"{what}: not bitwise the same twice and for every "
+                                         f"plan ({[p.kernel for p in plans]})")
+                d_perm = sk.splat_direct_bwd_cuda(apx, apy, Gd, sensor, ws, wrap)
+                if not (same_bits(d_perm[0], d_k[0][:, perm])
+                        and same_bits(d_perm[1], d_k[1][:, perm])):
+                    raise AssertionError(f"{what}: the events permuted give other bits")
+    torch.cuda.empty_cache()
+    print(f"  splat_direct_bwd at {tag}: windows {DIRECT_WINDOWS}, float32 and float64, "
+          f"with and without the wrap: bitwise the same twice, permuted and for every plan")
+    return err
 
 
 def check_direct(tag, theta, xs, ys, wx, wy, wxe, wye, G, sensor, rows):
     """The direct kernels of csrc/direct.cu against the plain versions in
     the same precision, with the edge cases and slab-edge events: the
-    float64 interp fwd and bwd and the splat fwd and bwd within TOL_F64,
-    the wrap-compat splat in float32 (TOL_ATOMIC forward, TOL_GATHER
-    backward) and float64 (TOL_F64) at windows 3 and 5; every kernel bitwise
-    the same twice, the splat forward also with 1 and 7 event chunks and
-    the interp backward with the events permuted; then the float64 kernels
-    at the window's shape timed beside their plain version, bound (float64
-    operations over F64_OPS_PER_S) and library call, in float64, the interp
-    backward also at DIRECT_GRIDS."""
+    interp forward in float64 and float32, rounded and as given, and the
+    splat backward at DIRECT_WINDOWS in both precisions, with and without
+    the wrap (`check_direct_interp`, `check_direct_bwd`); the float64
+    interp bwd and the splat fwd within TOL_F64, the wrap-compat splat fwd
+    in float32 (TOL_ATOMIC) and float64 (TOL_F64) at windows 3 and 5; every
+    kernel bitwise the same twice, the splat forward also with 1 and 7 event
+    chunks and the interp backward with the events permuted; then the
+    float64 kernels at the window's shape timed beside their plain version,
+    bound (float64 operations over F64_OPS_PER_S) and library call, in
+    float64, the interp backward also at DIRECT_GRIDS, and the float32
+    rows (the wrap; the interp at the coordinates as given) the same way."""
     from eincm_tpu_torch.ops import interp as ti
     from eincm_tpu_torch.ops import splat_kernel as sk
 
@@ -859,12 +988,9 @@ def check_direct(tag, theta, xs, ys, wx, wy, wxe, wye, G, sensor, rows):
     f64 = torch.float64
     gen = torch.Generator(device="cuda").manual_seed(6)
     th64 = theta.to(f64)
+    err_fwd = check_direct_interp(tag, theta, xs, ys, sensor)
+    err_if = err_fwd[f64, True]
     ex, ey = (t.to(f64) for t in with_edges(xs, ys, H, W))
-    out_k = ti.interp_direct_fwd_cuda(th64, ex, ey, sensor)
-    err_if = max_err(out_k, ti.interp_theta_at_events_plain(th64, ex, ey, sensor), TOL_F64,
-                     "interp_direct_fwd float64")
-    if not same_bits(ti.interp_direct_fwd_cuda(th64, ex, ey, sensor), out_k):
-        raise AssertionError("interp_direct_fwd: two runs differ")
     fin = torch.isfinite(ex) & torch.isfinite(ey)
     bx, by = ex[fin].contiguous(), ey[fin].contiguous()
     g = torch.randn(bx.shape[0], 2, generator=gen, device="cuda", dtype=f64)
@@ -884,23 +1010,19 @@ def check_direct(tag, theta, xs, ys, wx, wy, wxe, wye, G, sensor, rows):
                                  f"permuted and in both modes")
     print(f"  interp_direct_bwd: bitwise the same twice, with the events permuted and in "
           f"both modes at {[(h, w), *DIRECT_GRIDS]}")
-    err_sf = err_sb = 0.0
+    err_bwd = check_direct_bwd(tag, wxe, wye, G, sensor)
+    err_sb = max(err_bwd.values())
+    err_sf = 0.0
     for dtype in (torch.float32, f64):
         ax, ay = wxe.to(dtype).contiguous(), wye.to(dtype).contiguous()
-        Gd = G.to(dtype)
         for wrap in (False, True) if dtype == f64 else (True,):
             for ws in (3, 5):
                 what = f"{dtype} window {ws}{' wrap' if wrap else ''}"
-                ar, br = ax.clone().requires_grad_(True), ay.clone().requires_grad_(True)
-                f_p = sk.splat_plain(ar, br, sensor, ws, wrap=wrap)
+                f_p = sk.splat_plain(ax, ay, sensor, ws, wrap=wrap)
                 f_k = sk.splat_direct_fwd_cuda(ax, ay, sensor, ws, wrap)
-                d_p = torch.autograd.grad(f_p, (ar, br), Gd)
-                d_k = sk.splat_direct_bwd_cuda(ax, ay, Gd, sensor, ws, wrap)
                 torch.cuda.synchronize()
-                tol_f, tol_b = (TOL_F64, TOL_F64) if dtype == f64 else (TOL_ATOMIC, TOL_GATHER)
+                tol_f = TOL_F64 if dtype == f64 else TOL_ATOMIC
                 err_sf = max(err_sf, max_err(f_k, f_p, tol_f, f"splat_direct_fwd {what}"))
-                for k, p, n in zip(d_k, d_p, ("dwx", "dwy")):
-                    err_sb = max(err_sb, max_err(k, p, tol_b, f"splat_direct_bwd {what} {n}"))
                 # exact sums: the same frames again and with 1 and 7 chunks
                 plan = sk.plan_splat(R, ax.shape[1], H, W, texel_bytes=8 if dtype == f64 else 4)
                 for p in (plan, dataclasses.replace(plan, chunks=1),
@@ -908,26 +1030,40 @@ def check_direct(tag, theta, xs, ys, wx, wy, wxe, wye, G, sensor, rows):
                     if not same_bits(sk.splat_direct_fwd_cuda(ax, ay, sensor, ws, wrap, p), f_k):
                         raise AssertionError(f"splat_direct_fwd {what}: not bitwise the first "
                                              f"launch's frames at {p.chunks} chunks")
-                d_again = sk.splat_direct_bwd_cuda(ax, ay, Gd, sensor, ws, wrap)
-                if not all(same_bits(a, b) for a, b in zip(d_again, d_k)):
-                    raise AssertionError(f"splat_direct_bwd {what}: two runs differ")
-                print(f"  splat_direct {what}: bitwise the same twice, the forward also with "
-                      f"1 and 7 chunks ({plan.chunks} planned)")
-    # times at the window's own shape, in float64
+                print(f"  splat_direct_fwd {what}: bitwise the same twice and with 1 and 7 "
+                      f"chunks ({plan.chunks} planned)")
+    # times at the window's own shape, in float64 (float32 where named)
     x64, y64 = xs.to(f64), ys.to(f64)
     g_main = torch.randn(E, 2, generator=gen, device="cuda", dtype=f64)
     thr = th64.clone().requires_grad_(True)
     out_main = ti.interp_theta_at_events_plain(thr, x64, y64, sensor)
     lib_call, _ = grid_sample_interp(th64, x64, y64, sensor)
-    record(rows, "interp_direct_fwd", tag, err_if,
-           cuda_ms(lambda: ti.interp_direct_fwd_cuda(th64, x64, y64, sensor)),
+    # kernel 8's route: float32 at the coordinates as given (grid_sample
+    # at the same, unrounded, coordinates: the same sample on the sensor)
+    ux, uy = fractional(xs, ys, H, W, 64)
+    ux, uy = ux[:E].contiguous(), uy[:E].contiguous()
+    img = theta.permute(2, 0, 1)[None].contiguous()
+    grid = torch.stack([(ux + 0.5) * (2.0 / W) - 1.0, (uy + 0.5) * (2.0 / H) - 1.0], -1)[
+        None, None]
+    ms_if = cuda_ms(lambda: ti.interp_direct_fwd_cuda(th64, x64, y64, sensor))
+    ms_f32 = cuda_ms(lambda: ti.interp_direct_fwd_cuda(theta, ux, uy, sensor, False))
+    record(rows, "interp_direct_fwd", tag, err_if, ms_if,
            cuda_ms(lambda: ti.interp_theta_at_events_plain(th64, x64, y64, sensor)),
            32 * E + 16 * h * w, (OPS_INTERP_WEIGHTS + OPS_INTERP_CONTRACT) * E,
-           cuda_ms(lib_call), F64_OPS_PER_S)
+           cuda_ms(lib_call), F64_OPS_PER_S,
+           f32_unrounded_max_abs_err=err_fwd[torch.float32, False], f32_unrounded_ms=ms_f32,
+           f32_unrounded_plain_ms=cuda_ms(lambda: ti.interp_theta_at_events_plain(
+               theta, ux, uy, sensor, round_coords=False)),
+           f32_unrounded_bound_ms=bound(16 * E + 8 * h * w,
+                                        (OPS_INTERP_WEIGHTS + OPS_INTERP_CONTRACT) * E)[0],
+           f32_unrounded_library_ms=cuda_ms(lambda: F.grid_sample(
+               img, grid, mode="bilinear", padding_mode="border", align_corners=False)))
+    print_before("interp_direct_fwd", tag, "float64", ms_if)
+    print(f"  interp_direct_fwd float32 unrounded (kernel 8's route): {ms_f32:.4f} ms")
     by_grid = {}
     for gh, gw in ((h, w),) + DIRECT_GRIDS:
-        uy = ti._axis_weights(y64, gh, gh, float(gh) / H, True)
-        vx = ti._axis_weights(x64, gw, gw, float(gw) / W, True)
+        uyw = ti._axis_weights(y64, gh, gh, float(gh) / H, True)
+        vxw = ti._axis_weights(x64, gw, gw, float(gw) / W, True)
         p = ti.plan_interp(E, gh, gw, True, f64=True)
         ms = cuda_ms(lambda: ti.interp_direct_bwd_cuda(g_main, x64, y64, (gh, gw, 2), sensor))
         modes = {}
@@ -936,7 +1072,7 @@ def check_direct(tag, theta, xs, ys, wx, wy, wxe, wye, G, sensor, rows):
             modes[f"{mode}_ms"] = cuda_ms(
                 lambda: ti.interp_direct_bwd_cuda(g_main, x64, y64, (gh, gw, 2), sensor, plan))
             modes[f"{mode}_bands"] = plan.bands
-        lib = cuda_ms(lambda: torch.einsum("eh,ew,ec->hwc", uy, vx, g_main),
+        lib = cuda_ms(lambda: torch.einsum("eh,ew,ec->hwc", uyw, vxw, g_main),
                       3 if E * gh > 10_000_000 else 10)
         bound_ms, bound_by = bound(32 * E + 16 * gh * gw, OPS_INTERP_BWD * E, F64_OPS_PER_S)
         by_grid[f"{gh}x{gw}"] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -945,7 +1081,7 @@ def check_direct(tag, theta, xs, ys, wx, wy, wxe, wye, G, sensor, rows):
               f"{modes['banded_ms']:.4f} in {modes['banded_bands']} bands, global "
               f"{modes['global_ms']:.4f}), bound {bound_ms:.4f} ms ({bound_by}), einsum "
               f"{lib:.4f} ms")
-        del uy, vx
+        del uyw, vxw
     main = by_grid[f"{h}x{w}"]
     record(rows, "interp_direct_bwd", tag, err_ib, main["ms"],
            cuda_ms(lambda: torch.autograd.grad(out_main, thr, g_main, retain_graph=True)),
@@ -954,10 +1090,37 @@ def check_direct(tag, theta, xs, ys, wx, wy, wxe, wye, G, sensor, rows):
     del out_main
     wx64, wy64 = wx.to(f64), wy.to(f64)
     G64 = G.to(f64)
+    reps = 3 if E > 100_000 else 10
+    # the float32 wrap rows first: their planes (float32, windows 3 and 5)
+    # are freed before the float64 ones are made
+    wxf, wyf = wx.clone().requires_grad_(True), wy.clone().requires_grad_(True)
+    f_wrap = sk.splat_plain(wxf, wyf, sensor, 3, wrap=True)
+    U, V = splat_planes(wx, wy, sensor)
+    Ut = U.transpose(1, 2)
+    wrap_fwd = {
+        "wrap_f32_ms": cuda_ms(lambda: sk.splat_direct_fwd_cuda(wx, wy, sensor, 3, True)),
+        "wrap_f32_plain_ms": cuda_ms(lambda: sk.splat_plain(wx, wy, sensor, 3, wrap=True)),
+        "wrap_f32_bound_ms": bound(8 * R * E + 4 * R * H * W, ops_splat(1) * R * E)[0],
+        "wrap_f32_library_ms": cuda_ms(lambda: torch.bmm(U, V), reps)}
+    ms_bw = cuda_ms(lambda: sk.splat_direct_bwd_cuda(wx, wy, G, sensor, 3, True))
+    wrap_bwd = {
+        "wrap_f32_ms": ms_bw,
+        "wrap_f32_plain_ms": cuda_ms(lambda: torch.autograd.grad(f_wrap, (wxf, wyf), G,
+                                                                 retain_graph=True)),
+        "wrap_f32_bound_ms": bound(16 * R * E + 4 * R * H * W, ops_splat_bwd(1) * R * E)[0],
+        "wrap_f32_library_ms": cuda_ms(
+            lambda: (torch.bmm(Ut, G), torch.bmm(V, G.transpose(1, 2))), reps)}
+    del U, V, Ut, f_wrap
+    U, V = splat_planes(wx, wy, sensor, 2)
+    wrap_fwd.update(
+        wrap5_f32_ms=cuda_ms(lambda: sk.splat_direct_fwd_cuda(wx, wy, sensor, 5, True)),
+        wrap5_f32_bound_ms=bound(8 * R * E + 4 * R * H * W, ops_splat(2) * R * E)[0],
+        wrap5_f32_library_ms=cuda_ms(lambda: torch.bmm(U, V), reps))
+    del U, V
+    torch.cuda.empty_cache()
     wxm, wym = wx64.clone().requires_grad_(True), wy64.clone().requires_grad_(True)
     f_main = sk.splat_plain(wxm, wym, sensor)
     U, V = splat_planes(wx64, wy64, sensor)
-    reps = 3 if E > 100_000 else 10
     # the plan's one wave of blocks against the chunks that overfill it
     # (ops/splat_kernel.py:plan_splat), where they differ
     p64 = sk.plan_splat(R, E, H, W, texel_bytes=8)
@@ -971,19 +1134,18 @@ def check_direct(tag, theta, xs, ys, wx, wy, wxe, wye, G, sensor, rows):
            cuda_ms(lambda: sk.splat_direct_fwd_cuda(wx64, wy64, sensor)),
            cuda_ms(lambda: sk.splat_plain(wx64, wy64, sensor)),
            16 * R * E + 8 * R * H * W, ops_splat(1) * R * E,
-           cuda_ms(lambda: torch.bmm(U, V), reps), F64_OPS_PER_S,
-           wrap_f32_ms=cuda_ms(lambda: sk.splat_direct_fwd_cuda(wx, wy, sensor, 3, True)),
-           wrap_f32_bound_ms=bound(8 * R * E + 4 * R * H * W, ops_splat(1) * R * E)[0],
-           wrap5_f32_ms=cuda_ms(lambda: sk.splat_direct_fwd_cuda(wx, wy, sensor, 5, True)),
-           **waves)
+           cuda_ms(lambda: torch.bmm(U, V), reps), F64_OPS_PER_S, **wrap_fwd, **waves)
     Ut = U.transpose(1, 2)
-    record(rows, "splat_direct_bwd", tag, err_sb,
-           cuda_ms(lambda: sk.splat_direct_bwd_cuda(wx64, wy64, G64, sensor)),
+    ms_b64 = cuda_ms(lambda: sk.splat_direct_bwd_cuda(wx64, wy64, G64, sensor))
+    record(rows, "splat_direct_bwd", tag, err_sb, ms_b64,
            cuda_ms(lambda: torch.autograd.grad(f_main, (wxm, wym), G64, retain_graph=True)),
            32 * R * E + 8 * R * H * W, ops_splat_bwd(1) * R * E,
            cuda_ms(lambda: (torch.bmm(Ut, G64), torch.bmm(V, G64.transpose(1, 2))), reps),
-           F64_OPS_PER_S,
-           wrap_f32_ms=cuda_ms(lambda: sk.splat_direct_bwd_cuda(wx, wy, G, sensor, 3, True)))
+           F64_OPS_PER_S, **wrap_bwd,
+           windows_max_abs_err={f"{str(d)[6:]}{'_wrap' if wr else ''}_w{ws}": e
+                                for (d, wr, ws), e in err_bwd.items()})
+    print_before("splat_direct_bwd", tag, "float64", ms_b64)
+    print_before("splat_direct_bwd", tag, "float32 wrap", ms_bw)
     del U, V, Ut, f_main
     torch.cuda.empty_cache()
 
@@ -1060,6 +1222,7 @@ def check_window7(tag, wx, wy, wxe, wye, G, sensor, rows):
                               "router_launches": launches[name]}
         print(f"  {name} float32 window 7: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}), library {lib_ms:.4f} ms")
+        print_before(name, tag, "float32 window 7", ms)
     del U, V, Ut, f_main
     torch.cuda.empty_cache()
 
@@ -1199,39 +1362,54 @@ def check_fused_route(tag, exi, eyi, ets, ethx, ethy, theta, xi, yi, ts, thx, th
                       sensor, rows, ws=7):
     """Kernels 7 and 8 at a window the cluster kernels are not built for,
     through the frame functions, the launch counters read around each: the
-    warp and the direct splat launched (and kernel 1 for kernel 8), within
-    TOL_ATOMIC of the plain version on the events with the edge cases
-    (rounded: kernel 8's route takes whole coordinates only), bitwise the
-    same twice; times at the window's shape, as `window7_route` in the
-    kernels' rows."""
+    warp and the direct splat launched (and the direct interp forward in
+    float32 for kernel 8), within TOL_ATOMIC of the plain version on the
+    events with the edge cases and on the same events moved by up to half a
+    pixel (the routes sample and warp at the coordinates as given), bitwise
+    the same twice, with no synchronizing call (`count_syncs`); times at the
+    window's shape, on its events as given and moved, as `window7_route` in
+    the kernels' rows."""
     from eincm_tpu_torch.experimental import splat_fused as sf
     from eincm_tpu_torch.ops import _build
 
-    rx, ry = torch.round(exi), torch.round(eyi)
-    for name, frame, plain, args, main, want in (
+    H, W = sensor
+    E = xi.shape[0]
+    fxi, fyi = fractional(exi, eyi, H, W, 65)
+    fxi, fyi = fxi[:exi.shape[0]].contiguous(), fyi[:exi.shape[0]].contiguous()
+    mfx, mfy = fxi[:E].contiguous(), fyi[:E].contiguous()
+    for name, frame, plain, args, frac, main, main_frac, want in (
             ("fused_warp_splat", sf.fused_warp_splat_frame, sf.fused_warp_splat_frame_plain,
-             (rx, ry, ets, ethx, ethy), (xi, yi, ts, thx, thy), {"splat_direct_fwd": 1}),
+             (exi, eyi, ets, ethx, ethy), (fxi, fyi, ets, ethx, ethy), (xi, yi, ts, thx, thy),
+             (mfx, mfy, ts, thx, thy), {"splat_direct_fwd": 1}),
             ("fully_fused_warp_splat", sf.fully_fused_warp_splat_frame,
-             sf.fully_fused_warp_splat_frame_plain, (rx, ry, ets, theta), (xi, yi, ts, theta),
-             {"interp_fwd": 1, "splat_direct_fwd": 1})):
-        torch.cuda.synchronize()
-        _build.reset_launch_counts()
-        k, _ = frame(*args, t0, sensor, ws)
-        torch.cuda.synchronize()
-        launched = {n: c for n, c in _build.launch_counts().items() if c}
-        if launched != want:
-            raise AssertionError(f"{name} window {ws}: launched {launched}, not {want}")
-        err = max_err(k, plain(*args, t0, sensor, ws), TOL_ATOMIC,
-                      f"{name} window {ws} (warp + direct splat)")
-        if not same_bits(k, frame(*args, t0, sensor, ws)[0]):
-            raise AssertionError(f"{name} window {ws}: two runs differ")
-        route = {"max_abs_err": err, "launches": launched,
+             sf.fully_fused_warp_splat_frame_plain, (exi, eyi, ets, theta),
+             (fxi, fyi, ets, theta), (xi, yi, ts, theta), (mfx, mfy, ts, theta),
+             {"interp_direct_fwd": 1, "splat_direct_fwd": 1})):
+        err = 0.0
+        for what, a in (("as given", args), ("fractional", frac)):
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            (k, _), syncs, where = count_syncs(lambda: frame(*a, t0, sensor, ws))
+            torch.cuda.synchronize()
+            launched = {n: c for n, c in _build.launch_counts().items() if c}
+            if launched != want:
+                raise AssertionError(f"{name} window {ws}: launched {launched}, not {want}")
+            if syncs:
+                raise AssertionError(f"{name} window {ws}: {syncs} synchronizing calls in the "
+                                     f"route ({where})")
+            err = max(err, max_err(k, plain(*a, t0, sensor, ws), TOL_ATOMIC,
+                                   f"{name} window {ws} {what} (warp + direct splat)"))
+            if not same_bits(k, frame(*a, t0, sensor, ws)[0]):
+                raise AssertionError(f"{name} window {ws} {what}: two runs differ")
+        route = {"max_abs_err": err, "launches": launched, "syncs": syncs,
                  "ms": cuda_ms(lambda: frame(*main, t0, sensor, ws)),
+                 "fractional_ms": cuda_ms(lambda: frame(*main_frac, t0, sensor, ws)),
                  "plain_ms": cuda_ms(lambda: plain(*main, t0, sensor, ws))}
         rows[name][tag][f"window{ws}_route"] = route
         print(f"  {name} at {tag}, window {ws}: routed to {sorted(launched)}, max |err| "
-              f"{err:.3g}, bitwise the same twice; {route['ms']:.4f} ms, plain "
-              f"{route['plain_ms']:.4f} ms")
+              f"{err:.3g}, bitwise the same twice, 0 synchronizing calls, as given and "
+              f"fractional; {route['ms']:.4f} ms ({route['fractional_ms']:.4f} fractional), "
+              f"plain {route['plain_ms']:.4f} ms")
 
 
 def count_syncs(fn):

@@ -12,8 +12,38 @@
 // splat_plain and its autograd gradient, ops/interp.py:
 // interp_theta_at_events_plain and interp_bwd_plain) with the same
 // operations in the tensors' own precision. The gathers (splat backward,
-// interp forward) are one thread per event and write each result once. The
-// two sums (splat forward, interp backward) are exact integer sums of
+// interp forward) write each result once, with one statement sequence per
+// event, so a result is bitwise the same for any launch and event order:
+//   - the splat backward is bound by its instructions and its gathers, not
+//     its bytes (32 an event and ref in float64). The first design, one
+//     thread per event, ran an exponential per tap ((2 hw + 1)^2 + 2 hw + 1 of
+//     them: 12 at window 3, 56 at window 7; in float64 each a long FP64
+//     sequence), a 64-bit division per event for the ref, two texel tests
+//     per tap and one scalar load per texel, at 22% of its bound in
+//     float64 and 5% at window 7 in float32. Now (ops/splat_kernel.py:
+//     plan_direct_bwd): a grid of its own per ref (blockIdx.y); 1 or 2
+//     events a thread as one load per coordinate array (8 or 16 bytes for
+//     two) and the same stores; the separable weights g(q) and q g(q) of an
+//     event, 2 (2 hw + 1) exponentials, computed once and held in registers
+//     (the exponentials take the first design's operands, so the same
+//     values), unrolled up to hw 4 (window 9), a runtime loop above that;
+//     and where the whole window is on the sensor (no tap dropped or
+//     wrapped), no texel tests, and a row's texels read as the 16-byte
+//     vectors that hold them (float4 or double2) where every row of G
+//     starts on 16 bytes. At windows 6 to 9 in float32 without the wrap,
+//     from 2^17 events a ref, a slab kernel runs the same statements
+//     against a slab of G's rows in shared memory (each event queued to the
+//     one block whose slab holds its centre row): there the gathers, 49 or
+//     81 an event, cost more than the walk of every event by every slab;
+//     at smaller windows and in float64 it lost;
+//   - the interp forward (float64, and float32 at the coordinates as given
+//     for kernel 8's route) stages theta in shared memory as one 8- or
+//     16-byte cell a tap where it fits, takes 1 or 2 events a thread (two
+//     as one vector load of xs and of ys), writes one (x, y) vector store
+//     an event, and divides a weight by its normalization only where the
+//     quotient is not known (0 / s, a / 1, a / a: the same bits), so most
+//     events divide nothing (ops/interp.py:plan_direct_interp).
+// The two sums (splat forward, interp backward) are exact integer sums of
 // rounded terms, rounded to T once, so every result is bitwise the same
 // from run to run; the first designs added a global float atomic per term in
 // the order the threads arrived (27M of them at DSEC for the splat, 12M
@@ -56,6 +86,93 @@ __device__ __forceinline__ float rint_(float x) { return rintf(x); }
 __device__ __forceinline__ double rint_(double x) { return rint(x); }
 __device__ __forceinline__ float exp_(float x) { return expf(x); }
 __device__ __forceinline__ double exp_(double x) { return exp(x); }
+__device__ __forceinline__ float floor_(float x) { return floorf(x); }
+__device__ __forceinline__ double floor_(double x) { return floor(x); }
+__device__ __forceinline__ float fabs_(float x) { return fabsf(x); }
+__device__ __forceinline__ double fabs_(double x) { return fabs(x); }
+__device__ __forceinline__ float fmax_(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double fmax_(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float fmin_(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double fmin_(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ float fma_(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_(double a, double b, double c) { return fma(a, b, c); }
+// one rounding each, never contracted into an FMA
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+
+// 16 bytes of T: kN values as one float4 or double2, and two values (an
+// interp sample) as one float2 or double2
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int kN = 4;
+  using Two = float2;
+  __device__ static void ldg(const float* p, float* v) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  }
+  __device__ static void load(const float* p, float* v) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  }
+  __device__ static void store(float* p, const float* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+  __device__ static Two two(float a, float b) { return make_float2(a, b); }
+};
+
+template <>
+struct Vec<double> {
+  static constexpr int kN = 2;
+  using Two = double2;
+  __device__ static void ldg(const double* p, double* v) {
+    const double2 q = __ldg(reinterpret_cast<const double2*>(p));
+    v[0] = q.x, v[1] = q.y;
+  }
+  __device__ static void load(const double* p, double* v) {
+    const double2 q = *reinterpret_cast<const double2*>(p);
+    v[0] = q.x, v[1] = q.y;
+  }
+  __device__ static void store(double* p, const double* v) {
+    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+  }
+  __device__ static Two two(double a, double b) { return make_double2(a, b); }
+};
+
+// K values of T at p (aligned on K values, or on 16 bytes from 16 bytes
+// on): 16-byte vectors, a float2, or one scalar
+template <typename T, int K>
+__device__ __forceinline__ void ldg_k(const T* p, T (&v)[K]) {
+  if constexpr (K * sizeof(T) >= 16) {
+#pragma unroll
+    for (int i = 0; i < K; i += Vec<T>::kN) Vec<T>::ldg(p + i, v + i);
+  } else if constexpr (K == 2) {
+    const float2 q = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = q.x, v[1] = q.y;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+template <typename T, int K>
+__device__ __forceinline__ void store_k(T* p, const T (&v)[K]) {
+  if constexpr (K * sizeof(T) >= 16) {
+#pragma unroll
+    for (int i = 0; i < K; i += Vec<T>::kN) Vec<T>::store(p + i, v + i);
+  } else if constexpr (K == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    p[0] = v[0];
+  }
+}
 
 // exp(-q^2 / 2) / sqrt(2 pi), the plain version's operation order
 template <typename T>
@@ -288,51 +405,274 @@ __global__ void __launch_bounds__(256)
     frames[i] = SplatFixed<T>::value(sums, n, i);
 }
 
+// ---- the splat backward ----------------------------------------------------
+//
 // (dwx, dwy) of each (ref, event) from its window of the cotangent G:
-// dwx = sum_ij G[i, j] g(i - y) q_j g(q_j), q_j = j - x, and dwy alike;
-// dropped texels count 0 and a non-finite result becomes 0, as in
-// splat.cu's backward. No atomics.
-template <typename T, bool kWrap>
-__global__ void splat_direct_bwd_kernel(const T* __restrict__ wx,
-                                        const T* __restrict__ wy,
-                                        const T* __restrict__ grad,
-                                        T* __restrict__ dwx, T* __restrict__ dwy,
-                                        long long n, long long n_events, int H,
-                                        int W, int hw) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const T x = wx[i], y = wy[i];
-    T rx, ry, ox = T(0), oy = T(0);
-    if (window_at<T, kWrap>(x, y, H, W, hw, rx, ry)) {
-      const T* G = grad + (i / n_events) * (long long)H * W;
-      const int iy = (int)ry, ix = (int)rx;
-      for (int a = -hw; a <= hw; ++a) {
-        const int row = texel<kWrap>(iy + a, H);
-        if (row < 0) continue;
-        // the row's sums against g(q_j) and q_j g(q_j)
-        T m = T(0), dm = T(0);
-        for (int b = -hw; b <= hw; ++b) {
-          const int col = texel<kWrap>(ix + b, W);
-          if (col < 0) continue;
-          const T qx = (rx + T(b)) - x;
-          const T gx = gauss(qx);
-          const T t = G[(long long)row * W + col];
-          m += t * gx;
-          dm += t * (qx * gx);
-        }
-        const T qy = (ry + T(a)) - y;
-        const T gy = gauss(qy);
-        ox += dm * gy;
-        oy += m * (qy * gy);
-      }
+// dwx = sum_i g(q_i) sum_j G[i, j] q_j g(q_j), dwy = sum_i q_i g(q_i)
+// sum_j G[i, j] g(q_j), q_j = j - x, q_i = i - y: a row's two sums over
+// its columns first, then the rows, each sum an FMA chain in window order.
+// Dropped texels count 0 (they are skipped) and a non-finite result becomes
+// 0, as in splat.cu's backward. No atomics.
+
+// G of one ref, where the kernel reads it: device memory, through the
+// read-only cache
+template <typename T>
+struct GlobalRows {
+  const T* __restrict__ g;
+  int W;
+  __device__ T at(int row, int col) const { return __ldg(g + (long long)row * W + col); }
+  __device__ void vec(int row, int col, T* v) const {
+    Vec<T>::ldg(g + (long long)row * W + col, v);
+  }
+};
+
+// rows [r0, ...) of G copied into shared memory (the slab kernel)
+template <typename T>
+struct SharedRows {
+  const T* s;
+  int r0, W;
+  __device__ T at(int row, int col) const { return s[(row - r0) * W + col]; }
+  __device__ void vec(int row, int col, T* v) const {
+    Vec<T>::load(s + (row - r0) * W + col, v);
+  }
+};
+
+// the 2 HW + 1 texels of a row from column c0 on, all on the sensor: as
+// the 16-byte vectors that hold them where `rows16` (every row of G starts
+// on 16 bytes) and they lie in the row, else one by one; the same values
+template <typename T, int HW, class Src>
+__device__ __forceinline__ void row_texels(const Src& src, int row, int c0, int W,
+                                           bool rows16, T (&t)[2 * HW + 1]) {
+  constexpr int kTaps = 2 * HW + 1, kN = Vec<T>::kN;
+  constexpr int kVecs = (kTaps + 2 * kN - 2) / kN;  // for any c0 % kN
+  const int left = c0 & ~(kN - 1);
+  if (rows16 && left + kVecs * kN <= W) {
+    T p[kVecs * kN];
+#pragma unroll
+    for (int v = 0; v < kVecs; ++v) src.vec(row, left + v * kN, p + v * kN);
+    const int o = c0 - left;
+#pragma unroll
+    for (int b = 0; b < kTaps; ++b) {
+      T x = p[b];
+#pragma unroll
+      for (int k = 1; k < kN; ++k)
+        if (o == k) x = p[b + k];
+      t[b] = x;
     }
-    dwx[i] = isfinite(ox) ? ox : T(0);
-    dwy[i] = isfinite(oy) ? oy : T(0);
+  } else {
+#pragma unroll
+    for (int b = 0; b < kTaps; ++b) t[b] = src.at(row, c0 + b);
   }
 }
 
-// ---- the coarse-theta interp in float64 ------------------------------------
+// one event with a window of 2 HW + 1 texels a side (HW a constant): the
+// 2 (2 HW + 1) exponentials once, in registers
+template <typename T, bool kWrap, int HW, class Src>
+__device__ __forceinline__ void bwd_event(const Src& src, T x, T y, int H, int W,
+                                          bool rows16, T& dx, T& dy) {
+  constexpr int kTaps = 2 * HW + 1;
+  T rx, ry, ox = T(0), oy = T(0);
+  if (window_at<T, kWrap>(x, y, H, W, HW, rx, ry)) {
+    const int iy = (int)ry, ix = (int)rx;
+    T gx[kTaps], dgx[kTaps], gy[kTaps], dgy[kTaps];
+#pragma unroll
+    for (int d = 0; d < kTaps; ++d) {
+      const T qx = (rx + T(d - HW)) - x, qy = (ry + T(d - HW)) - y;
+      gx[d] = gauss(qx);
+      dgx[d] = mul_rn(qx, gx[d]);
+      gy[d] = gauss(qy);
+      dgy[d] = mul_rn(qy, gy[d]);
+    }
+    if (iy >= HW && iy + HW < H && ix >= HW && ix + HW < W) {
+      // the whole window on the sensor: no texel dropped or wrapped
+#pragma unroll
+      for (int a = 0; a < kTaps; ++a) {
+        T t[kTaps];
+        row_texels<T, HW>(src, iy + a - HW, ix - HW, W, rows16, t);
+        T m = T(0), dm = T(0);
+#pragma unroll
+        for (int b = 0; b < kTaps; ++b) {
+          m = fma_(t[b], gx[b], m);
+          dm = fma_(t[b], dgx[b], dm);
+        }
+        ox = fma_(dm, gy[a], ox);
+        oy = fma_(m, dgy[a], oy);
+      }
+    } else {
+#pragma unroll
+      for (int a = 0; a < kTaps; ++a) {
+        const int row = texel<kWrap>(iy + a - HW, H);
+        if (row < 0) continue;
+        T m = T(0), dm = T(0);
+#pragma unroll
+        for (int b = 0; b < kTaps; ++b) {
+          const int col = texel<kWrap>(ix + b - HW, W);
+          if (col < 0) continue;
+          const T t = src.at(row, col);
+          m = fma_(t, gx[b], m);
+          dm = fma_(t, dgx[b], dm);
+        }
+        ox = fma_(dm, gy[a], ox);
+        oy = fma_(m, dgy[a], oy);
+      }
+    }
+  }
+  dx = isfinite(ox) ? ox : T(0);
+  dy = isfinite(oy) ? oy : T(0);
+}
+
+// the same sums at a radius hw above kMaxHw (windows 11 and up, which no
+// shipped configuration sets): a runtime loop that computes a column's
+// weights again in every row, as the first design did, with the same values
+template <typename T, bool kWrap, class Src>
+__device__ __forceinline__ void bwd_event_any(const Src& src, T x, T y, int H, int W,
+                                              int hw, T& dx, T& dy) {
+  T rx, ry, ox = T(0), oy = T(0);
+  if (window_at<T, kWrap>(x, y, H, W, hw, rx, ry)) {
+    const int iy = (int)ry, ix = (int)rx;
+    for (int a = -hw; a <= hw; ++a) {
+      const int row = texel<kWrap>(iy + a, H);
+      if (row < 0) continue;
+      T m = T(0), dm = T(0);
+      for (int b = -hw; b <= hw; ++b) {
+        const int col = texel<kWrap>(ix + b, W);
+        if (col < 0) continue;
+        const T qx = (rx + T(b)) - x;
+        const T gx = gauss(qx);
+        const T t = src.at(row, col);
+        m = fma_(t, gx, m);
+        dm = fma_(t, mul_rn(qx, gx), dm);
+      }
+      const T qy = (ry + T(a)) - y;
+      const T gy = gauss(qy);
+      ox = fma_(dm, gy, ox);
+      oy = fma_(m, mul_rn(qy, gy), oy);
+    }
+  }
+  dx = isfinite(ox) ? ox : T(0);
+  dy = isfinite(oy) ? oy : T(0);
+}
+
+constexpr int kMaxHw = 4;  // windows up to 9 unrolled (HW a template argument)
+
+template <typename T, bool kWrap, int HW, class Src>
+__device__ __forceinline__ void bwd_one(const Src& src, T x, T y, int H, int W, int hw,
+                                        bool rows16, T& dx, T& dy) {
+  if constexpr (HW >= 0) {
+    bwd_event<T, kWrap, HW>(src, x, y, H, W, rows16, dx, dy);
+  } else {
+    bwd_event_any<T, kWrap>(src, x, y, H, W, hw, dx, dy);
+  }
+}
+
+// The gather kernel: blockIdx.y is the ref; a thread takes K events in a
+// row, grid-stride within its ref, as one load per coordinate array and one
+// store per gradient array where `vec` says that every ref's arrays start
+// on K values (16 bytes from 16 on); HW < 0: the runtime radius hw.
+template <typename T, bool kWrap, int HW, int K>
+__global__ void __launch_bounds__(256)
+    splat_direct_bwd_kernel(const T* __restrict__ wx, const T* __restrict__ wy,
+                            const T* __restrict__ grad, T* __restrict__ dwx,
+                            T* __restrict__ dwy, long long n_events, int H, int W,
+                            int hw, int vec, int rows16) {
+  const long long ref = blockIdx.y, off = ref * n_events;
+  const GlobalRows<T> src{grad + ref * H * W, W};
+  const T* xs = wx + off;
+  const T* ys = wy + off;
+  T* ox = dwx + off;
+  T* oy = dwy + off;
+  const long long stride = (long long)K * gridDim.x * blockDim.x;
+  for (long long e = K * ((long long)blockIdx.x * blockDim.x + threadIdx.x); e < n_events;
+       e += stride) {
+    if (vec && e + K <= n_events) {
+      T x[K], y[K], dx[K], dy[K];
+      ldg_k<T, K>(xs + e, x);
+      ldg_k<T, K>(ys + e, y);
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        bwd_one<T, kWrap, HW>(src, x[k], y[k], H, W, hw, rows16, dx[k], dy[k]);
+      store_k<T, K>(ox + e, dx);
+      store_k<T, K>(oy + e, dy);
+    } else {
+      for (long long i = e; i < min(e + K, n_events); ++i)
+        bwd_one<T, kWrap, HW>(src, __ldg(xs + i), __ldg(ys + i), H, W, hw, rows16, ox[i],
+                              oy[i]);
+    }
+  }
+}
+
+// the events a warp of the slab kernel queues before it runs them, 32 at a time
+constexpr int kBwdQueue = 64;
+constexpr int kBwdQueueBytes = 32 * kBwdQueue * 4;
+
+// The slab kernel (float32, no wrap; built for hw 3 and 4, where it won):
+// block (slab, chunk) of ref blockIdx.y copies the rows [r0 - HW, r1 + HW)
+// of G (clipped to the sensor) into shared memory, walks its chunk's events
+// (interleaved runs of blockDim events), and takes those whose centre row,
+// clamped to the sensor, is in [r0, r1):
+// each warp queues them (ballot and prefix count) and runs them 32 at a
+// time against the slab. Slab 0 also writes the zeros of events whose
+// window misses the sensor. Every event is written once, by one block.
+template <typename T, int HW>
+__global__ void __launch_bounds__(1024)
+    splat_direct_bwd_slab_kernel(const T* __restrict__ wx, const T* __restrict__ wy,
+                                 const T* __restrict__ grad, T* __restrict__ dwx,
+                                 T* __restrict__ dwy, long long n_events, int H, int W,
+                                 int tile_rows, int row_slabs, int chunks, int rows16) {
+  extern __shared__ __align__(16) unsigned char slab_bytes[];
+  T* slab = reinterpret_cast<T*>(slab_bytes);
+  const int rs = blockIdx.x % row_slabs, chunk = blockIdx.x / row_slabs;
+  const long long ref = blockIdx.y, off = ref * n_events;
+  const int r0 = rs * tile_rows, r1 = min(r0 + tile_rows, H);
+  const int s0 = max(r0 - HW, 0), s1 = min(r1 + HW, H);
+  const T* G = grad + ref * H * W + (long long)s0 * W;
+  for (int i = threadIdx.x; i < (s1 - s0) * W; i += blockDim.x) slab[i] = __ldg(G + i);
+  __syncthreads();
+  const SharedRows<T> src{slab, s0, W};
+  const T* xs = wx + off;
+  const T* ys = wy + off;
+  T* ox = dwx + off;
+  T* oy = dwy + off;
+  __shared__ int queues[32][kBwdQueue];
+  const int lane = threadIdx.x & 31;
+  int* queue = queues[threadIdx.x >> 5];
+  int queued = 0;  // the same in every lane
+  const long long run = blockDim.x;
+  for (long long base = chunk * run + (threadIdx.x & ~31); base < n_events;
+       base += run * chunks) {  // the same trips in every lane of a warp
+    const long long i = base + lane;
+    bool mine = false;
+    if (i < n_events) {
+      T rx, ry;
+      if (window_at<T, false>(__ldg(xs + i), __ldg(ys + i), H, W, HW, rx, ry)) {
+        const int iy = min(max((int)ry, 0), H - 1);
+        mine = iy >= r0 && iy < r1;
+      } else if (rs == 0) {
+        ox[i] = T(0);
+        oy[i] = T(0);
+      }
+    }
+    const unsigned m = __ballot_sync(0xffffffffu, mine);
+    if (mine) queue[queued + __popc(m & ((1u << lane) - 1u))] = (int)i;
+    queued += __popc(m);
+    if (queued >= 32) {
+      __syncwarp();
+      const int e = queue[lane];
+      __syncwarp();
+      if (lane < queued - 32) queue[lane] = queue[32 + lane];
+      __syncwarp();
+      queued -= 32;
+      bwd_event<T, false, HW>(src, __ldg(xs + e), __ldg(ys + e), H, W, rows16, ox[e], oy[e]);
+    }
+  }
+  __syncwarp();
+  if (lane < queued) {
+    const int e = queue[lane];
+    bwd_event<T, false, HW>(src, __ldg(xs + e), __ldg(ys + e), H, W, rows16, ox[e], oy[e]);
+  }
+}
+
+// ---- the coarse-theta interp -----------------------------------------------
 //
 // Every product and sum is written with a round-to-nearest intrinsic, as the
 // plain version's separate operations round them, so that nvcc cannot
@@ -342,53 +682,122 @@ __global__ void splat_direct_bwd_kernel(const T* __restrict__ wx,
 // normalization raised to 1 (a whole cell's value instead of 0, seen on the
 // card at 16x16 cells over 48 rows).
 
-struct Taps {
+template <typename T>
+struct TapsOf {
   int k0, k1;  // clamped into [0, n)
-  double w0, w1;
+  T w0, w1;
 };
+using Taps = TapsOf<double>;
 
-// ops/interp.py:_axis_taps at the rounded coordinate: triangle weights at
-// u = (round(c) + 0.5) * scale - 0.5, masked to [0, n), divided by
-// max(sum, 1e-20); NaN weights for a NaN u; indices clamped, a clamped tap
-// carrying weight 0
-__device__ __forceinline__ Taps axis_taps(double c, int n, double scale) {
-  const double u = __dsub_rn(__dmul_rn(__dadd_rn(rint(c), 0.5), scale), 0.5);
-  const double kf = floor(u);
-  Taps t;
+// a / s in the bits of a correctly rounded division, for a in [0, 1] and
+// s = max(a + b, 1e-20) > 0, without dividing where the quotient is known:
+// 0 / s = 0, a / 1 = a, a / a = 1. Both weights of an event inside the grid
+// sum to 1, so most events divide nothing.
+template <typename T>
+__device__ __forceinline__ T weight_over(T a, T s) {
+  if (a == T(0)) return T(0);
+  if (s == T(1)) return a;
+  if (s == a) return T(1);
+  return div_rn(a, s);
+}
+
+// ops/interp.py:_axis_taps at the coordinate, rounded (half to even) with
+// kRound or as given: triangle weights at u = (c + 0.5) * scale - 0.5,
+// masked to [0, n), divided by max(sum, 1e-20); NaN weights for a NaN u;
+// indices clamped, a clamped tap carrying weight 0
+template <typename T, bool kRound>
+__device__ __forceinline__ TapsOf<T> axis_taps_of(T c, int n, T scale) {
+  const T u = sub_rn(mul_rn(add_rn(kRound ? rint_(c) : c, T(0.5)), scale), T(0.5));
+  const T kf = floor_(u);
+  TapsOf<T> t;
   // an infinite kf gives NaN weights that the mask then zeroes
-  double w0 = fmax(0.0, __dsub_rn(1.0, fabs(__dsub_rn(kf, u))));
-  double w1 = fmax(0.0, __dsub_rn(1.0, fabs(__dsub_rn(__dadd_rn(kf, 1.0), u))));
-  if (!(kf >= 0.0 && kf < (double)n)) w0 = 0.0;
-  if (!(kf + 1.0 >= 0.0 && kf + 1.0 < (double)n)) w1 = 0.0;
-  const double s = fmax(__dadd_rn(w0, w1), 1e-20);
-  t.w0 = isnan(u) ? u : w0 / s;
-  t.w1 = isnan(u) ? u : w1 / s;
-  const int k = isfinite(kf) ? (int)fmin(fmax(kf, -1.0), (double)n) : 0;
+  T w0 = fmax_(T(0), sub_rn(T(1), fabs_(sub_rn(kf, u))));
+  T w1 = fmax_(T(0), sub_rn(T(1), fabs_(sub_rn(add_rn(kf, T(1)), u))));
+  if (!(kf >= T(0) && kf < T(n))) w0 = T(0);
+  if (!(kf + T(1) >= T(0) && kf + T(1) < T(n))) w1 = T(0);
+  const T s = fmax_(add_rn(w0, w1), T(1e-20));
+  t.w0 = isnan(u) ? u : weight_over(w0, s);
+  t.w1 = isnan(u) ? u : weight_over(w1, s);
+  const int k = isfinite(kf) ? (int)fmin_(fmax_(kf, T(-1)), T(n)) : 0;
   t.k0 = min(max(k, 0), n - 1);
   t.k1 = min(max(k + 1, 0), n - 1);
   return t;
 }
 
-// out[e] = the bilinear sample of the (h, w, 2) theta at event e: rows
-// first (column x0, then x1), then columns, the plain version's order
-__global__ void interp_direct_fwd_kernel(const double* __restrict__ theta,
-                                         const double* __restrict__ xs,
-                                         const double* __restrict__ ys,
-                                         double* __restrict__ out,
-                                         long long n_events, int h, int w,
-                                         double scale_y, double scale_x) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < n_events; e += stride) {
-    const Taps ty = axis_taps(ys[e], h, scale_y);
-    const Taps tx = axis_taps(xs[e], w, scale_x);
-    for (int c = 0; c < 2; ++c) {
-      const double m0 = __dadd_rn(__dmul_rn(ty.w0, theta[(ty.k0 * w + tx.k0) * 2 + c]),
-                                  __dmul_rn(ty.w1, theta[(ty.k1 * w + tx.k0) * 2 + c]));
-      const double m1 = __dadd_rn(__dmul_rn(ty.w0, theta[(ty.k0 * w + tx.k1) * 2 + c]),
-                                  __dmul_rn(ty.w1, theta[(ty.k1 * w + tx.k1) * 2 + c]));
-      out[2 * e + c] = __dadd_rn(__dmul_rn(m0, tx.w0), __dmul_rn(m1, tx.w1));
+// the float64 taps at the rounded coordinate, as the backward takes them
+__device__ __forceinline__ Taps axis_taps(double c, int n, double scale) {
+  return axis_taps_of<double, true>(c, n, scale);
+}
+
+// cell i of the (h, w, 2) theta: one vector from a copy in shared memory
+// (kStaged), else two gathers from device memory
+template <typename T, bool kStaged>
+__device__ __forceinline__ typename Vec<T>::Two cell(const T* th, int i) {
+  if constexpr (kStaged) return reinterpret_cast<const typename Vec<T>::Two*>(th)[i];
+  return Vec<T>::two(__ldg(th + 2 * i), __ldg(th + 2 * i + 1));
+}
+
+// both channels of the bilinear sample of theta at (x, y): rows first
+// (column x0, then x1), then columns, the plain version's order
+template <typename T, bool kRound, bool kStaged>
+__device__ __forceinline__ typename Vec<T>::Two sample(const T* th, T x, T y, int h, int w,
+                                                       T sy, T sx) {
+  const TapsOf<T> ty = axis_taps_of<T, kRound>(y, h, sy);
+  const TapsOf<T> tx = axis_taps_of<T, kRound>(x, w, sx);
+  const auto t00 = cell<T, kStaged>(th, ty.k0 * w + tx.k0);
+  const auto t10 = cell<T, kStaged>(th, ty.k1 * w + tx.k0);
+  const auto t01 = cell<T, kStaged>(th, ty.k0 * w + tx.k1);
+  const auto t11 = cell<T, kStaged>(th, ty.k1 * w + tx.k1);
+  const T a0 = add_rn(mul_rn(ty.w0, t00.x), mul_rn(ty.w1, t10.x));
+  const T a1 = add_rn(mul_rn(ty.w0, t01.x), mul_rn(ty.w1, t11.x));
+  const T b0 = add_rn(mul_rn(ty.w0, t00.y), mul_rn(ty.w1, t10.y));
+  const T b1 = add_rn(mul_rn(ty.w0, t01.y), mul_rn(ty.w1, t11.y));
+  return Vec<T>::two(add_rn(mul_rn(a0, tx.w0), mul_rn(a1, tx.w1)),
+                     add_rn(mul_rn(b0, tx.w0), mul_rn(b1, tx.w1)));
+}
+
+// out[e] = the bilinear sample of the (h, w, 2) theta at event e, one
+// vector store an event; a thread takes K events in a row, grid-stride, as
+// one load per coordinate array where `vec` (xs and ys on 16 bytes). The
+// thread's first events are read before theta is staged, so that the two
+// round trips to device memory overlap (kernel 1's finding).
+template <typename T, bool kRound, bool kStaged, int K>
+__global__ void __launch_bounds__(256)
+    interp_direct_fwd_kernel(const T* __restrict__ theta, const T* __restrict__ xs,
+                             const T* __restrict__ ys, T* __restrict__ out,
+                             long long n_events, int h, int w, T sy, T sx, int vec) {
+  using Two = typename Vec<T>::Two;
+  extern __shared__ __align__(16) unsigned char staged_bytes[];
+  const long long stride = (long long)K * gridDim.x * blockDim.x;
+  long long e = K * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+  T x[K], y[K];
+  auto load = [&](long long e0) {
+    if (vec && e0 + K <= n_events) {
+      ldg_k<T, K>(xs + e0, x);
+      ldg_k<T, K>(ys + e0, y);
+    } else {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        x[k] = e0 + k < n_events ? __ldg(xs + e0 + k) : T(0);
+        y[k] = e0 + k < n_events ? __ldg(ys + e0 + k) : T(0);
+      }
     }
+  };
+  if (e < n_events) load(e);
+  const T* th = theta;
+  if constexpr (kStaged) {
+    T* staged = reinterpret_cast<T*>(staged_bytes);
+    for (int i = threadIdx.x; i < 2 * h * w; i += blockDim.x) staged[i] = __ldg(theta + i);
+    __syncthreads();
+    th = staged;
+  }
+  for (bool first = true; e < n_events; e += stride, first = false) {
+    if (!first) load(e);
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (e + k < n_events)
+        reinterpret_cast<Two*>(out)[e + k] = sample<T, kRound, kStaged>(th, x[k], y[k], h, w,
+                                                                         sy, sx);
   }
 }
 
@@ -474,13 +883,106 @@ int splat_fwd(const void* wx, const void* wy, unsigned long long* sums,
   return (int)cudaGetLastError();
 }
 
+// the backward's arguments, as the entry point takes them
+struct BwdArgs {
+  const void *wx, *wy, *grad;
+  void *dwx, *dwy;
+  int n_refs;
+  long long n_events;
+  int H, W, hw;
+  int per_thread, vec, blocks, threads;
+  int tile_rows, row_slabs, chunks;  // the slab kernel's
+  cudaStream_t stream;
+};
+
+// every row of G on 16 bytes: its base, and W values of T a multiple of 16
+template <typename T>
+bool rows_on_16(const void* grad, int W) {
+  return (size_t)grad % 16 == 0 && ((size_t)W * sizeof(T)) % 16 == 0;
+}
+
+template <typename T, bool kWrap, int HW>
+int bwd_gather(const BwdArgs& a) {
+  const dim3 grid(a.blocks, a.n_refs);
+  const int rows16 = rows_on_16<T>(a.grad, a.W);
+#define EINCM_BWD_GATHER(K)                                                             \
+  splat_direct_bwd_kernel<T, kWrap, HW, K><<<grid, a.threads, 0, a.stream>>>(         \
+      (const T*)a.wx, (const T*)a.wy, (const T*)a.grad, (T*)a.dwx, (T*)a.dwy,            \
+      a.n_events, a.H, a.W, a.hw, a.vec, rows16)
+  switch (a.per_thread) {
+    case 1: EINCM_BWD_GATHER(1); break;
+    case 2: EINCM_BWD_GATHER(2); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef EINCM_BWD_GATHER
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int HW>
+int bwd_slab(const BwdArgs& a) {
+  const size_t rows = (size_t)min(a.tile_rows + 2 * HW, a.H);
+  const size_t smem = (rows * a.W * sizeof(T) + 15) / 16 * 16;
+  if (smem > (size_t)eincm::kMaxSmem - kBwdQueueBytes - 1024)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(splat_direct_bwd_slab_kernel<T, HW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  splat_direct_bwd_slab_kernel<T, HW>
+      <<<dim3(a.row_slabs * a.chunks, a.n_refs), a.threads, smem, a.stream>>>(
+          (const T*)a.wx, (const T*)a.wy, (const T*)a.grad, (T*)a.dwx, (T*)a.dwy,
+          a.n_events, a.H, a.W, a.tile_rows, a.row_slabs, a.chunks,
+          ((size_t)a.W * sizeof(T)) % 16 == 0);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool kWrap>
-int splat_bwd(const void* wx, const void* wy, const void* grad, void* dwx,
-              void* dwy, long long n, long long n_events, int H, int W, int hw,
-              int blocks, int threads, cudaStream_t stream) {
-  splat_direct_bwd_kernel<T, kWrap><<<blocks, threads, 0, stream>>>(
-      (const T*)wx, (const T*)wy, (const T*)grad, (T*)dwx, (T*)dwy, n, n_events,
-      H, W, hw);
+int splat_bwd(const BwdArgs& a, int slab) {
+  if (slab) {  // float32 without the wrap at hw 3 and 4: where it won (PERF.md)
+    if constexpr (kWrap || sizeof(T) != 4) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      switch (a.hw) {
+        case 3: return bwd_slab<T, 3>(a);
+        case 4: return bwd_slab<T, 4>(a);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    }
+  }
+  switch (a.hw) {
+    case 0: return bwd_gather<T, kWrap, 0>(a);
+    case 1: return bwd_gather<T, kWrap, 1>(a);
+    case 2: return bwd_gather<T, kWrap, 2>(a);
+    case 3: return bwd_gather<T, kWrap, 3>(a);
+    case 4: return bwd_gather<T, kWrap, 4>(a);
+    default: return bwd_gather<T, kWrap, -1>(a);
+  }
+}
+
+template <typename T, bool kRound>
+int interp_fwd(const void* theta, const void* xs, const void* ys, void* out,
+               long long n_events, int h, int w, double scale_y, double scale_x,
+               int staged, int per_thread, int vec, int blocks, int threads,
+               cudaStream_t stream) {
+  const size_t smem = staged ? 2 * sizeof(T) * (size_t)h * w : 0;
+  const T sy = (T)scale_y, sx = (T)scale_x;
+#define EINCM_INTERP_FWD(S, K)                                                          \
+  interp_direct_fwd_kernel<T, kRound, S, K><<<blocks, threads, smem, stream>>>(         \
+      (const T*)theta, (const T*)xs, (const T*)ys, (T*)out, n_events, h, w, sy, sx, vec)
+  if (staged) {
+    switch (per_thread) {
+      case 1: EINCM_INTERP_FWD(true, 1); break;
+      case 2: EINCM_INTERP_FWD(true, 2); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    switch (per_thread) {
+      case 1: EINCM_INTERP_FWD(false, 1); break;
+      case 2: EINCM_INTERP_FWD(false, 2); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+#undef EINCM_INTERP_FWD
   return (int)cudaGetLastError();
 }
 
@@ -523,39 +1025,68 @@ extern "C" int eincm_splat_direct_fwd(const void* wx, const void* wy,
                                         blocks, smem, threads, stream);
 }
 
-// (dwx, dwy), each (n_refs, n_events), from the (n_refs, H, W) cotangent
+// (dwx, dwy), each (n_refs, n_events), from the (n_refs, H, W) cotangent,
+// float64 with `f64`, else float32, by ops/splat_kernel.py:plan_direct_bwd:
+// the gather kernel (a grid of blocks x n_refs blocks of `threads` threads,
+// per_thread events a thread; `vec`: every ref's four arrays start on 16
+// bytes and on per_thread values), or with `slab` the slab kernel (no wrap,
+// float32, hw 3 or 4; row_slabs x chunks x n_refs blocks, slabs of
+// tile_rows rows)
 extern "C" int eincm_splat_direct_bwd(const void* wx, const void* wy,
                                       const void* grad, void* dwx, void* dwy,
                                       int n_refs, long long n_events, int H,
-                                      int W, int hw, int f64, int wrap,
-                                      int blocks, int threads,
-                                      cudaStream_t stream) {
-  if (bad_launch(blocks, threads) || hw < 0 || H < 1 || W < 1)
+                                      int W, int hw, int f64, int wrap, int slab,
+                                      int per_thread, int vec, int tile_rows,
+                                      int row_slabs, int chunks, int blocks,
+                                      int threads, cudaStream_t stream) {
+  const size_t t = f64 ? 8 : 4;
+  const bool aligned = (size_t)wx % 16 == 0 && (size_t)wy % 16 == 0 && (size_t)dwx % 16 == 0 &&
+                       (size_t)dwy % 16 == 0 && (n_refs == 1 || n_events % per_thread == 0 ||
+                                                 ((size_t)n_events * t) % 16 == 0);
+  if (bad_launch(blocks, threads) || hw < 0 || H < 1 || W < 1 || n_refs < 1 ||
+      n_refs > 65535 || n_events < 1 || (vec && !aligned) ||
+      (slab ? (tile_rows < 1 || row_slabs < 1 || chunks < 1 ||
+               (long long)tile_rows * row_slabs < H || (long long)row_slabs * chunks != blocks ||
+               n_events > 0x7fffffffLL)
+            : threads > 256))
     return (int)cudaErrorInvalidValue;
-  const long long n = (long long)n_refs * n_events;
-  if (f64)
-    return wrap ? splat_bwd<double, true>(wx, wy, grad, dwx, dwy, n, n_events,
-                                          H, W, hw, blocks, threads, stream)
-                : splat_bwd<double, false>(wx, wy, grad, dwx, dwy, n, n_events,
-                                           H, W, hw, blocks, threads, stream);
-  return wrap ? splat_bwd<float, true>(wx, wy, grad, dwx, dwy, n, n_events, H,
-                                       W, hw, blocks, threads, stream)
-              : splat_bwd<float, false>(wx, wy, grad, dwx, dwy, n, n_events, H,
-                                        W, hw, blocks, threads, stream);
+  const BwdArgs a{wx,  wy,         grad, dwx,    dwy,     n_refs,    n_events,  H,      W,
+                  hw,  per_thread, vec,  blocks, threads, tile_rows, row_slabs, chunks, stream};
+  if (f64) return wrap ? splat_bwd<double, true>(a, slab) : splat_bwd<double, false>(a, slab);
+  return wrap ? splat_bwd<float, true>(a, slab) : splat_bwd<float, false>(a, slab);
 }
 
-// (n_events, 2) float64 samples of the (h, w, 2) float64 theta
-extern "C" int eincm_interp_direct_fwd(const double* theta, const double* xs,
-                                       const double* ys, double* out,
+// (n_events, 2) samples of the (h, w, 2) theta, float64 with `f64`, else
+// float32, at the coordinates rounded (half to even) with `round`, else as
+// given, by ops/interp.py:plan_direct_interp: blocks x threads threads,
+// per_thread events a thread (`vec`: xs and ys on 16 bytes), theta copied
+// to shared memory with `staged`; `out` on 16 bytes
+extern "C" int eincm_interp_direct_fwd(const void* theta, const void* xs,
+                                       const void* ys, void* out,
                                        long long n_events, int h, int w,
-                                       double scale_y, double scale_x,
-                                       int blocks, int threads,
+                                       double scale_y, double scale_x, int f64,
+                                       int round, int staged, int per_thread,
+                                       int vec, int blocks, int threads,
                                        cudaStream_t stream) {
-  if (bad_launch(blocks, threads) || h < 1 || w < 1)
+  const size_t t = f64 ? 8 : 4;
+  if (bad_launch(blocks, threads) || threads > 256 || h < 1 || w < 1 || n_events < 1 ||
+      (size_t)out % (2 * t) ||
+      (staged && 2 * t * (size_t)h * w > 48 * 1024) ||
+      (vec && ((size_t)xs % 16 || (size_t)ys % 16)))
     return (int)cudaErrorInvalidValue;
-  interp_direct_fwd_kernel<<<blocks, threads, 0, stream>>>(
-      theta, xs, ys, out, n_events, h, w, scale_y, scale_x);
-  return (int)cudaGetLastError();
+  if (f64)
+    return round ? interp_fwd<double, true>(theta, xs, ys, out, n_events, h, w, scale_y,
+                                            scale_x, staged, per_thread, vec, blocks,
+                                            threads, stream)
+                 : interp_fwd<double, false>(theta, xs, ys, out, n_events, h, w, scale_y,
+                                             scale_x, staged, per_thread, vec, blocks,
+                                             threads, stream);
+  return round ? interp_fwd<float, true>(theta, xs, ys, out, n_events, h, w, scale_y,
+                                         scale_x, staged, per_thread, vec, blocks,
+                                         threads, stream)
+               : interp_fwd<float, false>(theta, xs, ys, out, n_events, h, w, scale_y,
+                                          scale_x, staged, per_thread, vec, blocks,
+                                          threads, stream);
 }
 
 // the (h, w, 2) float64 dtheta (written whole) from the (n_events, 2)

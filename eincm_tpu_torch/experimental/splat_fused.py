@@ -39,10 +39,9 @@ tensors take the plain version; CUDA tensors launch the kernel at windows
 3 and 5 (`WINDOW_SIZES`, which the cluster kernels are built for) and, at
 any other window, are routed by that argument as the production splat
 routes it (`ops/splat.py`): the warp as the plain version computes it,
-then the direct splat kernel (`csrc/direct.cu`), with kernel 1 sampling
-theta first for kernel 8. Kernel 1 samples at rounded coordinates where
-kernel 8 samples at those given, so kernel 8's route refuses coordinates
-that are not whole numbers, naming them, rather than give another answer.
+then the direct splat kernel (`csrc/direct.cu`), with the direct interp
+forward in float32 sampling theta first for kernel 8, at (xi, yi) as given,
+as kernel 8 and its plain version do. Neither route reads the host.
 Anything a kernel does not take raises.
 """
 
@@ -57,7 +56,7 @@ import torch
 
 from eincm_tpu_torch.ops._build import KERNELS, active_clusters, check_cuda
 from eincm_tpu_torch.ops.interp import (
-    FWD_STAGED_BYTES, _scales, interp_fwd_cuda, interp_theta_at_events_plain,
+    FWD_STAGED_BYTES, _scales, interp_direct_fwd_cuda, interp_theta_at_events_plain,
 )
 from eincm_tpu_torch.ops.splat_kernel import (
     N_SM, SMEM_BLOCK, SMEM_PER_SM, WINDOW_SIZES, half_window, splat_direct_fwd_cuda,
@@ -143,23 +142,14 @@ def fully_fused_warp_splat_routed(
     xi, yi, ts, theta, t_ref, sensor_size, window_size: int
 ) -> torch.Tensor:
     """Kernel 8 at a window the cluster kernels are not built for, on the
-    card: kernel 1 samples theta, then kernel 7's route. Kernel 1 rounds
-    the coordinates, so every finite xi and yi must be a whole number."""
+    card: the direct interp forward samples theta at (xi, yi) as given
+    (float32, unrounded: the plain version's taps bit for bit), then kernel
+    7's route."""
     e = xi.shape[0]
     h, w, _ = theta.shape
     check_cuda("fully_fused_warp_splat", (xi, yi, ts, theta), [(e,)] * 3 + [(h, w, 2)])
     _check_window("fully_fused_warp_splat", window_size)
-    frac = (torch.isfinite(xi) & (xi != torch.round(xi))) | (
-        torch.isfinite(yi) & (yi != torch.round(yi)))
-    n = int(frac.sum())
-    if n:
-        i = int(frac.nonzero()[0, 0])
-        raise ValueError(
-            f"fully_fused_warp_splat: window_size {window_size} runs kernel 1, which samples "
-            f"theta at rounded coordinates, and {n} events have an xi or yi that is not a "
-            f"whole number (event {i}: xi {float(xi[i])!r}, yi {float(yi[i])!r}); kernel 8 "
-            "and the plain version sample them as given")
-    th = interp_fwd_cuda(theta, xi, yi, sensor_size)
+    th = interp_direct_fwd_cuda(theta, xi, yi, sensor_size, round_coords=False)
     return fused_warp_splat_routed(
         xi, yi, ts, th[:, 0].contiguous(), th[:, 1].contiguous(), t_ref, sensor_size,
         window_size,

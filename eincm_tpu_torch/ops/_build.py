@@ -127,17 +127,6 @@ def check_cuda(name: str, tensors, shapes, dtype=torch.float32) -> None:
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
 
 
-# the direct gathers (csrc/direct.cu): one thread per event in a
-# grid-stride loop of at most 16 blocks per SM of an H100 (132 SMs)
-DIRECT_THREADS = 256
-DIRECT_MAX_BLOCKS = 132 * 16
-
-
-def direct_launch(n: int) -> Tuple[int, int]:
-    """(blocks, threads) of a direct kernel over n events."""
-    return max(1, min(-(-n // DIRECT_THREADS), DIRECT_MAX_BLOCKS)), DIRECT_THREADS
-
-
 class Kernel:
     """One `extern "C"` entry point plus its launch count."""
 
@@ -224,14 +213,18 @@ KERNELS: Dict[str, Kernel] = {
         (P, P, P, P, I, LL, I, I, I, I, I, I, I, I, I, I, I, P),
     ),
     # (wx, wy, grad_frames, dwx, dwy, n_refs, n_events, H, W, hw, f64, wrap,
-    #  blocks, threads, stream)
+    #  slab, per_thread, vec, tile_rows, row_slabs, chunks, blocks, threads,
+    #  stream)
     "splat_direct_bwd": Kernel(
-        "direct", "eincm_splat_direct_bwd", (P, P, P, P, P, I, LL, I, I, I, I, I, I, I, P)
+        "direct", "eincm_splat_direct_bwd",
+        (P, P, P, P, P, I, LL, I, I, I, I, I, I, I, I, I, I, I, I, I, P),
     ),
-    # (theta, xs, ys, out, n_events, h, w, scale_y, scale_x, blocks,
-    #  threads, stream), float64
+    # (theta, xs, ys, out, n_events, h, w, scale_y, scale_x, f64, round,
+    #  staged, per_thread, vec, blocks, threads, stream): float64, and
+    #  float32 at the coordinates as given (kernel 8's route)
     "interp_direct_fwd": Kernel(
-        "direct", "eincm_interp_direct_fwd", (P, P, P, P, LL, I, I, D, D, I, I, P)
+        "direct", "eincm_interp_direct_fwd",
+        (P, P, P, P, LL, I, I, D, D, I, I, I, I, I, I, I, P),
     ),
     # (g, xs, ys, dtheta, scratch, n_events, h, w, scale_y, scale_x,
     #  band_rows, blocks, threads, stream), float64

@@ -32,7 +32,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from eincm_tpu_torch.ops._build import KERNELS, check_cuda, direct_launch
+from eincm_tpu_torch.ops._build import KERNELS, check_cuda
 
 # the kernel gate of eincm_tpu/ops/warp.py:interp_theta_at_events, which the
 # dense-layout interp and the fully fused warp+splat keep; kernels 1 and 2
@@ -430,20 +430,88 @@ def interp_bwd_cuda(g, xs, ys, theta_shape, sensor_size, plan: InterpPlan = None
     return dtheta
 
 
-def interp_direct_fwd_cuda(theta, xs, ys, sensor_size) -> torch.Tensor:
-    """Launch the float64 direct forward: (h, w, 2) theta, (E,) coords ->
-    (E, 2), `interp_theta_at_events_plain`'s function, on any grid."""
+# The direct forward (csrc/direct.cu): one trip a thread; in float32 two
+# events a thread in a row from GROUP_EVENTS events on (one 8-byte load of
+# xs and of ys), else one; theta staged in shared memory up to
+# FWD_STAGED_BYTES, as kernel 1 does. On an H100 at 1.5M events (PERF.md):
+# float64 one event a thread 0.0226 ms, two 0.0234, four 0.0298; float32
+# at the coordinates as given two 0.0124, one 0.0127, four 0.0199.
+DIRECT_FWD_THREADS = 256
+DIRECT_PER_THREAD = {False: 2, True: 1}  # by f64
+
+
+@dataclass(frozen=True)
+class DirectInterpPlan:
+    """The direct forward's launch: `blocks` x `threads` threads, each
+    taking `per_thread` events in a row, grid-stride; `vec`: as one load of
+    xs and of ys (both start on 16 bytes); `staged`: theta read from a copy
+    in shared memory, else gathered from device memory."""
+
+    per_thread: int
+    blocks: int
+    threads: int
+    staged: bool
+    vec: bool
+
+
+def plan_direct_interp(E: int, h: int, w: int, f64: bool = True, per_thread: int = None,
+                       threads: int = None, blocks: int = None, staged: bool = None,
+                       aligned: bool = True) -> DirectInterpPlan:
+    """The direct forward's plan for E events on an (h, w, 2) theta, in
+    float64 with `f64`, else float32; `aligned`: xs and ys start on 16
+    bytes. The other arguments override the defaults (for timing sweeps and
+    tests)."""
+    if not E >= 1:
+        raise ValueError(f"plan_direct_interp: E >= 1, got {E}")
+    _check_grid(h, w)
+    theta_bytes = 2 * h * w * (8 if f64 else 4)
+    if staged is None:
+        staged = theta_bytes <= FWD_STAGED_BYTES
+    if staged and theta_bytes > 48 * 1024:
+        raise ValueError(f"plan_direct_interp: {h}x{w} is too large to stage")
+    if per_thread is None:
+        per_thread = DIRECT_PER_THREAD[f64] if E >= GROUP_EVENTS else 1
+    if per_thread not in (1, 2):
+        raise ValueError(f"plan_direct_interp: per_thread {per_thread} not 1 or 2")
+    threads = DIRECT_FWD_THREADS if threads is None else threads
+    if not (32 <= threads <= DIRECT_FWD_THREADS and threads % 32 == 0):
+        raise ValueError(f"plan_direct_interp: threads {threads} not a multiple of 32 "
+                         f"up to {DIRECT_FWD_THREADS}")
+    if blocks is None:
+        blocks = -(-E // (threads * per_thread))
+    if not 1 <= blocks <= 2**31 - 1:
+        raise ValueError(f"plan_direct_interp: blocks {blocks} not in [1, 2^31)")
+    return DirectInterpPlan(per_thread=per_thread, blocks=blocks, threads=threads,
+                            staged=staged, vec=per_thread > 1 and aligned)
+
+
+def interp_direct_fwd_cuda(theta, xs, ys, sensor_size, round_coords: bool = True,
+                           plan: DirectInterpPlan = None) -> torch.Tensor:
+    """Launch the direct forward: (h, w, 2) theta, (E,) coords -> (E, 2),
+    `interp_theta_at_events_plain(..., round_coords)`'s function, on any
+    grid, in theta's dtype (float64, or float32: kernel 8's route samples
+    at the coordinates as given), by `plan` (default:
+    `plan_direct_interp`'s)."""
     h, w, _ = theta.shape
     e = xs.shape[0]
-    check_cuda("interp_direct_fwd", (theta, xs, ys), ((h, w, 2), (e,), (e,)), torch.float64)
+    if theta.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"interp_direct_fwd: float32 or float64 only, got {theta.dtype}")
+    check_cuda("interp_direct_fwd", (theta, xs, ys), ((h, w, 2), (e,), (e,)), theta.dtype)
+    _check_grid(h, w)
     H, W = sensor_size
-    out = torch.empty((e, 2), dtype=torch.float64, device=theta.device)
+    f64 = theta.dtype == torch.float64
+    out = torch.empty((e, 2), dtype=theta.dtype, device=theta.device)
     if e:
-        blocks, threads = direct_launch(e)
+        aligned = xs.data_ptr() % 16 == 0 and ys.data_ptr() % 16 == 0
+        p = plan_direct_interp(e, h, w, f64, aligned=aligned) if plan is None else plan
+        if p.vec and not aligned:
+            raise ValueError(f"interp_direct_fwd: {p} takes vector loads, but xs and ys "
+                             f"do not start on 16 bytes")
         with torch.cuda.device(theta.device):
             KERNELS["interp_direct_fwd"](
                 theta.data_ptr(), xs.data_ptr(), ys.data_ptr(), out.data_ptr(), e, h, w,
-                h / H, w / W, blocks, threads, torch.cuda.current_stream().cuda_stream,
+                h / H, w / W, int(f64), int(round_coords), int(p.staged), p.per_thread,
+                int(p.vec), p.blocks, p.threads, torch.cuda.current_stream().cuda_stream,
             )
     return out
 

@@ -4,7 +4,7 @@ and 8), the dense-layout interp (kernel 9) and the coarse-theta interp
 turns on one card.
 
     python3 eincm_tpu_torch/utils/kernel_ab.py --tree DIR --label NAME \
-        [--out FILE] [--sweep [interp] [splat_bwd] [fused]] [--chains N]
+        [--out FILE] [--sweep [interp] [splat_bwd] [fused] [direct]] [--chains N]
 
 Imports `eincm_tpu_torch` from DIR (a checkout or a `git archive` of any
 commit that has these entry points) and builds its kernels there. Inputs,
@@ -33,7 +33,7 @@ windows 1..5 (`chains`). A tree whose splat forward adds its tiles as
 float atomics varies from run to run with their order; one whose forward
 sums exactly (64-bit fixed point) repeats bitwise.
 
-`--sweep` names what else to time (no name: all three), each where the
+`--sweep` names what else to time (no name: all four), each where the
 tree has the plan: `interp`, the interp kernels over `plan_interp`'s
 choices (events in groups of four or one by one, threads, blocks per SM,
 theta staged or gathered, the backward's modes up to 64x64); `splat_bwd`,
@@ -43,7 +43,14 @@ per SM, and both on the first 2^14 to 2^20 events (where one overtakes
 the other); `fused`, kernel 8 and, where the tree plans it, kernel 7 over
 `plan_fused`'s choices (cluster size, threads, chunks, events per round,
 queues of the least size) on their events as they are and permuted, and
-both kernels of each on the first 2^14 to 2^20 permuted events.
+both kernels of each on the first 2^14 to 2^20 permuted events; `direct`,
+the direct splat backward (float64 at windows 3 and 7, float32 at windows
+2, 4, 7 and 9, and the float32 wrap at window 3) and the direct interp
+forward (float64 rounded, and float32 at the coordinates as given, kernel
+8's route) at both staged windows' shapes, each by its default plan and,
+where the tree has `plan_direct_bwd` and `plan_direct_interp`, over events
+a thread, threads, theta staged or gathered, and the backward's gather and
+slab kernels, both also on the first 2^16 to 2^20 events at DSEC.
 
 Times are device ms per call from CUDA events (the tree's
 `utils/profiling.cuda_ms`). Prints the card, one line per time and one
@@ -61,7 +68,7 @@ import sys
 from pathlib import Path
 
 
-SWEEPS = ("interp", "splat_bwd", "fused")
+SWEEPS = ("interp", "splat_bwd", "fused", "direct")
 
 
 def _grid_sample(theta, xs, ys, sensor):
@@ -234,6 +241,86 @@ def time_direct(sk, ti, splat_in, cot, theta, timed):
               lambda: ti.interp_direct_bwd_cuda(g, xs, ys, tuple(th64.shape), sensor))
 
 
+def sweep_direct(sk, ti, splat_in, cot, theta, timed, res):
+    """The direct splat backward and interp forward at both staged
+    windows' shapes: the default plan of each case, then, where the tree
+    plans them, every choice of events a thread and threads, the interp's
+    theta staged or gathered, and the backward's slab kernel (float32, no
+    wrap) at its thread counts; at DSEC also the first 2^16 to 2^20 events
+    of each ref through the gather and the slab kernel (where one overtakes
+    the other); each plan in `res["plans"]`."""
+    import dataclasses
+
+    import torch
+
+    plans = res.setdefault("plans", {})
+    planned_bwd = hasattr(sk, "plan_direct_bwd")
+    planned_fwd = hasattr(ti, "plan_direct_interp")
+    unrounded = "round_coords" in inspect.signature(ti.interp_direct_fwd_cuda).parameters
+
+    def bwd_key(key, p):
+        return (f"{key}_{p.kernel}_{p.threads}t_{p.blocks}b"
+                + (f"_{p.per_thread}each" if p.kernel == "gather" else
+                   f"_{p.row_slabs}slabs_{p.chunks}chunks"))
+
+    for tag in ("mvsec", "dsec"):
+        wx, wy, sensor = splat_in[tag]
+        G = cot[tag]
+        R, E = wx.shape
+        wx64, wy64, G64 = wx.double(), wy.double(), G.double()
+        cases = {"f64_w3": (wx64, wy64, G64, 3, False), "wrap_f32_w3": (wx, wy, G, 3, True),
+                 "f32_w2": (wx, wy, G, 2, False), "f32_w4": (wx, wy, G, 4, False),
+                 "f32_w7": (wx, wy, G, 7, False), "f32_w9": (wx, wy, G, 9, False),
+                 "f64_w7": (wx64, wy64, G64, 7, False)}
+        for name, (ax, ay, g, ws, wrap) in cases.items():
+            key = f"sweep_direct_bwd_{tag}_{name}"
+            timed(key, lambda: sk.splat_direct_bwd_cuda(ax, ay, g, sensor, ws, wrap))
+            if not planned_bwd:
+                continue
+            f64 = ax.dtype == torch.float64
+            choices = [dict(kernel="gather", per_thread=k, threads=t)
+                       for k in (1, 2) for t in (64, 128, 256)]
+            choices += [dict(kernel="slab", threads=t) for t in (512, 1024)]
+            for c in choices:
+                try:
+                    p = sk.plan_direct_bwd(R, E, *sensor, ws, f64, wrap, **c)
+                except ValueError:
+                    continue  # no slab kernel for float64 or the wrap
+                k = bwd_key(key, p)
+                plans[k] = dataclasses.asdict(p)
+                timed(k, lambda: sk.splat_direct_bwd_cuda(ax, ay, g, sensor, ws, wrap, p))
+            if tag != "dsec" or f64 or wrap or ws // 2 not in sk.SLAB_HW:
+                continue
+            for n in (1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20):
+                nx, ny = ax[:, :n].contiguous(), ay[:, :n].contiguous()
+                for kernel in ("gather", "slab"):
+                    p = sk.plan_direct_bwd(R, n, *sensor, ws, kernel=kernel)
+                    k = bwd_key(f"{key}_first{n}", p)
+                    plans[k] = dataclasses.asdict(p)
+                    timed(k, lambda: sk.splat_direct_bwd_cuda(nx, ny, g, sensor, ws, plan=p))
+        # the unwarped coordinates of ref 0 stand in for the events
+        xs64, ys64 = wx64[0].contiguous(), wy64[0].contiguous()
+        xs, ys = wx[0].contiguous(), wy[0].contiguous()
+        fwd = {"f64": (theta.double(), xs64, ys64, True)}
+        if unrounded:
+            fwd["f32_unrounded"] = (theta, xs, ys, False)
+        for name, (th, x, y, rnd) in fwd.items():
+            key = f"sweep_direct_interp_{tag}_{name}"
+            extra = {} if rnd else {"round_coords": False}
+            timed(key, lambda: ti.interp_direct_fwd_cuda(th, x, y, sensor, **extra))
+            if not planned_fwd:
+                continue
+            for k in (1, 2):
+                for t in (64, 128, 256):
+                    for staged in (True, False):
+                        p = ti.plan_direct_interp(E, *th.shape[:2], th.dtype == torch.float64, k, t,
+                                                  staged=staged)
+                        kk = f"{key}_{t}t_{p.blocks}b_{k}each_{'staged' if staged else 'ldg'}"
+                        plans[kk] = dataclasses.asdict(p)
+                        timed(kk, lambda: ti.interp_direct_fwd_cuda(th, x, y, sensor, rnd,
+                                                                    plan=p))
+
+
 def run_chains(n, device, windows, vels, _build, wl):
     """n runs of the MVSEC handover chain through the tree's
     `make_window_solver`, each with the launch counters read around it."""
@@ -384,6 +471,8 @@ def main(argv=None) -> int:
         sweep_splat_bwd(sk, splat_in, cot, timed, res)
     if "fused" in sweeps and hasattr(sf, "plan_fused"):
         sweep_fused(sf, ti, fused_in, timed, res)
+    if "direct" in sweeps and hasattr(sk, "splat_direct_bwd_cuda"):
+        sweep_direct(sk, ti, splat_in, cot, interp_in["mvsec"][0], timed, res)
     del cot, fused_in
     for tag, (theta, xs, ys, sensor) in interp_in.items():
         for mode in ("highest", "dot3", "bf16"):

@@ -398,3 +398,251 @@ def test_plan_splat_texel_bytes():
     assert p8.smem_bytes == 16 * -(-p8.tile_rows * p8.tile_cols * 8 // 16)
     with pytest.raises(ValueError):
         sk.plan_splat(2, 10, 4, 4, texel_bytes=2)
+
+
+# ---- the direct splat backward: plans, vectors, slabs, separable sums ----------
+
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+@pytest.mark.parametrize("R,E", [(1, 1), (2, 30_000), (2, 1_500_000), (3, 1_500_001),
+                                 (5, 131_072)])
+def test_direct_bwd_gather_plan(R, E, f64):
+    """A grid of blocks x R (one per ref, no division); per_thread events a
+    thread (2 from DIRECT_GROUP_EVENTS events a ref, one 8- or 16-byte load
+    per coordinate array), else one; blocks enough for one
+    trip where the card holds them, else 2048 threads an SM over the refs;
+    vector loads only where every ref's arrays start on 16 bytes."""
+    p = sk.plan_direct_bwd(R, E, 480, 640, 3, f64)
+    k = 2 if E >= sk.DIRECT_GROUP_EVENTS else 1
+    assert (p.kernel, p.threads, p.per_thread) == ("gather", 256, k)
+    cap = -(-sk.N_SM * 8 // R)
+    assert p.blocks == max(1, min(-(-E // (256 * k)), cap))
+    assert p.blocks * R <= sk.N_SM * 8 + R  # 2048 threads an SM, the refs rounded up
+    assert E <= p.blocks * 256 * k or p.blocks == cap  # grid-stride beyond one trip
+    t = 8 if f64 else 4
+    assert p.vec == (k > 1 and (R == 1 or E % k == 0 or E * t % 16 == 0))
+    assert not sk.plan_direct_bwd(R, E, 480, 640, 3, f64, aligned=False).vec
+    for per_thread in (1, 2):
+        q = sk.plan_direct_bwd(R, E, 480, 640, 7, f64, True, per_thread=per_thread, threads=64)
+        assert q.blocks == max(1, min(-(-E // (64 * per_thread)), -(-sk.N_SM * 2048 // (64 * R))))
+    with pytest.raises(ValueError):
+        sk.plan_direct_bwd(R, E, 480, 640, 3, f64, per_thread=4)
+    with pytest.raises(ValueError):
+        sk.plan_direct_bwd(R, E, 480, 640, 3, f64, threads=512)  # above __launch_bounds__
+
+
+def test_direct_bwd_plan_limits():
+    with pytest.raises(ValueError):
+        sk.plan_direct_bwd(65536, 10, 4, 4)  # the grid's y
+    with pytest.raises(ValueError):
+        sk.plan_direct_bwd(1, 10, 4, 4, window_size=0)
+    with pytest.raises(ValueError, match="kernel"):
+        sk.plan_direct_bwd(1, 10, 4, 4, kernel="stream")
+    with pytest.raises(ValueError, match="no wrap"):
+        sk.plan_direct_bwd(1, 10, 4, 4, 7, wrap=True, kernel="slab")
+    with pytest.raises(ValueError, match="float32"):
+        sk.plan_direct_bwd(1, 10, 4, 4, 7, f64=True, kernel="slab")
+    for ws in (1, 3, 4, 5, 10, 11):
+        with pytest.raises(ValueError, match="windows 6 to 9"):
+            sk.plan_direct_bwd(1, 10, 40, 40, ws, kernel="slab")
+    with pytest.raises(ValueError, match="does not fit"):
+        sk.plan_direct_bwd(1, 10, 40, 80_000, 7, kernel="slab")
+
+
+@pytest.mark.parametrize("ws", [6, 7, 8, 9])
+@pytest.mark.parametrize("R,E,sensor", [(2, 30_000, (256, 336)), (2, 1_500_000, (480, 640)),
+                                        (1, 100, (48, 64)), (3, 2_000_000, (720, 1280))])
+def test_direct_bwd_slab_plan(R, E, sensor, ws):
+    """Slabs of whole rows that cover the sensor, each with the window's
+    halo in one block's shared memory beside the queues; one block an SM
+    over the refs and slabs, no chunk without a run of events."""
+    Hs, Ws = sensor
+    hw = ws // 2
+    p = sk.plan_direct_bwd(R, E, Hs, Ws, ws, kernel="slab")
+    t = 4
+    assert p.kernel == "slab" and p.threads == 1024 and not p.vec
+    assert p.tile_rows * p.row_slabs >= Hs > (p.row_slabs - 1) * p.tile_rows
+    assert p.smem_bytes == 16 * -(-min(p.tile_rows + 2 * hw, Hs) * Ws * t // 16)
+    assert p.smem_bytes <= sk.SMEM_BLOCK - sk.SLAB_QUEUE_BYTES - 1024
+    assert p.chunks == max(1, min(sk.N_SM // (R * p.row_slabs), -(-E // 1024)))
+    assert p.blocks == p.row_slabs * p.chunks
+
+
+@pytest.mark.parametrize("ws", [1, 2, 3, 4, 5, 6, 7, 8, 9, 11])
+@pytest.mark.parametrize("E", [30_000, 131_071, 131_072, 1_500_000])
+def test_direct_bwd_plan_chooses_the_slab_where_it_won(E, ws):
+    """The slab kernel by default in float32 without the wrap at windows 6
+    to 9 from SLAB_EVENTS events a ref, where its slab fits a block; the
+    gather kernel everywhere else (float64, the wrap, other windows, fewer
+    events, rows too wide for a slab)."""
+    hw = ws // 2
+    slab = hw in sk.SLAB_HW and E >= sk.SLAB_EVENTS
+    p = sk.plan_direct_bwd(2, E, 480, 640, ws)
+    assert p.kernel == ("slab" if slab else "gather")
+    if slab:
+        assert p == sk.plan_direct_bwd(2, E, 480, 640, ws, kernel="slab")
+    for other in (dict(f64=True), dict(wrap=True)):
+        assert sk.plan_direct_bwd(2, E, 480, 640, ws, **other).kernel == "gather"
+    assert sk.plan_direct_bwd(2, E, 8, 70_000, ws).kernel == "gather"  # no slab fits
+
+
+def row_vectors(c0, hw, W, kN):
+    """csrc/direct.cu:row_texels: (left, vectors) of the 16-byte vectors
+    (kN values) that hold columns [c0, c0 + 2 hw], or None where they leave
+    the row (then the texels are read one by one)."""
+    taps = 2 * hw + 1
+    vecs = (taps + 2 * kN - 2) // kN
+    left = c0 & ~(kN - 1)
+    return (left, vecs) if left + vecs * kN <= W else None
+
+
+@pytest.mark.parametrize("kN", [2, 4], ids=["double2", "float4"])
+@pytest.mark.parametrize("hw", [0, 1, 2, 3, 4])
+def test_row_vectors_hold_the_window(hw, kN):
+    """The fixed count of vectors holds the window's 2 hw + 1 texels for
+    every column offset in a vector, texel b at p[c0 - left + b], and never
+    reads past the row; near the right edge the row is read one by one."""
+    W = 64
+    taps = 2 * hw + 1
+    for c0 in range(0, W - taps + 1):
+        got = row_vectors(c0, hw, W, kN)
+        if got is None:
+            assert (c0 & ~(kN - 1)) + ((taps + 2 * kN - 2) // kN) * kN > W
+            continue
+        left, vecs = got
+        assert left % kN == 0 and 0 <= c0 - left < kN and left + vecs * kN <= W
+        loaded = list(range(left, left + vecs * kN))
+        o = c0 - left
+        assert [loaded[o + b] for b in range(taps)] == list(range(c0, c0 + taps))
+        # one vector fewer would not hold it at the worst offset
+        worst = (taps + kN - 1 + kN - 1) // kN
+        assert vecs == worst
+    # windows away from the right edge always take the vectors
+    assert row_vectors(0, hw, W, kN) is not None
+
+
+def emulate_slab_owners(wx, wy, sensor, ws, plan):
+    """csrc/direct.cu:splat_direct_bwd_slab_kernel's ownership: the slab
+    whose rows hold an event's centre row (clamped to the sensor) takes it;
+    slab 0 writes the zeros of events whose window misses the sensor.
+    Returns (owner slab or -1 for slab 0's zeros, the slab's first and last
+    row in shared memory)."""
+    Hs, Ws = sensor
+    hw = ws // 2
+    ry, rx = torch.round(wy), torch.round(wx)
+    ok = (ry >= -hw) & (ry <= Hs - 1 + hw) & (rx >= -hw) & (rx <= Ws - 1 + hw)
+    iy = torch.where(ok, ry, torch.zeros_like(ry)).long().clamp(0, Hs - 1)
+    owner = torch.where(ok, iy // plan.tile_rows, torch.full_like(iy, -1))
+    r0 = owner.clamp_min(0) * plan.tile_rows
+    s0 = (r0 - hw).clamp_min(0)
+    s1 = (r0 + plan.tile_rows + hw).clamp_max(Hs)
+    return owner, ok, s0, s1
+
+
+@pytest.mark.parametrize("ws", [6, 7, 8, 9])
+def test_slab_owner_holds_the_window(ws):
+    """Every event is taken by exactly one block, and the owner's slab,
+    with its halo, holds every row of the event's window on the sensor."""
+    rng = np.random.default_rng(70 + ws)
+    Hs, Ws = 480, 640
+    xs, ys = _edge_events(rng, (Hs, Ws), n=20_000)
+    wx, wy = (torch.as_tensor(a, dtype=F64)[None] for a in (xs, ys))
+    plan = sk.plan_direct_bwd(1, wx.shape[1], Hs, Ws, ws, kernel="slab")
+    assert plan.row_slabs > 1
+    owner, ok, s0, s1 = emulate_slab_owners(wx, wy, (Hs, Ws), ws, plan)
+    hw = ws // 2
+    taken = torch.zeros_like(owner)
+    for rs in range(plan.row_slabs):  # each block's own test
+        r0, r1 = rs * plan.tile_rows, min(Hs, (rs + 1) * plan.tile_rows)
+        iy = torch.where(ok, torch.round(wy), torch.zeros_like(wy)).long().clamp(0, Hs - 1)
+        taken += (ok & (iy >= r0) & (iy < r1)).long()
+        taken += (~ok & (rs == 0)).long()
+    assert torch.equal(taken, torch.ones_like(taken))
+    assert bool((owner[ok] < plan.row_slabs).all())
+    rows_lo = (torch.round(wy) - hw).clamp(0, Hs - 1)
+    rows_hi = (torch.round(wy) + hw).clamp(0, Hs - 1)
+    on = ok & (torch.round(wy) + hw >= 0) & (torch.round(wy) - hw <= Hs - 1)
+    assert bool((rows_lo[on] >= s0[on]).all()) and bool((rows_hi[on] < s1[on]).all())
+
+
+def emulate_direct_bwd_splat(wx, wy, G, sensor, ws, wrap):
+    """csrc/direct.cu:bwd_event's sums: each event's 2 (2 hw + 1) weights
+    g(q) and q g(q) once, a row's two column sums first (dropped texels
+    skipped), then the rows; non-finite results 0."""
+    Hs, Ws = sensor
+    R, E = wx.shape
+    hw = ws // 2
+    d = torch.arange(-hw, hw + 1, dtype=wx.dtype)
+    rx, ry = torch.round(wx), torch.round(wy)
+    lo_r, lo_c = (-Hs, -Ws) if wrap else (0, 0)
+    ok = (ry >= lo_r - hw) & (ry <= Hs - 1 + hw) & (rx >= lo_c - hw) & (rx <= Ws - 1 + hw)
+    zero = torch.zeros((), dtype=wx.dtype)
+    iy = torch.where(ok, ry, zero).long()
+    ix = torch.where(ok, rx, zero).long()
+    qx = (rx[..., None] + d) - wx[..., None]  # (R, E, taps)
+    qy = (ry[..., None] + d) - wy[..., None]
+    gx, gy = sk._gauss1d(qx), sk._gauss1d(qy)
+    dgx, dgy = qx * gx, qy * gy
+    rows = _texel(iy[..., None] + torch.arange(-hw, hw + 1), Hs, wrap)
+    cols = _texel(ix[..., None] + torch.arange(-hw, hw + 1), Ws, wrap)
+    ref = torch.arange(R)[:, None, None, None]
+    t = G[ref, rows.clamp_min(0)[..., :, None], cols.clamp_min(0)[..., None, :]]
+    keep = (rows >= 0)[..., :, None] & (cols >= 0)[..., None, :]
+    t = torch.where(keep, t, zero)  # a skipped texel adds nothing
+    m = (t * gx[..., None, :]).sum(-1)  # (R, E, rows)
+    dm = (t * dgx[..., None, :]).sum(-1)
+    ox = torch.where(ok, (dm * gy).sum(-1), zero)
+    oy = torch.where(ok, (m * dgy).sum(-1), zero)
+    return (torch.where(torch.isfinite(ox), ox, zero),
+            torch.where(torch.isfinite(oy), oy, zero))
+
+
+@pytest.mark.parametrize("wrap", [False, True])
+@pytest.mark.parametrize("ws", [1, 3, 4, 7, 9])
+def test_direct_bwd_separable_sums_match_plain_and_jax(ws, wrap):
+    """The redesigned backward's separable sums against the plain version's
+    autograd gradient and `jax.grad` of the JAX splat (its wrap-compat
+    switch where `wrap`), float64, within 1e-12, with events off every
+    edge, ties, NaN and +-inf (zero gradients)."""
+    rng = np.random.default_rng(80 + ws)
+    xs, ys = _edge_events(rng, SPLAT_SENSOR, n=300)
+    wx, wy = (torch.as_tensor(a, dtype=F64)[None] for a in (xs, ys))
+    G = torch.as_tensor(rng.normal(size=(1,) + SPLAT_SENSOR), dtype=F64)
+    got = emulate_direct_bwd_splat(wx, wy, G, SPLAT_SENSOR, ws, wrap)
+    wr, hr = wx.clone().requires_grad_(True), wy.clone().requires_grad_(True)
+    ref = torch.autograd.grad(sk.splat_plain(wr, hr, SPLAT_SENSOR, ws, wrap=wrap), (wr, hr), G)
+    for a, b in zip(ref, got):
+        _close(a, b, 1e-12)
+    fin = np.isfinite(xs) & np.isfinite(ys)  # the JAX path wants finite coordinates
+    js.set_splat_wrap_compat(wrap)
+    try:
+        with jax.enable_x64(True):
+            gj = jnp.asarray(G[0].numpy())
+            f = lambda x, y: jnp.vdot(js.events_to_pdf_frame(x, y, SPLAT_SENSOR, ws), gj)
+            jx, jy = jax.grad(f, argnums=(0, 1))(jnp.asarray(xs[fin]), jnp.asarray(ys[fin]))
+    finally:
+        js.set_splat_wrap_compat(False)
+    _close(np.asarray(jx), got[0][0][torch.as_tensor(fin)], 1e-12)
+    _close(np.asarray(jy), got[1][0][torch.as_tensor(fin)], 1e-12)
+
+
+# ---- the direct interp forward's plan ------------------------------------------
+
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+@pytest.mark.parametrize("E", [1, 30_000, 131_072, 1_500_000])
+@pytest.mark.parametrize("grid", [(1, 1), (16, 16), (32, 32), (64, 64), (200, 150)])
+def test_direct_interp_plan(grid, E, f64):
+    h, w = grid
+    p = ti.plan_direct_interp(E, h, w, f64)
+    k = (1 if f64 else 2) if E >= ti.GROUP_EVENTS else 1
+    assert (p.threads, p.per_thread) == (256, k)
+    assert p.blocks == -(-E // (256 * k))  # one trip a thread
+    assert p.staged == (2 * h * w * (8 if f64 else 4) <= ti.FWD_STAGED_BYTES)
+    assert p.vec == (k > 1)
+    assert not ti.plan_direct_interp(E, h, w, f64, aligned=False).vec
+    if 2 * h * w * (8 if f64 else 4) > 48 * 1024:
+        with pytest.raises(ValueError, match="stage"):
+            ti.plan_direct_interp(E, h, w, f64, staged=True)
+    with pytest.raises(ValueError):
+        ti.plan_direct_interp(E, h, w, f64, per_thread=4)
+    with pytest.raises(ValueError):
+        ti.plan_direct_interp(E, h, w, f64, threads=512)

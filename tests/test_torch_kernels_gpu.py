@@ -89,11 +89,29 @@ def test_direct_wrappers_refuse_cpu_tensors(dtype):
 
 @pytest.mark.parametrize("n", [0, 1, 255, 256, 257, 10**7])
 def test_direct_launch(n):
-    """One thread per event, up to 16 blocks of 256 per SM of an H100."""
-    blocks, threads = _build.direct_launch(n)
-    assert threads == 256 and 1 <= blocks <= 132 * 16
-    assert blocks == max(1, min(-(-n // 256), 132 * 16))
-    assert n <= blocks * threads or blocks == 132 * 16
+    """The direct gathers' launches (`plan_direct_bwd`, `plan_direct_interp`):
+    a grid per ref, one event a thread below DIRECT_GROUP_EVENTS events (2
+    from there in the backward, as one load of each coordinate array; the
+    float32 interp forward 2, the float64 one 1), 256 threads, every event
+    covered; no plan for no events."""
+    if n == 0:
+        with pytest.raises(ValueError):
+            tk.plan_direct_bwd(2, n, H, W)
+        with pytest.raises(ValueError):
+            ti.plan_direct_interp(n, 16, 16)
+        return
+    for f64 in (False, True):
+        k = 2 if n >= tk.DIRECT_GROUP_EVENTS else 1
+        for R in (1, 2, 3):
+            p = tk.plan_direct_bwd(R, n, H, W, 3, f64)
+            assert (p.kernel, p.threads, p.per_thread) == ("gather", 256, k)
+            assert p.blocks == max(1, min(-(-n // (256 * k)), -(-132 * 8 // R)))
+            assert n <= p.blocks * 256 * k or p.blocks == -(-132 * 8 // R)
+            assert p.vec == (k > 1 and (R == 1 or n % k == 0 or n * (8 if f64 else 4) % 16 == 0))
+        q = ti.plan_direct_interp(n, 16, 16, f64)
+        k = 1 if f64 else k
+        assert (q.threads, q.per_thread, q.staged) == (256, k, True)
+        assert q.blocks == -(-n // (256 * k)) and q.vec == (k > 1)
 
 
 @pytest.mark.parametrize(
@@ -377,35 +395,37 @@ def test_fused_frames_route_by_window(monkeypatch, kernel, window_size, route):
 @pytest.mark.parametrize("window_size", [1, 4, 7, 9])
 def test_fused_frames_at_other_windows_launch_the_direct_splat(cuda, window_size):
     """Kernels 7 and 8 at windows the cluster kernels are not built for:
-    the direct splat launched (and kernel 1 for kernel 8), within 1e-5 of
-    the plain version, bitwise the same twice and with the events
-    permuted; kernel 8's route refuses coordinates that are not whole,
-    naming them."""
+    the direct splat launched (and the float32 direct interp forward for
+    kernel 8), within 1e-5 of the plain version, bitwise the same twice and
+    with the events permuted, on whole coordinates and on coordinates that
+    are not (both routes sample and warp at them as given)."""
     rng = np.random.default_rng(10)
     x, y, ts = _events_ts(rng, 30_000, cuda)
-    x, y = torch.round(x), torch.round(y)
+    frac = (x + torch.as_tensor(rng.uniform(-0.5, 0.5, x.shape[0]).astype(np.float32),
+                                device=cuda),
+            y + torch.as_tensor(rng.uniform(-0.5, 0.5, y.shape[0]).astype(np.float32),
+                                device=cuda))
     thx = torch.as_tensor(rng.normal(0, 3, x.shape[0]).astype(np.float32), device=cuda)
     thy = torch.as_tensor(rng.normal(0, 3, x.shape[0]).astype(np.float32), device=cuda)
     theta = torch.as_tensor(rng.normal(0, 3, (16, 16, 2)).astype(np.float32), device=cuda)
     perm = torch.as_tensor(rng.permutation(x.shape[0]), device=cuda)
-    cases = (
-        (tf.fused_warp_splat_frame, tf.fused_warp_splat_frame_plain, (x, y, ts, thx, thy),
-         {"splat_direct_fwd": 1}),
-        (tf.fully_fused_warp_splat_frame, tf.fully_fused_warp_splat_frame_plain,
-         (x, y, ts, theta), {"interp_fwd": 1, "splat_direct_fwd": 1}))
-    for frame_fn, plain_fn, args, launches in cases:
-        _build.reset_launch_counts()
-        got, ok = frame_fn(*args, 0.37, SENSOR, window_size)
-        torch.cuda.synchronize()
-        assert bool(ok)
-        assert {k: n for k, n in _build.launch_counts().items() if n} == launches
-        _close(plain_fn(*args, 0.37, SENSOR, window_size), got, 1e-5)
-        again, _ = frame_fn(*args, 0.37, SENSOR, window_size)
-        permuted = [a[perm].contiguous() if a.dim() == 1 else a for a in args]
-        shuffled, _ = frame_fn(*permuted, 0.37, SENSOR, window_size)
-        assert torch.equal(got, again) and torch.equal(got, shuffled)
-    with pytest.raises(ValueError, match="not a whole number"):
-        tf.fully_fused_warp_splat_frame(x + 0.25, y, ts, theta, 0.37, SENSOR, window_size)
+    for xi, yi in ((torch.round(x), torch.round(y)), frac):
+        cases = (
+            (tf.fused_warp_splat_frame, tf.fused_warp_splat_frame_plain, (xi, yi, ts, thx, thy),
+             {"splat_direct_fwd": 1}),
+            (tf.fully_fused_warp_splat_frame, tf.fully_fused_warp_splat_frame_plain,
+             (xi, yi, ts, theta), {"interp_direct_fwd": 1, "splat_direct_fwd": 1}))
+        for frame_fn, plain_fn, args, launches in cases:
+            _build.reset_launch_counts()
+            got, ok = frame_fn(*args, 0.37, SENSOR, window_size)
+            torch.cuda.synchronize()
+            assert bool(ok)
+            assert {k: n for k, n in _build.launch_counts().items() if n} == launches
+            _close(plain_fn(*args, 0.37, SENSOR, window_size), got, 1e-5)
+            again, _ = frame_fn(*args, 0.37, SENSOR, window_size)
+            permuted = [a[perm].contiguous() if a.dim() == 1 else a for a in args]
+            shuffled, _ = frame_fn(*permuted, 0.37, SENSOR, window_size)
+            assert torch.equal(got, again) and torch.equal(got, shuffled)
 
 
 @pytest.mark.gpu
@@ -1032,6 +1052,107 @@ def test_router_takes_other_windows_to_the_direct_kernels(cuda, window_size):
         ts.splat_multi_ref(wx, wy, SENSOR, ws)
         assert _build.launch_counts()["splat_fwd"] == 1
         assert _build.launch_counts()["splat_direct_fwd"] == 0
+
+
+def _bwd_plans(R, E, window_size, f64, wrap):
+    """Every kind of plan of the direct backward: events a thread, threads,
+    the slab kernel where it takes the window."""
+    plans = [tk.plan_direct_bwd(R, E, H, W, window_size, f64, wrap, per_thread=k, threads=t)
+             for k in (1, 2) for t in (64, 256)]
+    plans.append(tk.plan_direct_bwd(R, E, H, W, window_size, f64, wrap, blocks=1))
+    if not (f64 or wrap) and window_size // 2 in tk.SLAB_HW:
+        plans += [tk.plan_direct_bwd(R, E, H, W, window_size, kernel="slab", threads=t)
+                  for t in (256, 1024)]
+        plans.append(tk.plan_direct_bwd(R, E, H, W, window_size, kernel="slab", chunks=3))
+    return plans
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window_size", [1, 3, 4, 5, 7, 9, 11])
+@pytest.mark.parametrize("wrap", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_splat_direct_bwd_every_window_and_plan(cuda, dtype, wrap, window_size):
+    """The direct backward at windows 1-11 (hw 0-4 unrolled, 5 the runtime
+    loop) against the plain version's autograd gradient, with events at
+    and beyond every edge (some wrap), half-integer ties, the sentinel, NaN
+    and +-inf, two refs of 20001 events (no multiple of 4: the last group
+    one by one): float64 within 1e-12, float32 within 2e-6; bitwise the
+    same twice, for every plan (events a thread, threads, one block, the
+    slab kernel) and with the events permuted; on a cotangent whose rows
+    start on 16 bytes and on one whose rows do not."""
+    rng = np.random.default_rng(40 + window_size)
+    per_ref = [_coords(rng, 20_001 - len(EDGE_XY), cuda, spread=5.0) for _ in range(2)]
+    wx = torch.stack([p[0] for p in per_ref]).to(dtype).contiguous()
+    wy = torch.stack([p[1] for p in per_ref]).to(dtype).contiguous()
+    R, E = wx.shape
+    f64 = dtype == torch.float64
+    wxr, wyr = wx.clone().requires_grad_(True), wy.clone().requires_grad_(True)
+    ref = tk.splat_plain(wxr, wyr, SENSOR, window_size, wrap=wrap)
+    G = torch.as_tensor(rng.normal(size=(2, H, W)), dtype=dtype, device=cuda)
+    rx, ry = torch.autograd.grad(ref, (wxr, wyr), G)
+    kx, ky = tk.splat_direct_bwd_cuda(wx, wy, G, SENSOR, window_size, wrap)
+    tol = 1e-12 if f64 else 2e-6
+    _close(rx, kx, tol)
+    _close(ry, ky, tol)
+    for p in _bwd_plans(R, E, window_size, f64, wrap):
+        px, py = tk.splat_direct_bwd_cuda(wx, wy, G, SENSOR, window_size, wrap, p)
+        assert torch.equal(px, kx) and torch.equal(py, ky), p
+    perm = torch.as_tensor(rng.permutation(E), device=cuda)
+    qx, qy = tk.splat_direct_bwd_cuda(wx[:, perm].contiguous(), wy[:, perm].contiguous(), G,
+                                      SENSOR, window_size, wrap)
+    assert torch.equal(qx, kx[:, perm]) and torch.equal(qy, ky[:, perm])
+    # rows of the cotangent off 16 bytes (W - 1 columns): the same sums,
+    # every texel one by one
+    sensor = (H, W - 1)
+    Gs = G[:, :, : W - 1].contiguous()
+    wxr, wyr = wx.clone().requires_grad_(True), wy.clone().requires_grad_(True)
+    ref = tk.splat_plain(wxr, wyr, sensor, window_size, wrap=wrap)
+    rx, ry = torch.autograd.grad(ref, (wxr, wyr), Gs)
+    kx, ky = tk.splat_direct_bwd_cuda(wx, wy, Gs, sensor, window_size, wrap)
+    _close(rx, kx, tol)
+    _close(ry, ky, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("round_coords", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("gh,gw", [(1, 1), (16, 16), (5, 12), (64, 64), (200, 150)])
+def test_interp_direct_fwd_every_plan(cuda, gh, gw, dtype, round_coords):
+    """The direct interp forward in float32 and float64, rounded and at
+    the coordinates as given, against the plain version (bitwise on finite
+    events: the same roundings; 1e-12 and 1e-6 as stated), with the
+    sentinel, NaN, +-inf and half-integer ties, on 30001 events; the same
+    bits for every plan (events a thread, threads, theta staged or
+    gathered), twice, permuted, and from views that do not start on 16
+    bytes."""
+    rng = np.random.default_rng(41 + gh)
+    x, y = (t.to(dtype) for t in _coords(rng, 30_001 - len(EDGE_XY), cuda))
+    theta = torch.as_tensor(rng.normal(0, 3, (gh, gw, 2)), dtype=dtype, device=cuda)
+    f64 = dtype == torch.float64
+    ref = ti.interp_theta_at_events_plain(theta, x, y, SENSOR, round_coords=round_coords)
+    got = ti.interp_direct_fwd_cuda(theta, x, y, SENSOR, round_coords)
+    _close(ref, got, 1e-12 if f64 else 1e-6)
+    fin = torch.isfinite(x) & torch.isfinite(y)
+    assert torch.equal(ref[fin], got[fin])
+    E = x.shape[0]
+    stage = (True, False) if 2 * gh * gw * (8 if f64 else 4) <= 48 * 1024 else (False,)
+    for k in (1, 2):
+        for t in (64, 256):
+            for staged in stage:
+                p = ti.plan_direct_interp(E, gh, gw, f64, k, t, staged=staged)
+                assert torch.equal(ti.interp_direct_fwd_cuda(theta, x, y, SENSOR, round_coords,
+                                                             p)[fin], got[fin]), p
+    perm = torch.as_tensor(rng.permutation(E), device=cuda)
+    assert torch.equal(ti.interp_direct_fwd_cuda(theta, x[perm].contiguous(),
+                                                 y[perm].contiguous(), SENSOR,
+                                                 round_coords)[fin[perm]], got[perm][fin[perm]])
+    xv, yv = x[1:], y[1:]  # off 16 bytes: no vector loads
+    assert xv.data_ptr() % 16
+    assert torch.equal(ti.interp_direct_fwd_cuda(theta, xv, yv, SENSOR, round_coords)[fin[1:]],
+                       got[1:][fin[1:]])
+    with pytest.raises(ValueError, match="16 bytes"):
+        ti.interp_direct_fwd_cuda(theta, xv, yv, SENSOR, round_coords,
+                                  ti.plan_direct_interp(E - 1, gh, gw, f64, 2))
 
 
 # ---- the Wolfe solve and the EVAL path on the card --------------------------

@@ -2,7 +2,8 @@
 vs eincm_tpu/experimental/splat_fused.py's Pallas kernels in interpret
 mode, on the 320x384 sensor of tests/test_splat_pallas.py, at windows 3
 and 5 (the card's kernels) and 1, 4, 7 and 9 (which the card routes to
-the warp and the direct splat).
+the warp and the direct splat), kernel 8 at window 7 also with every
+coordinate fractional (its route samples at them as given).
 
 Tolerances, relative to max |JAX frame|:
 - kernel 7: 1e-5. Both warp with the same f32 operations; the JAX kernel
@@ -167,6 +168,29 @@ def test_fully_fused_other_windows_vs_pallas(window_size):
     )
     assert bool(ok_t)
     _close(ref, got, 1e-4)
+
+
+@pytest.mark.parametrize("gh,gw", [(2, 2), (16, 16)])
+def test_fully_fused_window7_fractional_vs_pallas(gh, gw):
+    """Kernel 8's plain version at window 7 (the card's route: the float32
+    direct interp forward at the coordinates as given, the warp, the direct
+    splat) with every xi and yi fractional, against the JAX kernel, which
+    samples theta and warps at them as given."""
+    rng = np.random.default_rng(70 + gh)
+    xi, yi, ts = _events(rng, fractional=1.0)
+    near = (np.abs(xi) < 1e3) & (np.abs(yi) < 1e3)  # all but the far and NaN columns
+    assert (xi[near] != np.round(xi[near])).all() and (yi[near] != np.round(yi[near])).all()
+    theta = rng.normal(0, 1, (gh, gw, 2)).astype(np.float32)
+    m = _off_ties(xi, yi, ts, *_port_velocities(theta, xi, yi))
+    xi, yi, ts = xi[m], yi[m], ts[m]
+    for t_ref in T_REFS:
+        ref, ok = _k8(
+            *map(jnp.asarray, (xi, yi, ts, theta)), jnp.float32(t_ref),
+            sensor_size=SENSOR, window_size=7, interpret=True,
+        )
+        assert bool(ok)
+        got = tf.fully_fused_warp_splat_frame_plain(*_t(xi, yi, ts, theta), t_ref, SENSOR, 7)
+        _close(ref, got, 1e-4)
 
 
 def test_fully_fused_boundary_row_carries_mass():
