@@ -31,15 +31,16 @@ Phases, each failing loudly (any failure exits non-zero):
    against the plain versions in the same precision, every one bitwise the
    same twice (the splat forward also with 1 and 7 event chunks, the
    float64 interp backward also permuted, in both modes, at 16x16, 32x32,
-   64x64, 128x128 and 256x256; the splat backward at windows 1, 3, 4, 5,
-   7, 9 and 11 in both precisions with and without the wrap, and the
-   interp forward in both precisions, rounded and at fractional
-   coordinates as given, each also permuted and for every plan), the
-   float64 ones and the float32 wrap and unrounded rows timed beside their
-   bound and library call, with the one-thread-per-event gathers' times
-   printed beside the redesigned ones'; a float32 splat at window 7 (no slab kernel is built
-   for it) through the router, forward and backward: the direct kernels
-   alone launched, against the plain version, bitwise the same twice and
+   64x64, 128x128 and 256x256; the splat backward in both precisions with
+   and without the wrap at windows 1, 3, 4, 5, 7, 9 and 11 at MVSEC and 1,
+   3, 7 and 11 at DSEC, and the interp forward as built, float64 rounded
+   and float32 at fractional coordinates as given, each also permuted and
+   for every plan), the float64 ones and the float32 wrap and unrounded
+   rows timed beside their bound and library call, with the
+   one-thread-per-event gathers' times printed beside the redesigned ones';
+   a float32 splat at window 7 (which splat.cu's slab kernels are not built
+   for) through the router, forward and backward: the direct kernels alone
+   launched, against the plain version, bitwise the same twice and
    with the events permuted, timed (`window7_f32` in their rows); the
    splat forward's frames bitwise the same launched again and with 1 and 7
    event chunks (its sums are exact);
@@ -843,9 +844,11 @@ def check_splat_window5(tag, wx, wy, wxe, wye, G, sensor, rows):
 
 # the float64 interp backward's grids beyond the chain's 16x16
 DIRECT_GRIDS = ((32, 32), (64, 64), (128, 128), (256, 256))
-# the windows the direct backward is held at: hw 0-4 unrolled, 5 (window
-# 11) the runtime loop
-DIRECT_WINDOWS = (1, 3, 4, 5, 7, 9, 11)
+# the windows the direct backward is held at, by shape: at MVSEC every
+# radius of the instance with the radius at run time (hw 0, 2-4), hw 1
+# (its own instance) and 5 (window 11, the runtime loop); at DSEC one
+# window of each instance and 7, whose times are recorded
+DIRECT_WINDOWS = {"mvsec": (1, 3, 4, 5, 7, 9, 11), "dsec": (1, 3, 7, 11)}
 # the one-thread-per-event gathers that the direct splat backward and
 # interp forward replaced, ms at these shapes on an NVIDIA H100 80GB HBM3
 # at 700.00 W (PERF.md §6), printed beside this run's times
@@ -877,10 +880,10 @@ def fractional(xs, ys, H, W, seed):
 
 
 def check_direct_interp(tag, theta, xs, ys, sensor):
-    """The direct interp forward in float64 and float32, rounded and at the
-    coordinates as given, on fractional events with the edge cases: within
-    TOL_F64 (float64) and TOL_GATHER (float32) of the plain version, bitwise
-    the same twice, with the events permuted and for every plan."""
+    """The direct interp forward as built, float64 rounded and float32 at
+    the coordinates as given, on fractional events with the edge cases:
+    within TOL_F64 (float64) and TOL_GATHER (float32) of the plain version,
+    bitwise the same twice, with the events permuted and for every plan."""
     from eincm_tpu_torch.ops import interp as ti
 
     H, W = sensor
@@ -889,31 +892,31 @@ def check_direct_interp(tag, theta, xs, ys, sensor):
     gen = torch.Generator(device="cuda").manual_seed(62)
     perm = torch.randperm(fx.shape[0], generator=gen, device="cuda")
     err = {}
-    for dtype, tol in ((torch.float64, TOL_F64), (torch.float32, TOL_GATHER)):
+    for dtype, rnd, tol in ((torch.float64, True, TOL_F64), (torch.float32, False, TOL_GATHER)):
         th, x, y = theta.to(dtype), fx.to(dtype), fy.to(dtype)
-        for rnd in (True, False):
-            what = f"interp_direct_fwd {str(dtype)[6:]}{'' if rnd else ' unrounded'}"
-            k = ti.interp_direct_fwd_cuda(th, x, y, sensor, rnd)
-            err[dtype, rnd] = max_err(
-                k, ti.interp_theta_at_events_plain(th, x, y, sensor, round_coords=rnd), tol,
-                what)
-            again = [ti.interp_direct_fwd_cuda(th, x, y, sensor, rnd)]
-            again += [ti.interp_direct_fwd_cuda(th, x, y, sensor, rnd, ti.plan_direct_interp(
-                x.shape[0], h, w, dtype == torch.float64, n, staged=staged))
-                for n in (1, 2) for staged in (True, False)]
-            if not all(same_bits(a, k) for a in again):
-                raise AssertionError(f"{what}: not bitwise the same twice and for every plan")
-            kp = ti.interp_direct_fwd_cuda(th, x[perm].contiguous(), y[perm].contiguous(),
-                                           sensor, rnd)
-            if not same_bits(kp, k[perm]):
-                raise AssertionError(f"{what}: the events permuted give other bits")
-    print(f"  interp_direct_fwd at {tag}: bitwise the same twice, permuted and for every "
-          f"plan (1 or 2 events a thread, theta staged or gathered)")
+        f64 = dtype == torch.float64
+        what = f"interp_direct_fwd {str(dtype)[6:]}{'' if rnd else ' unrounded'}"
+        k = ti.interp_direct_fwd_cuda(th, x, y, sensor, rnd)
+        err[dtype, rnd] = max_err(
+            k, ti.interp_theta_at_events_plain(th, x, y, sensor, round_coords=rnd), tol, what)
+        again = [ti.interp_direct_fwd_cuda(th, x, y, sensor, rnd)]
+        again += [ti.interp_direct_fwd_cuda(th, x, y, sensor, rnd, ti.plan_direct_interp(
+            x.shape[0], h, w, f64, n, staged=staged))
+            for n in ((1,) if f64 else (1, 2)) for staged in (True, False)]
+        if not all(same_bits(a, k) for a in again):
+            raise AssertionError(f"{what}: not bitwise the same twice and for every plan")
+        kp = ti.interp_direct_fwd_cuda(th, x[perm].contiguous(), y[perm].contiguous(),
+                                       sensor, rnd)
+        if not same_bits(kp, k[perm]):
+            raise AssertionError(f"{what}: the events permuted give other bits")
+    print(f"  interp_direct_fwd at {tag}: float64 rounded and float32 as given, bitwise the "
+          f"same twice, permuted and for every plan (events a thread, theta staged or "
+          f"gathered)")
     return err
 
 
 def check_direct_bwd(tag, wxe, wye, G, sensor):
-    """The direct splat backward at DIRECT_WINDOWS in float32 and float64,
+    """The direct splat backward at DIRECT_WINDOWS[tag] in float32 and float64,
     with and without the wrap, on the window's warped (fractional) events
     with the edge cases and slab-edge events (half-integer ties among them):
     within TOL_GATHER (float32) and TOL_F64 (float64) of the plain version's
@@ -930,7 +933,7 @@ def check_direct_bwd(tag, wxe, wye, G, sensor):
         ax, ay, Gd = wxe.to(dtype).contiguous(), wye.to(dtype).contiguous(), G.to(dtype)
         apx, apy = ax[:, perm].contiguous(), ay[:, perm].contiguous()
         for wrap in (False, True):
-            for ws in DIRECT_WINDOWS:
+            for ws in DIRECT_WINDOWS[tag]:
                 what = f"splat_direct_bwd {str(dtype)[6:]} window {ws}{' wrap' if wrap else ''}"
                 ar, br = ax.clone().requires_grad_(True), ay.clone().requires_grad_(True)
                 d_p = torch.autograd.grad(sk.splat_plain(ar, br, sensor, ws, wrap=wrap),
@@ -943,23 +946,21 @@ def check_direct_bwd(tag, wxe, wye, G, sensor):
                 err[dtype, wrap, ws] = e
                 del d_p
                 f64 = dtype == torch.float64
-                plans = [sk.plan_direct_bwd(R, E, H, W, ws, f64, wrap, kernel="gather",
-                                            per_thread=n) for n in (1, 2)]
-                plans += [] if f64 or wrap or ws // 2 not in sk.SLAB_HW else [
-                    sk.plan_direct_bwd(R, E, H, W, ws, kernel="slab")]
+                plans = [sk.plan_direct_bwd(R, E, H, W, ws, f64, wrap, per_thread=n)
+                         for n in (1, 2)]
                 again = [sk.splat_direct_bwd_cuda(ax, ay, Gd, sensor, ws, wrap)]
                 again += [sk.splat_direct_bwd_cuda(ax, ay, Gd, sensor, ws, wrap, p)
                           for p in plans]
                 if not all(same_bits(a[0], d_k[0]) and same_bits(a[1], d_k[1])
                            for a in again):
                     raise AssertionError(f"{what}: not bitwise the same twice and for every "
-                                         f"plan ({[p.kernel for p in plans]})")
+                                         f"plan (1 and 2 events a thread)")
                 d_perm = sk.splat_direct_bwd_cuda(apx, apy, Gd, sensor, ws, wrap)
                 if not (same_bits(d_perm[0], d_k[0][:, perm])
                         and same_bits(d_perm[1], d_k[1][:, perm])):
                     raise AssertionError(f"{what}: the events permuted give other bits")
     torch.cuda.empty_cache()
-    print(f"  splat_direct_bwd at {tag}: windows {DIRECT_WINDOWS}, float32 and float64, "
+    print(f"  splat_direct_bwd at {tag}: windows {DIRECT_WINDOWS[tag]}, float32 and float64, "
           f"with and without the wrap: bitwise the same twice, permuted and for every plan")
     return err
 
@@ -967,8 +968,8 @@ def check_direct_bwd(tag, wxe, wye, G, sensor):
 def check_direct(tag, theta, xs, ys, wx, wy, wxe, wye, G, sensor, rows):
     """The direct kernels of csrc/direct.cu against the plain versions in
     the same precision, with the edge cases and slab-edge events: the
-    interp forward in float64 and float32, rounded and as given, and the
-    splat backward at DIRECT_WINDOWS in both precisions, with and without
+    interp forward as built (float64 rounded, float32 as given), and the
+    splat backward at DIRECT_WINDOWS[tag] in both precisions, with and without
     the wrap (`check_direct_interp`, `check_direct_bwd`); the float64
     interp bwd and the splat fwd within TOL_F64, the wrap-compat splat fwd
     in float32 (TOL_ATOMIC) and float64 (TOL_F64) at windows 3 and 5; every
@@ -3407,6 +3408,20 @@ def gt_theta(vel, shape, device):
     return th
 
 
+class PhaseClock:
+    """The wall seconds of each phase of the run, printed as each ends."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.seconds = {}
+
+    def lap(self, name):
+        now = time.perf_counter()
+        self.seconds[name] = now - self.t
+        self.t = now
+        print(f"[time] {name}: {self.seconds[name]:.1f} s")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3439,6 +3454,7 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
 
     # ---- 1. set-up --------------------------------------------------------
+    clock = PhaseClock()
     card = nvidia_smi()
     print(f"[setup] {card}")
     print(f"[setup] torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3447,6 +3463,7 @@ def main(argv=None) -> int:
     build_s = _build.build_all(verbose=("interp", "splat", "fused", "interp_dense", "direct"))
     print(f"[setup] built {sorted(p.stem for p in _build.CSRC.glob('*.cu'))} "
           f"with nvcc for sm_90a in {build_s:.2f} s (ptxas report above)")
+    clock.lap("setup")
 
     # ---- 2. the solve's kernels vs plain -------------------------------------
     t0 = time.perf_counter()
@@ -3471,6 +3488,7 @@ def main(argv=None) -> int:
     lib_ms["dsec"] = check_kernels("dsec", dsec, gt_theta(dsec_vel, (16, 16), device),
                                    dsec_sensor, rows)
     torch.cuda.empty_cache()
+    clock.lap("kernels")
 
     # ---- 3. the measurement kernels, and the fused bench's paths -----------
     w0 = mvsec[0]
@@ -3497,6 +3515,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"kernels not launched on the fused path: {missing}")
     del fns, bench_in, proto_in
     torch.cuda.empty_cache()
+    clock.lap("fused")
 
     # ---- 4. main path of the solve: the MVSEC handover chain ---------------
     cfg = wl.mvsec_solver_config()
@@ -3531,6 +3550,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     # [compat] the jaxopt-style wrappers over window 1's 16x16 level
     compat_row, compat_launches = compat_phase(card, device, cfg, mvsec[1], chain_w0_final)
+    clock.lap("chain and compat")
 
     # ---- 5. DSEC-scale loss: kernels on the card vs plain on CPU -----------
     params = LossParams(alpha=2000.0, beta=4000.0)
@@ -3615,9 +3635,11 @@ def main(argv=None) -> int:
         raise AssertionError(f"the wrap-compat loss launched {sorted(launched)}")
     if not relw <= TOL_DSEC_LOSS:
         raise AssertionError("wrap-compat DSEC-scale loss: the card disagrees with the CPU")
+    clock.lap("dsec loss")
 
     # ---- 6. [wolfe] the armijo rescue's configuration on the chain -----------
     wolfe_results, wolfe_launches, wevals, wolfe_row = wolfe_chain(cfg, mvsec, vels, device)
+    clock.lap("wolfe")
 
     # ---- 7. [eval] the EVAL path: card vs CPU -------------------------------
     from eincm_tpu_torch.ops.resize import scale_theta_to_sensor_size
@@ -3638,9 +3660,11 @@ def main(argv=None) -> int:
         "host_syncs": [m[3] for m in mv], "aee": [float(m[0]["AEE"]) for m in mv]}
     print(f"[eval] MVSEC Wolfe windows: eval AEE {[round(a, 4) for a in eval_rows['mvsec']['aee']]}"
           f", ms per evaluation {[round(m, 3) for m in eval_rows['mvsec']['ms']]}")
+    clock.lap("eval")
 
     # ---- 8. [experiment] the experiment CLI over a config file --------------
     exp_row, exp_launches = experiment_phase(card, device)
+    clock.lap("experiment")
 
     # ---- 9-12. the real-data path: DSEC, submission, MVSEC, ECD trees ------
     # (and 13. [parallel] at DSEC's size on the [dsec] tree)
@@ -3648,6 +3672,7 @@ def main(argv=None) -> int:
         card, device, lambda tree, rec: grids_phase(
             card, device, tree, rec, (solver, cfg, mvsec[1], vels[1], chain_w0_final)))
     grids_row = real_rows.pop("grids")
+    clock.lap("real data and grids")
 
     # ---- 13. [parallel] one member: the schedules, the sharded EVAL, the
     # parallel experiment with its super-step checkpoint and resume --------
@@ -3659,22 +3684,27 @@ def main(argv=None) -> int:
     par_row["wall_s"] = time.perf_counter() - t0
     print(f"[parallel] {card}: MVSEC schedules, eval and experiment in "
           f"{par_row['wall_s']:.2f} s; DSEC in {par_row['dsec']['wall_s']:.2f} s")
+    clock.lap("parallel")
 
     # ---- 14. [ranks] two processes on this one card, joined by gloo -------
     ranks_row, ranks_launches = ranks_phase(card, device)
     torch.cuda.empty_cache()
+    clock.lap("ranks")
 
     # ---- 15. [bench] the benches of utils/benchmarks.py at full size --------
     chain_median_ms = float(np.median([r["ms"] for r in chain_recs[1:]]))
     bench_row, bench_phase_launches = bench_phase(
         card, device, chain_median_ms, real_rows["dsec"]["solve_ms_median_1_n"])
     torch.cuda.empty_cache()
+    clock.lap("bench")
 
     # ---- 16. [studies] the seven studies at reduced size ------------------
     studies_row, studies_launches = studies_phase(card, device)
+    clock.lap("studies")
 
     # ---- 17. [h5] the codec and HDF5 fixtures, the Zstd rate, three DSEC files --
     h5_row, h5_launches = h5_phase(card, device)
+    clock.lap("h5")
 
     launches = {**{k: chain_launches[k] for k in CHAIN_KERNELS},
                 **{k: bench_launches[k] for k in BENCH_KERNELS},
@@ -3727,7 +3757,7 @@ def main(argv=None) -> int:
              "compat": compat_row, "wolfe": wolfe_row, "eval": eval_rows, "experiment": exp_row, **real_rows,
              "grids": grids_row,
              "parallel": par_row, "ranks": ranks_row, "bench": bench_row,
-             "studies": studies_row, "h5": h5_row}
+             "studies": studies_row, "h5": h5_row, "phase_s": clock.seconds}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"kernels": kernels, **paths}, f, indent=1)

@@ -26,18 +26,18 @@
 //     two) and the same stores; the separable weights g(q) and q g(q) of an
 //     event, 2 (2 hw + 1) exponentials, computed once and held in registers
 //     (the exponentials take the first design's operands, so the same
-//     values), unrolled up to hw 4 (window 9), a runtime loop above that;
-//     and where the whole window is on the sensor (no tap dropped or
-//     wrapped), no texel tests, and a row's texels read as the 16-byte
-//     vectors that hold them (float4 or double2) where every row of G
-//     starts on 16 bytes. At windows 6 to 9 in float32 without the wrap,
-//     from 2^17 events a ref, a slab kernel runs the same statements
-//     against a slab of G's rows in shared memory (each event queued to the
-//     one block whose slab holds its centre row): there the gathers, 49 or
-//     81 an event, cost more than the walk of every event by every slab;
-//     at smaller windows and in float64 it lost;
-//   - the interp forward (float64, and float32 at the coordinates as given
-//     for kernel 8's route) stages theta in shared memory as one 8- or
+//     values): hw 1 (window 3, every solve's) as a constant, any hw up to
+//     4 (windows 1 to 9) in one instance whose loops run to 4 and stop at
+//     the radius, a runtime loop above that; and where the whole window is
+//     on the sensor (no tap dropped or wrapped), no texel tests, and a
+//     row's texels read as the 16-byte vectors that hold them (float4 or
+//     double2) where every row of G starts on 16 bytes. A slab variant
+//     (G's rows in shared memory, each event queued to the block whose slab
+//     holds its centre row) won only at windows 7 and 9 in float32, which
+//     no configuration sets, and was left out (PERF.md);
+//   - the interp forward (float64 at the rounded coordinates for the
+//     float64 solve, float32 at the coordinates as given for kernel 8's
+//     route: the two instances built) stages theta in shared memory as one 8- or
 //     16-byte cell a tap where it fits, takes 1 or 2 events a thread (two
 //     as one vector load of xs and of ys), writes one (x, y) vector store
 //     an event, and divides a weight by its normalization only where the
@@ -119,10 +119,6 @@ struct Vec<float> {
     const float4 q = __ldg(reinterpret_cast<const float4*>(p));
     v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
   }
-  __device__ static void load(const float* p, float* v) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
-  }
   __device__ static void store(float* p, const float* v) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   }
@@ -135,10 +131,6 @@ struct Vec<double> {
   using Two = double2;
   __device__ static void ldg(const double* p, double* v) {
     const double2 q = __ldg(reinterpret_cast<const double2*>(p));
-    v[0] = q.x, v[1] = q.y;
-  }
-  __device__ static void load(const double* p, double* v) {
-    const double2 q = *reinterpret_cast<const double2*>(p);
     v[0] = q.x, v[1] = q.y;
   }
   __device__ static void store(double* p, const double* v) {
@@ -414,8 +406,7 @@ __global__ void __launch_bounds__(256)
 // Dropped texels count 0 (they are skipped) and a non-finite result becomes
 // 0, as in splat.cu's backward. No atomics.
 
-// G of one ref, where the kernel reads it: device memory, through the
-// read-only cache
+// G of one ref, read through the read-only cache
 template <typename T>
 struct GlobalRows {
   const T* __restrict__ g;
@@ -426,33 +417,25 @@ struct GlobalRows {
   }
 };
 
-// rows [r0, ...) of G copied into shared memory (the slab kernel)
-template <typename T>
-struct SharedRows {
-  const T* s;
-  int r0, W;
-  __device__ T at(int row, int col) const { return s[(row - r0) * W + col]; }
-  __device__ void vec(int row, int col, T* v) const {
-    Vec<T>::load(s + (row - r0) * W + col, v);
-  }
-};
-
-// the 2 HW + 1 texels of a row from column c0 on, all on the sensor: as
-// the 16-byte vectors that hold them where `rows16` (every row of G starts
-// on 16 bytes) and they lie in the row, else one by one; the same values
-template <typename T, int HW, class Src>
-__device__ __forceinline__ void row_texels(const Src& src, int row, int c0, int W,
-                                           bool rows16, T (&t)[2 * HW + 1]) {
+// the `taps` texels of a row from column c0 on (taps = 2 HW + 1, or fewer
+// with kUpTo), all on the sensor: as the 16-byte vectors that hold them
+// where `rows16` (every row of G starts on 16 bytes) and they lie in the
+// row, else one by one; the same values
+template <typename T, int HW, bool kUpTo>
+__device__ __forceinline__ void row_texels(const GlobalRows<T>& src, int row, int c0, int W,
+                                           bool rows16, int taps, T (&t)[2 * HW + 1]) {
   constexpr int kTaps = 2 * HW + 1, kN = Vec<T>::kN;
   constexpr int kVecs = (kTaps + 2 * kN - 2) / kN;  // for any c0 % kN
-  const int left = c0 & ~(kN - 1);
-  if (rows16 && left + kVecs * kN <= W) {
-    T p[kVecs * kN];
+  const int left = c0 & ~(kN - 1), o = c0 - left;
+  const int vecs = kUpTo ? (o + taps + kN - 1) / kN : kVecs;
+  if (rows16 && left + vecs * kN <= W) {
+    T p[kVecs * kN] = {};
 #pragma unroll
-    for (int v = 0; v < kVecs; ++v) src.vec(row, left + v * kN, p + v * kN);
-    const int o = c0 - left;
+    for (int v = 0; v < kVecs; ++v)
+      if (v < vecs) src.vec(row, left + v * kN, p + v * kN);
 #pragma unroll
     for (int b = 0; b < kTaps; ++b) {
+      if (b >= taps) break;
       T x = p[b];
 #pragma unroll
       for (int k = 1; k < kN; ++k)
@@ -461,37 +444,43 @@ __device__ __forceinline__ void row_texels(const Src& src, int row, int c0, int 
     }
   } else {
 #pragma unroll
-    for (int b = 0; b < kTaps; ++b) t[b] = src.at(row, c0 + b);
+    for (int b = 0; b < kTaps; ++b)
+      if (b < taps) t[b] = src.at(row, c0 + b);
   }
 }
 
-// one event with a window of 2 HW + 1 texels a side (HW a constant): the
-// 2 (2 HW + 1) exponentials once, in registers
-template <typename T, bool kWrap, int HW, class Src>
-__device__ __forceinline__ void bwd_event(const Src& src, T x, T y, int H, int W,
-                                          bool rows16, T& dx, T& dy) {
+// one event with a window of 2 r + 1 texels a side, r = HW, or with kUpTo
+// the radius hw <= HW given at run time (the loops run to HW and skip the
+// taps past r): the 2 (2 r + 1) exponentials once, in registers
+template <typename T, bool kWrap, int HW, bool kUpTo>
+__device__ __forceinline__ void bwd_event(const GlobalRows<T>& src, T x, T y, int H, int W,
+                                          int hw, bool rows16, T& dx, T& dy) {
   constexpr int kTaps = 2 * HW + 1;
+  const int r = kUpTo ? hw : HW, taps = 2 * r + 1;
   T rx, ry, ox = T(0), oy = T(0);
-  if (window_at<T, kWrap>(x, y, H, W, HW, rx, ry)) {
+  if (window_at<T, kWrap>(x, y, H, W, r, rx, ry)) {
     const int iy = (int)ry, ix = (int)rx;
     T gx[kTaps], dgx[kTaps], gy[kTaps], dgy[kTaps];
 #pragma unroll
     for (int d = 0; d < kTaps; ++d) {
-      const T qx = (rx + T(d - HW)) - x, qy = (ry + T(d - HW)) - y;
+      if (d >= taps) break;
+      const T qx = (rx + T(d - r)) - x, qy = (ry + T(d - r)) - y;
       gx[d] = gauss(qx);
       dgx[d] = mul_rn(qx, gx[d]);
       gy[d] = gauss(qy);
       dgy[d] = mul_rn(qy, gy[d]);
     }
-    if (iy >= HW && iy + HW < H && ix >= HW && ix + HW < W) {
+    if (iy >= r && iy + r < H && ix >= r && ix + r < W) {
       // the whole window on the sensor: no texel dropped or wrapped
 #pragma unroll
       for (int a = 0; a < kTaps; ++a) {
+        if (a >= taps) break;
         T t[kTaps];
-        row_texels<T, HW>(src, iy + a - HW, ix - HW, W, rows16, t);
+        row_texels<T, HW, kUpTo>(src, iy + a - r, ix - r, W, rows16, taps, t);
         T m = T(0), dm = T(0);
 #pragma unroll
         for (int b = 0; b < kTaps; ++b) {
+          if (b >= taps) break;
           m = fma_(t[b], gx[b], m);
           dm = fma_(t[b], dgx[b], dm);
         }
@@ -501,12 +490,14 @@ __device__ __forceinline__ void bwd_event(const Src& src, T x, T y, int H, int W
     } else {
 #pragma unroll
       for (int a = 0; a < kTaps; ++a) {
-        const int row = texel<kWrap>(iy + a - HW, H);
+        if (a >= taps) break;
+        const int row = texel<kWrap>(iy + a - r, H);
         if (row < 0) continue;
         T m = T(0), dm = T(0);
 #pragma unroll
         for (int b = 0; b < kTaps; ++b) {
-          const int col = texel<kWrap>(ix + b - HW, W);
+          if (b >= taps) break;
+          const int col = texel<kWrap>(ix + b - r, W);
           if (col < 0) continue;
           const T t = src.at(row, col);
           m = fma_(t, gx[b], m);
@@ -524,9 +515,9 @@ __device__ __forceinline__ void bwd_event(const Src& src, T x, T y, int H, int W
 // the same sums at a radius hw above kMaxHw (windows 11 and up, which no
 // shipped configuration sets): a runtime loop that computes a column's
 // weights again in every row, as the first design did, with the same values
-template <typename T, bool kWrap, class Src>
-__device__ __forceinline__ void bwd_event_any(const Src& src, T x, T y, int H, int W,
-                                              int hw, T& dx, T& dy) {
+template <typename T, bool kWrap>
+__device__ __forceinline__ void bwd_event_any(const GlobalRows<T>& src, T x, T y, int H,
+                                              int W, int hw, T& dx, T& dy) {
   T rx, ry, ox = T(0), oy = T(0);
   if (window_at<T, kWrap>(x, y, H, W, hw, rx, ry)) {
     const int iy = (int)ry, ix = (int)rx;
@@ -553,13 +544,16 @@ __device__ __forceinline__ void bwd_event_any(const Src& src, T x, T y, int H, i
   dy = isfinite(oy) ? oy : T(0);
 }
 
-constexpr int kMaxHw = 4;  // windows up to 9 unrolled (HW a template argument)
+// The radii built: hw 1 as a constant (window 3, every solve's), any hw up
+// to kMaxHw (windows up to 9) in one instance with the radius at run time,
+// and bwd_event_any above that (HW < 0)
+constexpr int kMaxHw = 4;
 
-template <typename T, bool kWrap, int HW, class Src>
-__device__ __forceinline__ void bwd_one(const Src& src, T x, T y, int H, int W, int hw,
-                                        bool rows16, T& dx, T& dy) {
+template <typename T, bool kWrap, int HW, bool kUpTo>
+__device__ __forceinline__ void bwd_one(const GlobalRows<T>& src, T x, T y, int H, int W,
+                                        int hw, bool rows16, T& dx, T& dy) {
   if constexpr (HW >= 0) {
-    bwd_event<T, kWrap, HW>(src, x, y, H, W, rows16, dx, dy);
+    bwd_event<T, kWrap, HW, kUpTo>(src, x, y, H, W, hw, rows16, dx, dy);
   } else {
     bwd_event_any<T, kWrap>(src, x, y, H, W, hw, dx, dy);
   }
@@ -568,8 +562,8 @@ __device__ __forceinline__ void bwd_one(const Src& src, T x, T y, int H, int W, 
 // The gather kernel: blockIdx.y is the ref; a thread takes K events in a
 // row, grid-stride within its ref, as one load per coordinate array and one
 // store per gradient array where `vec` says that every ref's arrays start
-// on K values (16 bytes from 16 on); HW < 0: the runtime radius hw.
-template <typename T, bool kWrap, int HW, int K>
+// on K values (16 bytes from 16 on).
+template <typename T, bool kWrap, int HW, bool kUpTo, int K>
 __global__ void __launch_bounds__(256)
     splat_direct_bwd_kernel(const T* __restrict__ wx, const T* __restrict__ wy,
                             const T* __restrict__ grad, T* __restrict__ dwx,
@@ -590,85 +584,14 @@ __global__ void __launch_bounds__(256)
       ldg_k<T, K>(ys + e, y);
 #pragma unroll
       for (int k = 0; k < K; ++k)
-        bwd_one<T, kWrap, HW>(src, x[k], y[k], H, W, hw, rows16, dx[k], dy[k]);
+        bwd_one<T, kWrap, HW, kUpTo>(src, x[k], y[k], H, W, hw, rows16, dx[k], dy[k]);
       store_k<T, K>(ox + e, dx);
       store_k<T, K>(oy + e, dy);
     } else {
       for (long long i = e; i < min(e + K, n_events); ++i)
-        bwd_one<T, kWrap, HW>(src, __ldg(xs + i), __ldg(ys + i), H, W, hw, rows16, ox[i],
-                              oy[i]);
+        bwd_one<T, kWrap, HW, kUpTo>(src, __ldg(xs + i), __ldg(ys + i), H, W, hw, rows16,
+                                     ox[i], oy[i]);
     }
-  }
-}
-
-// the events a warp of the slab kernel queues before it runs them, 32 at a time
-constexpr int kBwdQueue = 64;
-constexpr int kBwdQueueBytes = 32 * kBwdQueue * 4;
-
-// The slab kernel (float32, no wrap; built for hw 3 and 4, where it won):
-// block (slab, chunk) of ref blockIdx.y copies the rows [r0 - HW, r1 + HW)
-// of G (clipped to the sensor) into shared memory, walks its chunk's events
-// (interleaved runs of blockDim events), and takes those whose centre row,
-// clamped to the sensor, is in [r0, r1):
-// each warp queues them (ballot and prefix count) and runs them 32 at a
-// time against the slab. Slab 0 also writes the zeros of events whose
-// window misses the sensor. Every event is written once, by one block.
-template <typename T, int HW>
-__global__ void __launch_bounds__(1024)
-    splat_direct_bwd_slab_kernel(const T* __restrict__ wx, const T* __restrict__ wy,
-                                 const T* __restrict__ grad, T* __restrict__ dwx,
-                                 T* __restrict__ dwy, long long n_events, int H, int W,
-                                 int tile_rows, int row_slabs, int chunks, int rows16) {
-  extern __shared__ __align__(16) unsigned char slab_bytes[];
-  T* slab = reinterpret_cast<T*>(slab_bytes);
-  const int rs = blockIdx.x % row_slabs, chunk = blockIdx.x / row_slabs;
-  const long long ref = blockIdx.y, off = ref * n_events;
-  const int r0 = rs * tile_rows, r1 = min(r0 + tile_rows, H);
-  const int s0 = max(r0 - HW, 0), s1 = min(r1 + HW, H);
-  const T* G = grad + ref * H * W + (long long)s0 * W;
-  for (int i = threadIdx.x; i < (s1 - s0) * W; i += blockDim.x) slab[i] = __ldg(G + i);
-  __syncthreads();
-  const SharedRows<T> src{slab, s0, W};
-  const T* xs = wx + off;
-  const T* ys = wy + off;
-  T* ox = dwx + off;
-  T* oy = dwy + off;
-  __shared__ int queues[32][kBwdQueue];
-  const int lane = threadIdx.x & 31;
-  int* queue = queues[threadIdx.x >> 5];
-  int queued = 0;  // the same in every lane
-  const long long run = blockDim.x;
-  for (long long base = chunk * run + (threadIdx.x & ~31); base < n_events;
-       base += run * chunks) {  // the same trips in every lane of a warp
-    const long long i = base + lane;
-    bool mine = false;
-    if (i < n_events) {
-      T rx, ry;
-      if (window_at<T, false>(__ldg(xs + i), __ldg(ys + i), H, W, HW, rx, ry)) {
-        const int iy = min(max((int)ry, 0), H - 1);
-        mine = iy >= r0 && iy < r1;
-      } else if (rs == 0) {
-        ox[i] = T(0);
-        oy[i] = T(0);
-      }
-    }
-    const unsigned m = __ballot_sync(0xffffffffu, mine);
-    if (mine) queue[queued + __popc(m & ((1u << lane) - 1u))] = (int)i;
-    queued += __popc(m);
-    if (queued >= 32) {
-      __syncwarp();
-      const int e = queue[lane];
-      __syncwarp();
-      if (lane < queued - 32) queue[lane] = queue[32 + lane];
-      __syncwarp();
-      queued -= 32;
-      bwd_event<T, false, HW>(src, __ldg(xs + e), __ldg(ys + e), H, W, rows16, ox[e], oy[e]);
-    }
-  }
-  __syncwarp();
-  if (lane < queued) {
-    const int e = queue[lane];
-    bwd_event<T, false, HW>(src, __ldg(xs + e), __ldg(ys + e), H, W, rows16, ox[e], oy[e]);
   }
 }
 
@@ -891,7 +814,6 @@ struct BwdArgs {
   long long n_events;
   int H, W, hw;
   int per_thread, vec, blocks, threads;
-  int tile_rows, row_slabs, chunks;  // the slab kernel's
   cudaStream_t stream;
 };
 
@@ -901,12 +823,12 @@ bool rows_on_16(const void* grad, int W) {
   return (size_t)grad % 16 == 0 && ((size_t)W * sizeof(T)) % 16 == 0;
 }
 
-template <typename T, bool kWrap, int HW>
+template <typename T, bool kWrap, int HW, bool kUpTo>
 int bwd_gather(const BwdArgs& a) {
   const dim3 grid(a.blocks, a.n_refs);
   const int rows16 = rows_on_16<T>(a.grad, a.W);
 #define EINCM_BWD_GATHER(K)                                                             \
-  splat_direct_bwd_kernel<T, kWrap, HW, K><<<grid, a.threads, 0, a.stream>>>(         \
+  splat_direct_bwd_kernel<T, kWrap, HW, kUpTo, K><<<grid, a.threads, 0, a.stream>>>(  \
       (const T*)a.wx, (const T*)a.wy, (const T*)a.grad, (T*)a.dwx, (T*)a.dwy,            \
       a.n_events, a.H, a.W, a.hw, a.vec, rows16)
   switch (a.per_thread) {
@@ -918,45 +840,11 @@ int bwd_gather(const BwdArgs& a) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HW>
-int bwd_slab(const BwdArgs& a) {
-  const size_t rows = (size_t)min(a.tile_rows + 2 * HW, a.H);
-  const size_t smem = (rows * a.W * sizeof(T) + 15) / 16 * 16;
-  if (smem > (size_t)eincm::kMaxSmem - kBwdQueueBytes - 1024)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(splat_direct_bwd_slab_kernel<T, HW>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  splat_direct_bwd_slab_kernel<T, HW>
-      <<<dim3(a.row_slabs * a.chunks, a.n_refs), a.threads, smem, a.stream>>>(
-          (const T*)a.wx, (const T*)a.wy, (const T*)a.grad, (T*)a.dwx, (T*)a.dwy,
-          a.n_events, a.H, a.W, a.tile_rows, a.row_slabs, a.chunks,
-          ((size_t)a.W * sizeof(T)) % 16 == 0);
-  return (int)cudaGetLastError();
-}
-
 template <typename T, bool kWrap>
-int splat_bwd(const BwdArgs& a, int slab) {
-  if (slab) {  // float32 without the wrap at hw 3 and 4: where it won (PERF.md)
-    if constexpr (kWrap || sizeof(T) != 4) {
-      return (int)cudaErrorInvalidValue;
-    } else {
-      switch (a.hw) {
-        case 3: return bwd_slab<T, 3>(a);
-        case 4: return bwd_slab<T, 4>(a);
-        default: return (int)cudaErrorInvalidValue;
-      }
-    }
-  }
-  switch (a.hw) {
-    case 0: return bwd_gather<T, kWrap, 0>(a);
-    case 1: return bwd_gather<T, kWrap, 1>(a);
-    case 2: return bwd_gather<T, kWrap, 2>(a);
-    case 3: return bwd_gather<T, kWrap, 3>(a);
-    case 4: return bwd_gather<T, kWrap, 4>(a);
-    default: return bwd_gather<T, kWrap, -1>(a);
-  }
+int splat_bwd(const BwdArgs& a) {
+  if (a.hw == 1) return bwd_gather<T, kWrap, 1, false>(a);
+  if (a.hw <= kMaxHw) return bwd_gather<T, kWrap, kMaxHw, true>(a);
+  return bwd_gather<T, kWrap, -1, false>(a);
 }
 
 template <typename T, bool kRound>
@@ -969,18 +857,13 @@ int interp_fwd(const void* theta, const void* xs, const void* ys, void* out,
 #define EINCM_INTERP_FWD(S, K)                                                          \
   interp_direct_fwd_kernel<T, kRound, S, K><<<blocks, threads, smem, stream>>>(         \
       (const T*)theta, (const T*)xs, (const T*)ys, (T*)out, n_events, h, w, sy, sx, vec)
-  if (staged) {
-    switch (per_thread) {
-      case 1: EINCM_INTERP_FWD(true, 1); break;
-      case 2: EINCM_INTERP_FWD(true, 2); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
+  if (per_thread == 1) {
+    if (staged) EINCM_INTERP_FWD(true, 1); else EINCM_INTERP_FWD(false, 1);
+  } else if constexpr (sizeof(T) == 4) {  // two events a thread: float32 only
+    if (per_thread != 2) return (int)cudaErrorInvalidValue;
+    if (staged) EINCM_INTERP_FWD(true, 2); else EINCM_INTERP_FWD(false, 2);
   } else {
-    switch (per_thread) {
-      case 1: EINCM_INTERP_FWD(false, 1); break;
-      case 2: EINCM_INTERP_FWD(false, 2); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
+    return (int)cudaErrorInvalidValue;
   }
 #undef EINCM_INTERP_FWD
   return (int)cudaGetLastError();
@@ -1027,40 +910,34 @@ extern "C" int eincm_splat_direct_fwd(const void* wx, const void* wy,
 
 // (dwx, dwy), each (n_refs, n_events), from the (n_refs, H, W) cotangent,
 // float64 with `f64`, else float32, by ops/splat_kernel.py:plan_direct_bwd:
-// the gather kernel (a grid of blocks x n_refs blocks of `threads` threads,
-// per_thread events a thread; `vec`: every ref's four arrays start on 16
-// bytes and on per_thread values), or with `slab` the slab kernel (no wrap,
-// float32, hw 3 or 4; row_slabs x chunks x n_refs blocks, slabs of
-// tile_rows rows)
+// a grid of blocks x n_refs blocks of `threads` threads, per_thread events
+// a thread; `vec`: every ref's four arrays start on 16 bytes and on
+// per_thread values
 extern "C" int eincm_splat_direct_bwd(const void* wx, const void* wy,
                                       const void* grad, void* dwx, void* dwy,
                                       int n_refs, long long n_events, int H,
-                                      int W, int hw, int f64, int wrap, int slab,
-                                      int per_thread, int vec, int tile_rows,
-                                      int row_slabs, int chunks, int blocks,
+                                      int W, int hw, int f64, int wrap,
+                                      int per_thread, int vec, int blocks,
                                       int threads, cudaStream_t stream) {
   const size_t t = f64 ? 8 : 4;
   const bool aligned = (size_t)wx % 16 == 0 && (size_t)wy % 16 == 0 && (size_t)dwx % 16 == 0 &&
                        (size_t)dwy % 16 == 0 && (n_refs == 1 || n_events % per_thread == 0 ||
                                                  ((size_t)n_events * t) % 16 == 0);
-  if (bad_launch(blocks, threads) || hw < 0 || H < 1 || W < 1 || n_refs < 1 ||
-      n_refs > 65535 || n_events < 1 || (vec && !aligned) ||
-      (slab ? (tile_rows < 1 || row_slabs < 1 || chunks < 1 ||
-               (long long)tile_rows * row_slabs < H || (long long)row_slabs * chunks != blocks ||
-               n_events > 0x7fffffffLL)
-            : threads > 256))
+  if (bad_launch(blocks, threads) || threads > 256 || hw < 0 || H < 1 || W < 1 ||
+      n_refs < 1 || n_refs > 65535 || n_events < 1 || (vec && !aligned))
     return (int)cudaErrorInvalidValue;
-  const BwdArgs a{wx,  wy,         grad, dwx,    dwy,     n_refs,    n_events,  H,      W,
-                  hw,  per_thread, vec,  blocks, threads, tile_rows, row_slabs, chunks, stream};
-  if (f64) return wrap ? splat_bwd<double, true>(a, slab) : splat_bwd<double, false>(a, slab);
-  return wrap ? splat_bwd<float, true>(a, slab) : splat_bwd<float, false>(a, slab);
+  const BwdArgs a{wx, wy, grad, dwx, dwy, n_refs, n_events, H, W,
+                  hw, per_thread, vec, blocks, threads, stream};
+  if (f64) return wrap ? splat_bwd<double, true>(a) : splat_bwd<double, false>(a);
+  return wrap ? splat_bwd<float, true>(a) : splat_bwd<float, false>(a);
 }
 
-// (n_events, 2) samples of the (h, w, 2) theta, float64 with `f64`, else
-// float32, at the coordinates rounded (half to even) with `round`, else as
-// given, by ops/interp.py:plan_direct_interp: blocks x threads threads,
-// per_thread events a thread (`vec`: xs and ys on 16 bytes), theta copied
-// to shared memory with `staged`; `out` on 16 bytes
+// (n_events, 2) samples of the (h, w, 2) theta by ops/interp.py:
+// plan_direct_interp: float64 at the coordinates rounded (half to even)
+// (`f64` and `round`; the float64 solve), or float32 at the coordinates as
+// given (neither; kernel 8's route); blocks x threads threads, per_thread
+// events a thread (2 in float32 only; `vec`: xs and ys on 16 bytes), theta
+// copied to shared memory with `staged`; `out` on 16 bytes
 extern "C" int eincm_interp_direct_fwd(const void* theta, const void* xs,
                                        const void* ys, void* out,
                                        long long n_events, int h, int w,
@@ -1070,23 +947,15 @@ extern "C" int eincm_interp_direct_fwd(const void* theta, const void* xs,
                                        cudaStream_t stream) {
   const size_t t = f64 ? 8 : 4;
   if (bad_launch(blocks, threads) || threads > 256 || h < 1 || w < 1 || n_events < 1 ||
-      (size_t)out % (2 * t) ||
+      !f64 != !round || (size_t)out % (2 * t) ||
       (staged && 2 * t * (size_t)h * w > 48 * 1024) ||
       (vec && ((size_t)xs % 16 || (size_t)ys % 16)))
     return (int)cudaErrorInvalidValue;
   if (f64)
-    return round ? interp_fwd<double, true>(theta, xs, ys, out, n_events, h, w, scale_y,
-                                            scale_x, staged, per_thread, vec, blocks,
-                                            threads, stream)
-                 : interp_fwd<double, false>(theta, xs, ys, out, n_events, h, w, scale_y,
-                                             scale_x, staged, per_thread, vec, blocks,
-                                             threads, stream);
-  return round ? interp_fwd<float, true>(theta, xs, ys, out, n_events, h, w, scale_y,
-                                         scale_x, staged, per_thread, vec, blocks,
-                                         threads, stream)
-               : interp_fwd<float, false>(theta, xs, ys, out, n_events, h, w, scale_y,
-                                          scale_x, staged, per_thread, vec, blocks,
-                                          threads, stream);
+    return interp_fwd<double, true>(theta, xs, ys, out, n_events, h, w, scale_y, scale_x,
+                                    staged, per_thread, vec, blocks, threads, stream);
+  return interp_fwd<float, false>(theta, xs, ys, out, n_events, h, w, scale_y, scale_x,
+                                  staged, per_thread, vec, blocks, threads, stream);
 }
 
 // the (h, w, 2) float64 dtheta (written whole) from the (n_events, 2)

@@ -213,15 +213,14 @@ KERNELS: Dict[str, Kernel] = {
         (P, P, P, P, I, LL, I, I, I, I, I, I, I, I, I, I, I, P),
     ),
     # (wx, wy, grad_frames, dwx, dwy, n_refs, n_events, H, W, hw, f64, wrap,
-    #  slab, per_thread, vec, tile_rows, row_slabs, chunks, blocks, threads,
-    #  stream)
+    #  per_thread, vec, blocks, threads, stream)
     "splat_direct_bwd": Kernel(
         "direct", "eincm_splat_direct_bwd",
-        (P, P, P, P, P, I, LL, I, I, I, I, I, I, I, I, I, I, I, I, I, P),
+        (P, P, P, P, P, I, LL, I, I, I, I, I, I, I, I, I, P),
     ),
     # (theta, xs, ys, out, n_events, h, w, scale_y, scale_x, f64, round,
-    #  staged, per_thread, vec, blocks, threads, stream): float64, and
-    #  float32 at the coordinates as given (kernel 8's route)
+    #  staged, per_thread, vec, blocks, threads, stream): float64 rounded,
+    #  and float32 at the coordinates as given (kernel 8's route)
     "interp_direct_fwd": Kernel(
         "direct", "eincm_interp_direct_fwd",
         (P, P, P, P, LL, I, I, D, D, I, I, I, I, I, I, I, P),

@@ -430,9 +430,11 @@ def interp_bwd_cuda(g, xs, ys, theta_shape, sensor_size, plan: InterpPlan = None
     return dtheta
 
 
-# The direct forward (csrc/direct.cu): one trip a thread; in float32 two
-# events a thread in a row from GROUP_EVENTS events on (one 8-byte load of
-# xs and of ys), else one; theta staged in shared memory up to
+# The direct forward (csrc/direct.cu), built for the float64 solve
+# (rounded coordinates) and kernel 8's route (float32 at the coordinates as
+# given): one trip a thread; in float32 two events a thread in a row from
+# GROUP_EVENTS events on (one 8-byte load of xs and of ys), else one (two
+# are built in float32 only); theta staged in shared memory up to
 # FWD_STAGED_BYTES, as kernel 1 does. On an H100 at 1.5M events (PERF.md):
 # float64 one event a thread 0.0226 ms, two 0.0234, four 0.0298; float32
 # at the coordinates as given two 0.0124, one 0.0127, four 0.0199.
@@ -473,6 +475,8 @@ def plan_direct_interp(E: int, h: int, w: int, f64: bool = True, per_thread: int
         per_thread = DIRECT_PER_THREAD[f64] if E >= GROUP_EVENTS else 1
     if per_thread not in (1, 2):
         raise ValueError(f"plan_direct_interp: per_thread {per_thread} not 1 or 2")
+    if f64 and per_thread != 1:
+        raise ValueError("plan_direct_interp: two events a thread are built in float32 only")
     threads = DIRECT_FWD_THREADS if threads is None else threads
     if not (32 <= threads <= DIRECT_FWD_THREADS and threads % 32 == 0):
         raise ValueError(f"plan_direct_interp: threads {threads} not a multiple of 32 "
@@ -489,13 +493,16 @@ def interp_direct_fwd_cuda(theta, xs, ys, sensor_size, round_coords: bool = True
                            plan: DirectInterpPlan = None) -> torch.Tensor:
     """Launch the direct forward: (h, w, 2) theta, (E,) coords -> (E, 2),
     `interp_theta_at_events_plain(..., round_coords)`'s function, on any
-    grid, in theta's dtype (float64, or float32: kernel 8's route samples
-    at the coordinates as given), by `plan` (default:
+    grid, in theta's dtype: float64 rounded (the float64 solve) or float32
+    at the coordinates as given (kernel 8's route), by `plan` (default:
     `plan_direct_interp`'s)."""
     h, w, _ = theta.shape
     e = xs.shape[0]
     if theta.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"interp_direct_fwd: float32 or float64 only, got {theta.dtype}")
+    if bool(round_coords) != (theta.dtype == torch.float64):
+        raise ValueError(f"interp_direct_fwd: built for float64 rounded or float32 as given, "
+                         f"got {theta.dtype} with round_coords={round_coords}")
     check_cuda("interp_direct_fwd", (theta, xs, ys), ((h, w, 2), (e,), (e,)), theta.dtype)
     _check_grid(h, w)
     H, W = sensor_size

@@ -25,9 +25,8 @@ coordinates, the wrap-compat splat and every other window size (1 and up),
 in float32 or float64. The direct forward runs the slab design too (`plan_splat` with 8-byte
 texels in float64) and its frames are exact sums as well; the direct
 backward gathers with a grid per ref, two events a thread where events are
-many and each event's separable weights computed once, or, at windows 6 to
-9 in float32, against slabs of the cotangent in shared memory
-(`plan_direct_bwd` chooses).
+many and each event's separable weights computed once (`plan_direct_bwd`
+sizes it).
 
 Dispatch (`ops/splat.py`): a CPU tensor takes the plain version; a CUDA
 tensor launches the kernels, and anything they do not take raises.
@@ -387,137 +386,65 @@ def splat_direct_fwd_cuda(warped_xs, warped_ys, sensor_size, window_size: int = 
     return frames
 
 
-# The direct backward's two kernels (csrc/direct.cu), which give the same
-# bits (one statement sequence per event):
-#   - gather: a grid of its own per ref, `per_thread` events a thread in a
-#     row (one 4-, 8- or 16-byte load per coordinate array where the arrays
-#     allow), each event's window of the cotangent read through L1 and L2;
-#   - slab (float32, no wrap, windows 6 to 9): block (slab, chunk) of a ref
-#     copies its slab of rows of the cotangent, with the window's halo rows,
-#     into shared memory, walks its chunk's events and takes those whose
-#     centre row is in its slab.
-# The slab kernel is built, and runs, where it won on an H100 (PERF.md:
-# kernel_ab.py --sweep direct over the first 2^16 to 2^20 events a ref at
-# DSEC): float32 without the wrap at the radii SLAB_HW (windows 6 to 9)
-# from SLAB_EVENTS events a ref (window 7 at 2^17: 0.0274 against the
-# gather's 0.0289 ms; at 1.5M 0.1580 against 0.2313). It lost at windows 2
-# and 4 (0.0806 against 0.0370 ms at 2^20 events) and in float64 (window 3
-# 0.2351 against 0.0807), where the walk of every event by every slab costs
-# more than the gathers it saves.
-# From DIRECT_GROUP_EVENTS events per ref a thread takes DIRECT_PER_THREAD
-# events (one 8- or 16-byte load of each coordinate array), below it one,
-# where a launch is one wave and a thread's events in a row only lengthen
-# it (PERF.md: on an H100 at 30k and 1.5M events, 1, 2 and 4 events a
-# thread at 64, 128 and 256 threads; four lost to two but at float32
-# window 7, which the slab kernel takes).
+# The direct backward (csrc/direct.cu): a grid of its own per ref,
+# `per_thread` events a thread in a row (one 4-, 8- or 16-byte load per
+# coordinate array where the arrays allow), each event's window of the
+# cotangent read through L1 and L2, one statement sequence an event, so the
+# same bits for every plan. From DIRECT_GROUP_EVENTS events per ref a thread
+# takes DIRECT_PER_THREAD events (one 8- or 16-byte load of each coordinate
+# array), below it one, where a launch is one wave and a thread's events in
+# a row only lengthen it (PERF.md: on an H100 at 30k and 1.5M events, 1, 2
+# and 4 events a thread at 64, 128 and 256 threads; four lost to two but at
+# float32 window 7, which no configuration sets).
 DIRECT_GROUP_EVENTS = 1 << 17
 DIRECT_PER_THREAD = 2
 DIRECT_THREADS = 256  # the gather kernel's __launch_bounds__
 DIRECT_BLOCKS_PER_SM = 8  # over all refs: 2048 threads an SM
-DIRECT_MAX_HW = 4  # csrc/direct.cu: kMaxHw, the radii unrolled
-SLAB_HW = (3, 4)
-SLAB_EVENTS = 1 << 17
-SLAB_THREADS = 1024
-SLAB_QUEUE_BYTES = 32 * 64 * 4  # csrc/direct.cu: kBwdQueueBytes
-SLAB_MAX_BYTES = SMEM_BLOCK - SLAB_QUEUE_BYTES - 1024
 
 
 @dataclass(frozen=True)
 class DirectBwdPlan:
-    """How the direct backward runs: `kernel` "gather" or "slab".
+    """How the direct backward runs: a grid of `blocks` x R blocks of
+    `threads` threads; a thread takes `per_thread` events in a row,
+    grid-stride within its ref; `vec`: as one load per coordinate array and
+    one store per gradient array (every ref's four arrays start on 16 bytes
+    and on `per_thread` values)."""
 
-    gather: a grid of `blocks` x R blocks of `threads` threads; a thread
-    takes `per_thread` events in a row, grid-stride within its ref; `vec`:
-    as one load per coordinate array and one store per gradient array
-    (every ref's four arrays start on 16 bytes and on `per_thread` values).
-
-    slab: R x `row_slabs` x `chunks` blocks (`blocks` = row_slabs x chunks)
-    of `threads` threads; block (slab, chunk) of a ref holds `tile_rows`
-    rows of the cotangent and the window's halo in shared memory
-    (`smem_bytes`), and takes the events of interleaved runs of `threads`
-    events (chunk c: runs c, c + chunks, ...) whose centre row, clamped to
-    the sensor, lies in its slab."""
-
-    kernel: str
     blocks: int
     threads: int
     per_thread: int = 1
     vec: bool = False
-    tile_rows: int = 0
-    row_slabs: int = 0
-    chunks: int = 0
-    smem_bytes: int = 0
 
 
 def plan_direct_bwd(R: int, E: int, H: int, W: int, window_size: int = 3, f64: bool = False,
-                    wrap: bool = False, kernel: str = None, per_thread: int = None,
-                    threads: int = None, blocks: int = None, chunks: int = None,
-                    aligned: bool = True) -> DirectBwdPlan:
+                    wrap: bool = False, per_thread: int = None, threads: int = None,
+                    blocks: int = None, aligned: bool = True) -> DirectBwdPlan:
     """The direct backward's plan for R refs of E events on an H x W sensor
     at `window_size`, in float64 with `f64`, with the reference's wrap with
     `wrap`. `aligned`: the four (R, E) arrays start on 16 bytes. The other
-    arguments override the defaults (for timing sweeps and tests); by
-    default the slab kernel where it won (SLAB_HW, SLAB_EVENTS) and fits,
-    else the gather kernel."""
+    arguments override the defaults (for timing sweeps and tests)."""
     if not (R >= 1 and E >= 1 and H >= 1 and W >= 1 and int(window_size) >= 1):
         raise ValueError(f"plan_direct_bwd: need R, E, H, W, window_size >= 1, got "
                          f"{(R, E, H, W, window_size)}")
     if R > 65535:
         raise ValueError(f"plan_direct_bwd: {R} refs: at most 65535 (the grid's y)")
-    hw = int(window_size) // 2
-    if kernel is None:
-        kernel = "gather"
-        if not (f64 or wrap) and hw in SLAB_HW and E >= SLAB_EVENTS:
-            try:
-                return plan_direct_bwd(R, E, H, W, window_size, kernel="slab", threads=threads,
-                                       chunks=chunks)
-            except ValueError:
-                pass  # a row too wide for a slab, or too many events
-    if kernel == "gather":
-        if per_thread is None:
-            per_thread = DIRECT_PER_THREAD if E >= DIRECT_GROUP_EVENTS else 1
-        threads = DIRECT_THREADS if threads is None else threads
-        if per_thread not in (1, 2):
-            raise ValueError(f"plan_direct_bwd: per_thread {per_thread} not 1 or 2")
-        if not (32 <= threads <= DIRECT_THREADS and threads % 32 == 0):
-            raise ValueError(f"plan_direct_bwd: threads {threads} not a multiple of 32 "
-                             f"up to {DIRECT_THREADS}")
-        if blocks is None:
-            full = -(-E // (threads * per_thread))
-            blocks = max(1, min(full, -(-N_SM * DIRECT_BLOCKS_PER_SM * DIRECT_THREADS
-                                        // (threads * R))))
-        if blocks < 1:
-            raise ValueError(f"plan_direct_bwd: blocks {blocks} < 1")
-        vec = per_thread > 1 and aligned and (
-            R == 1 or E % per_thread == 0 or E * (8 if f64 else 4) % 16 == 0)
-        return DirectBwdPlan(kernel="gather", blocks=blocks, threads=threads,
-                             per_thread=per_thread, vec=vec)
-    if kernel != "slab":
-        raise ValueError(f"plan_direct_bwd: kernel {kernel!r}")
-    if f64 or wrap or hw not in SLAB_HW:
-        raise ValueError(f"plan_direct_bwd: the slab kernel takes float32, no wrap and windows "
-                         f"{2 * SLAB_HW[0]} to {2 * SLAB_HW[-1] + 1}, got float64 {f64}, wrap "
-                         f"{wrap}, window {window_size}")
-    if E > 2**31 - 1:
-        raise ValueError(f"plan_direct_bwd: the slab kernel queues int event numbers, {E}")
-    texel = 4
-    fit = SLAB_MAX_BYTES // (W * texel) - 2 * hw  # rows of a slab beside the halo
-    if fit < 1:
-        raise ValueError(f"plan_direct_bwd: a slab of rows of {W} texels with a halo of "
-                         f"{hw} rows does not fit a block")
-    row_slabs = -(-H // fit)
-    tile_rows = -(-H // row_slabs)
-    smem = 16 * -(-min(tile_rows + 2 * hw, H) * W * texel // 16)
-    threads = SLAB_THREADS if threads is None else threads
-    if not (32 <= threads <= 1024 and threads % 32 == 0):
-        raise ValueError(f"plan_direct_bwd: threads {threads} not a multiple of 32 up to 1024")
-    if chunks is None:  # one block an SM, no chunk without a run of events
-        chunks = max(1, min(N_SM // (R * row_slabs), -(-E // threads)))
-    if chunks < 1:
-        raise ValueError(f"plan_direct_bwd: chunks {chunks} < 1")
-    return DirectBwdPlan(kernel="slab", blocks=row_slabs * chunks, threads=threads,
-                         tile_rows=tile_rows, row_slabs=row_slabs, chunks=chunks,
-                         smem_bytes=smem)
+    if per_thread is None:
+        per_thread = DIRECT_PER_THREAD if E >= DIRECT_GROUP_EVENTS else 1
+    threads = DIRECT_THREADS if threads is None else threads
+    if per_thread not in (1, 2):
+        raise ValueError(f"plan_direct_bwd: per_thread {per_thread} not 1 or 2")
+    if not (32 <= threads <= DIRECT_THREADS and threads % 32 == 0):
+        raise ValueError(f"plan_direct_bwd: threads {threads} not a multiple of 32 "
+                         f"up to {DIRECT_THREADS}")
+    if blocks is None:
+        full = -(-E // (threads * per_thread))
+        blocks = max(1, min(full, -(-N_SM * DIRECT_BLOCKS_PER_SM * DIRECT_THREADS
+                                    // (threads * R))))
+    if blocks < 1:
+        raise ValueError(f"plan_direct_bwd: blocks {blocks} < 1")
+    vec = per_thread > 1 and aligned and (
+        R == 1 or E % per_thread == 0 or E * (8 if f64 else 4) % 16 == 0)
+    return DirectBwdPlan(blocks=blocks, threads=threads, per_thread=per_thread, vec=vec)
 
 
 def splat_direct_bwd_cuda(warped_xs, warped_ys, grad_frames, sensor_size,
@@ -539,15 +466,14 @@ def splat_direct_bwd_cuda(warped_xs, warped_ys, grad_frames, sensor_size,
         aligned = all(t.data_ptr() % 16 == 0 for t in (warped_xs, warped_ys, dwx, dwy))
         p = plan_direct_bwd(R, E, H, W, window_size, f64, wrap, aligned=aligned) \
             if plan is None else plan
-        if p.vec and not (aligned and p.kernel == "gather"):
+        if p.vec and not aligned:
             raise ValueError(f"splat_direct_bwd: {p} takes vector loads, but the arrays of "
                              f"{(R, E)} do not start on 16 bytes")
         with torch.cuda.device(warped_xs.device):
             KERNELS["splat_direct_bwd"](
                 warped_xs.data_ptr(), warped_ys.data_ptr(), grad_frames.data_ptr(),
                 dwx.data_ptr(), dwy.data_ptr(), R, E, H, W, int(window_size) // 2, int(f64),
-                int(wrap), int(p.kernel == "slab"), p.per_thread, int(p.vec), p.tile_rows,
-                p.row_slabs, p.chunks, p.blocks, p.threads,
+                int(wrap), p.per_thread, int(p.vec), p.blocks, p.threads,
                 torch.cuda.current_stream().cuda_stream,
             )
     return dwx, dwy

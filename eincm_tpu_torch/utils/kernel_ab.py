@@ -49,8 +49,7 @@ the direct splat backward (float64 at windows 3 and 7, float32 at windows
 forward (float64 rounded, and float32 at the coordinates as given, kernel
 8's route) at both staged windows' shapes, each by its default plan and,
 where the tree has `plan_direct_bwd` and `plan_direct_interp`, over events
-a thread, threads, theta staged or gathered, and the backward's gather and
-slab kernels, both also on the first 2^16 to 2^20 events at DSEC.
+a thread, threads, and theta staged or gathered.
 
 Times are device ms per call from CUDA events (the tree's
 `utils/profiling.cuda_ms`). Prints the card, one line per time and one
@@ -244,11 +243,8 @@ def time_direct(sk, ti, splat_in, cot, theta, timed):
 def sweep_direct(sk, ti, splat_in, cot, theta, timed, res):
     """The direct splat backward and interp forward at both staged
     windows' shapes: the default plan of each case, then, where the tree
-    plans them, every choice of events a thread and threads, the interp's
-    theta staged or gathered, and the backward's slab kernel (float32, no
-    wrap) at its thread counts; at DSEC also the first 2^16 to 2^20 events
-    of each ref through the gather and the slab kernel (where one overtakes
-    the other); each plan in `res["plans"]`."""
+    plans them, every choice of events a thread and threads, and the
+    interp's theta staged or gathered; each plan in `res["plans"]`."""
     import dataclasses
 
     import torch
@@ -257,12 +253,6 @@ def sweep_direct(sk, ti, splat_in, cot, theta, timed, res):
     planned_bwd = hasattr(sk, "plan_direct_bwd")
     planned_fwd = hasattr(ti, "plan_direct_interp")
     unrounded = "round_coords" in inspect.signature(ti.interp_direct_fwd_cuda).parameters
-
-    def bwd_key(key, p):
-        return (f"{key}_{p.kernel}_{p.threads}t_{p.blocks}b"
-                + (f"_{p.per_thread}each" if p.kernel == "gather" else
-                   f"_{p.row_slabs}slabs_{p.chunks}chunks"))
-
     for tag in ("mvsec", "dsec"):
         wx, wy, sensor = splat_in[tag]
         G = cot[tag]
@@ -278,26 +268,13 @@ def sweep_direct(sk, ti, splat_in, cot, theta, timed, res):
             if not planned_bwd:
                 continue
             f64 = ax.dtype == torch.float64
-            choices = [dict(kernel="gather", per_thread=k, threads=t)
-                       for k in (1, 2) for t in (64, 128, 256)]
-            choices += [dict(kernel="slab", threads=t) for t in (512, 1024)]
-            for c in choices:
-                try:
-                    p = sk.plan_direct_bwd(R, E, *sensor, ws, f64, wrap, **c)
-                except ValueError:
-                    continue  # no slab kernel for float64 or the wrap
-                k = bwd_key(key, p)
-                plans[k] = dataclasses.asdict(p)
-                timed(k, lambda: sk.splat_direct_bwd_cuda(ax, ay, g, sensor, ws, wrap, p))
-            if tag != "dsec" or f64 or wrap or ws // 2 not in sk.SLAB_HW:
-                continue
-            for n in (1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20):
-                nx, ny = ax[:, :n].contiguous(), ay[:, :n].contiguous()
-                for kernel in ("gather", "slab"):
-                    p = sk.plan_direct_bwd(R, n, *sensor, ws, kernel=kernel)
-                    k = bwd_key(f"{key}_first{n}", p)
-                    plans[k] = dataclasses.asdict(p)
-                    timed(k, lambda: sk.splat_direct_bwd_cuda(nx, ny, g, sensor, ws, plan=p))
+            for k in (1, 2):
+                for t in (64, 128, 256):
+                    p = sk.plan_direct_bwd(R, E, *sensor, ws, f64, wrap, per_thread=k,
+                                           threads=t)
+                    kk = f"{key}_{t}t_{p.blocks}b_{k}each"
+                    plans[kk] = dataclasses.asdict(p)
+                    timed(kk, lambda: sk.splat_direct_bwd_cuda(ax, ay, g, sensor, ws, wrap, p))
         # the unwarped coordinates of ref 0 stand in for the events
         xs64, ys64 = wx64[0].contiguous(), wy64[0].contiguous()
         xs, ys = wx[0].contiguous(), wy[0].contiguous()
@@ -310,11 +287,11 @@ def sweep_direct(sk, ti, splat_in, cot, theta, timed, res):
             timed(key, lambda: ti.interp_direct_fwd_cuda(th, x, y, sensor, **extra))
             if not planned_fwd:
                 continue
-            for k in (1, 2):
+            f64 = th.dtype == torch.float64
+            for k in (1,) if f64 else (1, 2):  # two events a thread: float32 only
                 for t in (64, 128, 256):
                     for staged in (True, False):
-                        p = ti.plan_direct_interp(E, *th.shape[:2], th.dtype == torch.float64, k, t,
-                                                  staged=staged)
+                        p = ti.plan_direct_interp(E, *th.shape[:2], f64, k, t, staged=staged)
                         kk = f"{key}_{t}t_{p.blocks}b_{k}each_{'staged' if staged else 'ldg'}"
                         plans[kk] = dataclasses.asdict(p)
                         timed(kk, lambda: ti.interp_direct_fwd_cuda(th, x, y, sensor, rnd,

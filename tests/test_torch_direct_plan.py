@@ -400,7 +400,7 @@ def test_plan_splat_texel_bytes():
         sk.plan_splat(2, 10, 4, 4, texel_bytes=2)
 
 
-# ---- the direct splat backward: plans, vectors, slabs, separable sums ----------
+# ---- the direct splat backward: plans, vectors, separable sums ----------------
 
 @pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
 @pytest.mark.parametrize("R,E", [(1, 1), (2, 30_000), (2, 1_500_000), (3, 1_500_001),
@@ -413,7 +413,7 @@ def test_direct_bwd_gather_plan(R, E, f64):
     vector loads only where every ref's arrays start on 16 bytes."""
     p = sk.plan_direct_bwd(R, E, 480, 640, 3, f64)
     k = 2 if E >= sk.DIRECT_GROUP_EVENTS else 1
-    assert (p.kernel, p.threads, p.per_thread) == ("gather", 256, k)
+    assert (p.threads, p.per_thread) == (256, k)
     cap = -(-sk.N_SM * 8 // R)
     assert p.blocks == max(1, min(-(-E // (256 * k)), cap))
     assert p.blocks * R <= sk.N_SM * 8 + R  # 2048 threads an SM, the refs rounded up
@@ -435,63 +435,42 @@ def test_direct_bwd_plan_limits():
         sk.plan_direct_bwd(65536, 10, 4, 4)  # the grid's y
     with pytest.raises(ValueError):
         sk.plan_direct_bwd(1, 10, 4, 4, window_size=0)
-    with pytest.raises(ValueError, match="kernel"):
-        sk.plan_direct_bwd(1, 10, 4, 4, kernel="stream")
-    with pytest.raises(ValueError, match="no wrap"):
-        sk.plan_direct_bwd(1, 10, 4, 4, 7, wrap=True, kernel="slab")
-    with pytest.raises(ValueError, match="float32"):
-        sk.plan_direct_bwd(1, 10, 4, 4, 7, f64=True, kernel="slab")
-    for ws in (1, 3, 4, 5, 10, 11):
-        with pytest.raises(ValueError, match="windows 6 to 9"):
-            sk.plan_direct_bwd(1, 10, 40, 40, ws, kernel="slab")
-    with pytest.raises(ValueError, match="does not fit"):
-        sk.plan_direct_bwd(1, 10, 40, 80_000, 7, kernel="slab")
-
-
-@pytest.mark.parametrize("ws", [6, 7, 8, 9])
-@pytest.mark.parametrize("R,E,sensor", [(2, 30_000, (256, 336)), (2, 1_500_000, (480, 640)),
-                                        (1, 100, (48, 64)), (3, 2_000_000, (720, 1280))])
-def test_direct_bwd_slab_plan(R, E, sensor, ws):
-    """Slabs of whole rows that cover the sensor, each with the window's
-    halo in one block's shared memory beside the queues; one block an SM
-    over the refs and slabs, no chunk without a run of events."""
-    Hs, Ws = sensor
-    hw = ws // 2
-    p = sk.plan_direct_bwd(R, E, Hs, Ws, ws, kernel="slab")
-    t = 4
-    assert p.kernel == "slab" and p.threads == 1024 and not p.vec
-    assert p.tile_rows * p.row_slabs >= Hs > (p.row_slabs - 1) * p.tile_rows
-    assert p.smem_bytes == 16 * -(-min(p.tile_rows + 2 * hw, Hs) * Ws * t // 16)
-    assert p.smem_bytes <= sk.SMEM_BLOCK - sk.SLAB_QUEUE_BYTES - 1024
-    assert p.chunks == max(1, min(sk.N_SM // (R * p.row_slabs), -(-E // 1024)))
-    assert p.blocks == p.row_slabs * p.chunks
+    with pytest.raises(ValueError, match="blocks"):
+        sk.plan_direct_bwd(1, 10, 4, 4, blocks=0)
+    with pytest.raises(ValueError, match="threads"):
+        sk.plan_direct_bwd(1, 10, 4, 4, threads=48)  # not a multiple of 32
 
 
 @pytest.mark.parametrize("ws", [1, 2, 3, 4, 5, 6, 7, 8, 9, 11])
 @pytest.mark.parametrize("E", [30_000, 131_071, 131_072, 1_500_000])
-def test_direct_bwd_plan_chooses_the_slab_where_it_won(E, ws):
-    """The slab kernel by default in float32 without the wrap at windows 6
-    to 9 from SLAB_EVENTS events a ref, where its slab fits a block; the
-    gather kernel everywhere else (float64, the wrap, other windows, fewer
-    events, rows too wide for a slab)."""
-    hw = ws // 2
-    slab = hw in sk.SLAB_HW and E >= sk.SLAB_EVENTS
+def test_direct_bwd_plan_is_the_gather_at_every_window(E, ws):
+    """One kernel for every window, precision and wrap: the launch depends
+    on the events a ref alone (the radius is the kernel's, csrc/direct.cu:
+    splat_bwd), and a sensor of any width takes it."""
     p = sk.plan_direct_bwd(2, E, 480, 640, ws)
-    assert p.kernel == ("slab" if slab else "gather")
-    if slab:
-        assert p == sk.plan_direct_bwd(2, E, 480, 640, ws, kernel="slab")
-    for other in (dict(f64=True), dict(wrap=True)):
-        assert sk.plan_direct_bwd(2, E, 480, 640, ws, **other).kernel == "gather"
-    assert sk.plan_direct_bwd(2, E, 8, 70_000, ws).kernel == "gather"  # no slab fits
+    assert p == sk.plan_direct_bwd(2, E, 480, 640, 3)
+    for other in (dict(f64=True), dict(wrap=True), dict(f64=True, wrap=True)):
+        assert sk.plan_direct_bwd(2, E, 480, 640, ws, **other) == p
+    assert sk.plan_direct_bwd(2, E, 8, 70_000, ws) == p
 
 
-def row_vectors(c0, hw, W, kN):
+MAX_HW = 4  # csrc/direct.cu: kMaxHw, the bound of the instance with the radius at run time
+
+
+def row_vectors(c0, hw, W, kN, bound=None):
     """csrc/direct.cu:row_texels: (left, vectors) of the 16-byte vectors
     (kN values) that hold columns [c0, c0 + 2 hw], or None where they leave
-    the row (then the texels are read one by one)."""
+    the row (then the texels are read one by one). `bound`: the instance
+    whose loops run to radius `bound` and take hw <= bound at run time
+    (kUpTo), which loads only the vectors that the offset needs; else the
+    radius is the instance's and the count is fixed for every offset."""
     taps = 2 * hw + 1
-    vecs = (taps + 2 * kN - 2) // kN
     left = c0 & ~(kN - 1)
+    if bound is None:
+        vecs = (taps + 2 * kN - 2) // kN
+    else:
+        assert hw <= bound
+        vecs = (c0 - left + taps + kN - 1) // kN
     return (left, vecs) if left + vecs * kN <= W else None
 
 
@@ -520,48 +499,30 @@ def test_row_vectors_hold_the_window(hw, kN):
     assert row_vectors(0, hw, W, kN) is not None
 
 
-def emulate_slab_owners(wx, wy, sensor, ws, plan):
-    """csrc/direct.cu:splat_direct_bwd_slab_kernel's ownership: the slab
-    whose rows hold an event's centre row (clamped to the sensor) takes it;
-    slab 0 writes the zeros of events whose window misses the sensor.
-    Returns (owner slab or -1 for slab 0's zeros, the slab's first and last
-    row in shared memory)."""
-    Hs, Ws = sensor
-    hw = ws // 2
-    ry, rx = torch.round(wy), torch.round(wx)
-    ok = (ry >= -hw) & (ry <= Hs - 1 + hw) & (rx >= -hw) & (rx <= Ws - 1 + hw)
-    iy = torch.where(ok, ry, torch.zeros_like(ry)).long().clamp(0, Hs - 1)
-    owner = torch.where(ok, iy // plan.tile_rows, torch.full_like(iy, -1))
-    r0 = owner.clamp_min(0) * plan.tile_rows
-    s0 = (r0 - hw).clamp_min(0)
-    s1 = (r0 + plan.tile_rows + hw).clamp_max(Hs)
-    return owner, ok, s0, s1
-
-
-@pytest.mark.parametrize("ws", [6, 7, 8, 9])
-def test_slab_owner_holds_the_window(ws):
-    """Every event is taken by exactly one block, and the owner's slab,
-    with its halo, holds every row of the event's window on the sensor."""
-    rng = np.random.default_rng(70 + ws)
-    Hs, Ws = 480, 640
-    xs, ys = _edge_events(rng, (Hs, Ws), n=20_000)
-    wx, wy = (torch.as_tensor(a, dtype=F64)[None] for a in (xs, ys))
-    plan = sk.plan_direct_bwd(1, wx.shape[1], Hs, Ws, ws, kernel="slab")
-    assert plan.row_slabs > 1
-    owner, ok, s0, s1 = emulate_slab_owners(wx, wy, (Hs, Ws), ws, plan)
-    hw = ws // 2
-    taken = torch.zeros_like(owner)
-    for rs in range(plan.row_slabs):  # each block's own test
-        r0, r1 = rs * plan.tile_rows, min(Hs, (rs + 1) * plan.tile_rows)
-        iy = torch.where(ok, torch.round(wy), torch.zeros_like(wy)).long().clamp(0, Hs - 1)
-        taken += (ok & (iy >= r0) & (iy < r1)).long()
-        taken += (~ok & (rs == 0)).long()
-    assert torch.equal(taken, torch.ones_like(taken))
-    assert bool((owner[ok] < plan.row_slabs).all())
-    rows_lo = (torch.round(wy) - hw).clamp(0, Hs - 1)
-    rows_hi = (torch.round(wy) + hw).clamp(0, Hs - 1)
-    on = ok & (torch.round(wy) + hw >= 0) & (torch.round(wy) - hw <= Hs - 1)
-    assert bool((rows_lo[on] >= s0[on]).all()) and bool((rows_hi[on] < s1[on]).all())
+@pytest.mark.parametrize("kN", [2, 4], ids=["double2", "float4"])
+@pytest.mark.parametrize("hw", [0, 1, 2, 3, 4])
+def test_row_vectors_at_a_radius_given_at_run_time(hw, kN):
+    """The instance bounded by kMaxHw: at each offset the vectors it loads
+    (no more than the bound's array holds) hold the 2 hw + 1 texels, texel
+    b at p[o + b] inside the loaded ones, never past the row; one vector
+    fewer would miss the last texel; never more vectors than the fixed
+    count of the same radius, so it reads vectors wherever that would."""
+    W = 64
+    taps = 2 * hw + 1
+    most = (2 * MAX_HW + 1 + 2 * kN - 2) // kN  # csrc/direct.cu: kVecs of the bound
+    for c0 in range(0, W - taps + 1):
+        got = row_vectors(c0, hw, W, kN, MAX_HW)
+        fixed = row_vectors(c0, hw, W, kN)
+        if got is None:
+            assert fixed is None
+            continue
+        left, vecs = got
+        o = c0 - left
+        assert 1 <= vecs <= most and left + vecs * kN <= W
+        assert o + taps <= vecs * kN < o + taps + kN
+        assert fixed is None or vecs <= fixed[1]
+        loaded = list(range(left, left + vecs * kN))
+        assert [loaded[o + b] for b in range(taps)] == list(range(c0, c0 + taps))
 
 
 def emulate_direct_bwd_splat(wx, wy, G, sensor, ws, wrap):
@@ -646,3 +607,20 @@ def test_direct_interp_plan(grid, E, f64):
         ti.plan_direct_interp(E, h, w, f64, per_thread=4)
     with pytest.raises(ValueError):
         ti.plan_direct_interp(E, h, w, f64, threads=512)
+    if f64:  # two events a thread: built in float32 only
+        with pytest.raises(ValueError, match="float32 only"):
+            ti.plan_direct_interp(E, h, w, f64, per_thread=2)
+    else:
+        assert ti.plan_direct_interp(E, h, w, f64, per_thread=2).per_thread == 2
+
+
+@pytest.mark.parametrize("dtype,round_coords", [(torch.float32, True), (F64, False)],
+                         ids=["f32_rounded", "f64_unrounded"])
+def test_direct_interp_fwd_refuses_the_instances_not_built(dtype, round_coords):
+    """The direct forward is built for the float64 solve (rounded) and
+    kernel 8's route (float32 as given); the other two raise before any
+    launch (kernel 1 takes float32 rounded)."""
+    theta = torch.zeros(4, 4, 2, dtype=dtype)
+    xs = torch.zeros(10, dtype=dtype)
+    with pytest.raises(ValueError, match="float64 rounded or float32 as given"):
+        ti.interp_direct_fwd_cuda(theta, xs, xs, SENSOR, round_coords)
