@@ -49,7 +49,7 @@ from eincm_tpu_torch.experiments.outputs import (
 from eincm_tpu_torch.models.pyramid import make_window_solver
 from eincm_tpu_torch.ops.resize import scale_theta_to_sensor_size
 from eincm_tpu_torch.parallel.distributed import process_rank
-from eincm_tpu_torch.utils import host
+from eincm_tpu_torch.utils import host, profiling
 from eincm_tpu_torch.utils.console import log, ok, warn
 
 # DSEC-extended scoring also reports the original-timestamp subset
@@ -99,7 +99,10 @@ def _as_jax_dtypes(evals: Dict) -> Dict:
 class EINCMExperiment:
     """One experiment on `device` (CUDA by default; a CUDA device without
     CUDA raises). `stats[idx]` records each window's staging seconds, solve
-    ms, host syncs, BFGS loss evaluations and rescue, and its EVAL ms."""
+    ms, host syncs, BFGS loss evaluations and rescue, and its EVAL ms; a
+    sequential solve also its `solver_loss` calls, the ms the host waited
+    in reads and the ms it spent enqueueing the loss (`utils/profiling.py`'s
+    counters over the window)."""
 
     def __init__(self, cfg: ExperimentConfig, device=torch.device("cuda")):
         cfg.check_runnable()
@@ -241,16 +244,14 @@ class EINCMExperiment:
         indices = [i for i in range(n) if not self._skip_idx(i)]
         for n_done, (idx, staged) in enumerate(self._prefetch(indices), 1):
             t0 = time.perf_counter()
+            before = profiling.counters()
             prior, first = self._prior_pyr, self._is_first
             res = self._solve_one(self.window_solver, staged, prior, first)
-            syncs = res.n_host_syncs + 1  # + the record's transfer
             evals = _n_evals(res)
             rescued = False
             if self._rescue_on and not first:
-                syncs += 1
                 if self._anomalous(res):
                     fixed = self._rescue_window(idx, staged, prior, res)
-                    syncs += self.stats[idx]["rescue_host_syncs"]
                     evals += self.stats[idx]["rescue_evals"]
                     rescued = fixed is not res
                     res = fixed
@@ -258,10 +259,15 @@ class EINCMExperiment:
             self._is_first = False
             rec = solve_result_to_record(res)
             self.opt_results[f"datasample_idx_{idx}"] = rec
+            spent = profiling.since(before)
             self.stats.setdefault(idx, {}).update(
                 solve_ms=(time.perf_counter() - t0) * 1e3,
-                host_syncs=syncs,
+                # every read: the solver's, the anomaly check's, the record's
+                host_syncs=spent.get("host.reads", 0),
                 evals=evals,
+                loss_evals=spent.get("loss.evals", 0),
+                read_wait_ms=spent.get("host.read_wait_ns", 0) * 1e-6,
+                dispatch_ms=spent.get("loss.dispatch_ns", 0) * 1e-6,
                 rescued=rescued,
             )
             states = rec["solver_final_results"]["theta_opt_state_pyr"]
@@ -481,7 +487,7 @@ class EINCMExperiment:
         """Re-solve an anomalous armijo window with strong Wolfe; keep the
         better of the two (by level-0 pre-handover loss). The Wolfe solver
         keeps its bracket+zoom budget (>= 10 trials) under the leaner armijo
-        probe cap. Records the host syncs it made in `stats[idx]`."""
+        probe cap. Records the evaluations it made in `stats[idx]`."""
         if self._rescue_solver is None:
             rescue_cfg = dataclasses.replace(
                 self.solver_cfg,
@@ -496,9 +502,7 @@ class EINCMExperiment:
             wolfe_res.theta_opt_states[0].fun_val.reshape(()).to(f),
             armijo_res.prior_loss_lvl0.reshape(()).to(f),
         ]))
-        self.stats.setdefault(idx, {}).update(
-            rescue_host_syncs=wolfe_res.n_host_syncs + 1, rescue_evals=_n_evals(wolfe_res)
-        )
+        self.stats.setdefault(idx, {})["rescue_evals"] = _n_evals(wolfe_res)
         self.n_rescue_attempts += 1
         warn(
             f"[{idx}] armijo anomaly (lvl-0 f={f_a:.6f} vs prior "

@@ -5,20 +5,28 @@ jaxopt, src/eincm/solver.py:165-183; retry loop :218-239). JAX runs the
 whole optimization in one `lax.while_loop`; here the loop runs on the host
 and the tensors stay on their device. The host needs values back from the
 device at exactly three kinds of places, each one transfer through
-`utils/host.py:to_host`, and each counted in `BFGSResult.n_host_syncs`:
+`utils/host.py:to_host`, and each counted in `BFGSResult.n_host_syncs`
+and, by cause, in the counters `bfgs.reads.probe` (the first two) and
+`bfgs.reads.status` (the third; `utils/profiling.py`):
 
 - every Armijo probe's accept/reject decision (one per probe);
 - every strong-Wolfe trial's branch bits: the sufficient-decrease and
   curvature tests and the sign of the slope, which pick bracket or zoom,
   done, extend or shrink (one per trial);
 - the status bits at the end of each iteration (one), which carry the
-  loss for the heartbeat when there is one.
+  loss for the heartbeat when there is one, and the first gradient's
+  convergence test (one a solve).
 
 Everything else (search direction, step heuristic, the line searches'
 interpolations and state, the Hessian update, the history buffers) is
 computed on the device, with `torch.where` or with the branch the host
 read. The golden-section search needs no transfer at all: both branches of
 each bracketing step are computed and selected on the device.
+
+Each iteration is an `eincm.bfgs` span, each line search an
+`eincm.linesearch` span inside it, and each backward of `value_and_grad`
+an `eincm.grad` span, counted in `loss.grad_evals` with its host ns in
+`loss.dispatch_ns`.
 
 Semantics kept from the JAX package: Nocedal-Wright bracket and zoom with
 safeguarded quadratic interpolation (falling back to the best point seen),
@@ -34,7 +42,10 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from eincm_tpu_torch.utils import host
+from eincm_tpu_torch.utils import host, profiling
+
+PROBE = "bfgs.reads.probe"  # an Armijo probe's or a Wolfe trial's read
+STATUS = "bfgs.reads.status"  # an iteration's status bits, or the first test
 
 
 class BFGSResult(NamedTuple):
@@ -43,7 +54,10 @@ class BFGSResult(NamedTuple):
     grad: torch.Tensor  # (D,) final gradient
     iter_num: int  # iterations in the LAST attempt
     total_iters: int  # iterations across all attempts
-    n_fun_evals: int  # evaluations: Wolfe trials, or Armijo probes + 1
+    # evaluations: Wolfe trials, or Armijo probes + 1, the JAX package's
+    # count (a failed Armijo search counts one evaluation it never makes;
+    # the counter `loss.evals` counts those made)
+    n_fun_evals: int
     n_attempts: int  # 1 + retries performed
     success: bool  # gradient sup-norm <= gtol
     # 0 ok, 1 maxiter, 2 line-search fail, 3 nan, 4 ftol noise-floor stop
@@ -61,6 +75,12 @@ class BFGSHistory(NamedTuple):
     n: int  # valid entries
 
 
+@profiling.spanned("eincm.grad", "loss.grad_evals", "loss.dispatch_ns")
+def _grad(f: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    (g,) = torch.autograd.grad(f, x)
+    return g
+
+
 def value_and_grad(
     fun: Callable[[torch.Tensor], torch.Tensor]
 ) -> Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
@@ -70,7 +90,7 @@ def value_and_grad(
         with torch.enable_grad():
             xg = x.detach().requires_grad_(True)
             f = fun(xg)
-            (g,) = torch.autograd.grad(f, xg)
+            g = _grad(f, xg)
         return f.detach(), g
 
     return fg
@@ -95,6 +115,7 @@ def _zoom_trial(a_lo, phi_lo, dphi_lo, a_hi, phi_hi) -> torch.Tensor:
     return torch.where(bad, mid, a_q)
 
 
+@profiling.spanned("eincm.linesearch")
 def _strong_wolfe(phi_fn, phi0, dphi0, g0, alpha1, c1, c2, max_evals, read):
     """Strong-Wolfe line search (Nocedal & Wright Algs. 3.5/3.6).
 
@@ -119,7 +140,9 @@ def _strong_wolfe(phi_fn, phi0, dphi0, g0, alpha1, c1, c2, max_evals, read):
         if not (first and in_bracket):
             armijo_fail = armijo_fail | (phi >= (phi_prev if in_bracket else phi_lo))
         curvature_ok = torch.abs(dphi) <= -c2 * dphi0
-        fail, curv, ascending = read(torch.stack([armijo_fail, curvature_ok, dphi >= 0]))
+        fail, curv, ascending = read(
+            torch.stack([armijo_fail, curvature_ok, dphi >= 0]), PROBE
+        )
         if fail:
             if in_bracket:  # bracket [a_prev, a]
                 stage = 1
@@ -155,6 +178,7 @@ def _strong_wolfe(phi_fn, phi0, dphi0, g0, alpha1, c1, c2, max_evals, read):
     )
 
 
+@profiling.spanned("eincm.linesearch")
 def _armijo_backtrack(
     fun, fun_and_grad, x, p, f0, dphi0, g0, alpha1, c1, max_evals, interpolate, read
 ):
@@ -169,7 +193,7 @@ def _armijo_backtrack(
     while n < max_evals:
         f_trial = fun(x + alpha * p)
         n += 1
-        ok = read(f_trial <= f0 + c1 * alpha * dphi0)
+        ok = read(f_trial <= f0 + c1 * alpha * dphi0, PROBE)
         if ok:
             break
         if interpolate:
@@ -264,9 +288,10 @@ def minimize_bfgs(
     ftol_patience = max(int(ftol_patience), 2)
     syncs = 0
 
-    def read(t: torch.Tensor):
+    def read(t: torch.Tensor, cause: str):
         nonlocal syncs
         syncs += 1
+        profiling.count(cause)
         return host.to_host(t)
 
     dtype, dev = x0.dtype, x0.device
@@ -286,103 +311,104 @@ def minimize_bfgs(
     f_old = f + torch.linalg.norm(g) / 2.0 + 1.0
     k_att = k_total = attempt = n_small = 0
     n_evals = 1
-    converged = read(torch.max(torch.abs(g)) <= gtol)
+    converged = read(torch.max(torch.abs(g)) <= gtol, STATUS)
     status = 0 if converged else -1
 
     while status == -1:
-        p = -h_inv @ g
-        dphi0 = torch.dot(p, g)
-        # not a descent direction (numerical breakdown): steepest descent
-        bad_dir = (dphi0 >= 0) | ~torch.isfinite(dphi0)
-        p = torch.where(bad_dir, -g, p)
-        dphi0 = torch.where(bad_dir, -torch.dot(g, g), dphi0)
-        if unit_initial_step:
-            alpha1 = torch.ones((), dtype=dtype, device=dev)
-        else:  # scipy's heuristic: alpha1 = min(1, 1.01 * 2 * (f - f_old) / dphi0)
-            rel = 1.01 * 2.0 * (f - f_old) / torch.where(dphi0 == 0, 1.0, dphi0)
-            alpha1 = torch.where(
-                torch.isfinite(rel) & (rel > 0), torch.clamp_max(rel, 1.0), 1.0
-            )
+        with profiling.annotate("eincm.bfgs"):
+            p = -h_inv @ g
+            dphi0 = torch.dot(p, g)
+            # not a descent direction (numerical breakdown): steepest descent
+            bad_dir = (dphi0 >= 0) | ~torch.isfinite(dphi0)
+            p = torch.where(bad_dir, -g, p)
+            dphi0 = torch.where(bad_dir, -torch.dot(g, g), dphi0)
+            if unit_initial_step:
+                alpha1 = torch.ones((), dtype=dtype, device=dev)
+            else:  # scipy's heuristic: alpha1 = min(1, 1.01 * 2 * (f - f_old) / dphi0)
+                rel = 1.01 * 2.0 * (f - f_old) / torch.where(dphi0 == 0, 1.0, dphi0)
+                alpha1 = torch.where(
+                    torch.isfinite(rel) & (rel > 0), torch.clamp_max(rel, 1.0), 1.0
+                )
 
-        if line_search == "armijo":
-            alpha, f_new, g_new, ls_evals, ls_ok = _armijo_backtrack(
-                fun, fun_and_grad, x, p, f, dphi0, g, alpha1, c1, max_ls_evals,
-                armijo_interpolate, read,
-            )
-        else:
-            def phi_fn(a, x=x, p=p):
-                fk, gk = fun_and_grad(x + a * p)
-                return fk, torch.dot(gk, p), gk
+            if line_search == "armijo":
+                alpha, f_new, g_new, ls_evals, ls_ok = _armijo_backtrack(
+                    fun, fun_and_grad, x, p, f, dphi0, g, alpha1, c1, max_ls_evals,
+                    armijo_interpolate, read,
+                )
+            else:
+                def phi_fn(a, x=x, p=p):
+                    fk, gk = fun_and_grad(x + a * p)
+                    return fk, torch.dot(gk, p), gk
 
-            alpha, f_new, g_new, ls_evals, ls_ok = _strong_wolfe(
-                phi_fn, f, dphi0, g, alpha1, c1, c2, max_ls_evals, read
-            )
+                alpha, f_new, g_new, ls_evals, ls_ok = _strong_wolfe(
+                    phi_fn, f, dphi0, g, alpha1, c1, c2, max_ls_evals, read
+                )
 
-        x_new = x + alpha * p
-        sk = x_new - x
-        yk = g_new - g
-        ys = torch.dot(yk, sk)
-        # inverse-Hessian update; skipped when the curvature condition fails
-        rho = 1.0 / torch.where(ys == 0, 1.0, ys)
-        vl = eye - rho * torch.outer(sk, yk)
-        h_new = vl @ h_inv @ vl.T + rho * torch.outer(sk, sk)
-        do_update = (ys > 1e-10 * torch.dot(sk, sk)) & torch.isfinite(ys)
-        h_inv = torch.where(do_update, h_new, h_inv)
-        if record_history:
-            hist_xs[k_total] = x_new
-            hist_fs[k_total] = f_new
+            x_new = x + alpha * p
+            sk = x_new - x
+            yk = g_new - g
+            ys = torch.dot(yk, sk)
+            # inverse-Hessian update; skipped when the curvature condition fails
+            rho = 1.0 / torch.where(ys == 0, 1.0, ys)
+            vl = eye - rho * torch.outer(sk, yk)
+            h_new = vl @ h_inv @ vl.T + rho * torch.outer(sk, sk)
+            do_update = (ys > 1e-10 * torch.dot(sk, sk)) & torch.isfinite(ys)
+            h_inv = torch.where(do_update, h_new, h_inv)
+            if record_history:
+                hist_xs[k_total] = x_new
+                hist_fs[k_total] = f_new
 
-        gnorm = torch.max(torch.abs(g_new))
-        bits = [
-            ls_ok,
-            ~torch.isfinite(f_new) | ~torch.isfinite(gnorm),
-            gnorm <= gtol,
-        ]
-        if ftol is not None:
-            denom = torch.clamp_min(
-                torch.maximum(torch.abs(f), torch.abs(f_new)), 1.0
-            )
-            bits.append((f - f_new) / denom <= ftol)
-        bits = torch.stack(bits)
-        if heartbeat_fn is None:
-            ls_ok, nan_hit, converged, *small = read(bits)
-        else:  # the loss rides along with the status bits
-            *flags, f_host = read(torch.cat([bits.to(dtype), f_new.reshape(1)]))
-            ls_ok, nan_hit, converged, *small = (v != 0 for v in flags)
-            heartbeat_fn(k_total + 1, f_host)
+            gnorm = torch.max(torch.abs(g_new))
+            bits = [
+                ls_ok,
+                ~torch.isfinite(f_new) | ~torch.isfinite(gnorm),
+                gnorm <= gtol,
+            ]
+            if ftol is not None:
+                denom = torch.clamp_min(
+                    torch.maximum(torch.abs(f), torch.abs(f_new)), 1.0
+                )
+                bits.append((f - f_new) / denom <= ftol)
+            bits = torch.stack(bits)
+            if heartbeat_fn is None:
+                ls_ok, nan_hit, converged, *small = read(bits, STATUS)
+            else:  # the loss rides along with the status bits
+                *flags, f_host = read(torch.cat([bits.to(dtype), f_new.reshape(1)]), STATUS)
+                ls_ok, nan_hit, converged, *small = (v != 0 for v in flags)
+                heartbeat_fn(k_total + 1, f_host)
 
-        k_att += 1
-        ftol_stop = False
-        if ftol is not None:
-            inc = 1 if ls_ok else (ftol_patience if n_small >= 1 else 1)
-            n_small = n_small + inc if small[0] else 0
-            ftol_stop = n_small >= ftol_patience
-        if nan_hit:
-            status = 3
-        elif converged:
-            status = 0
-        elif ftol_stop:
-            status = 4
-        elif not ls_ok:
-            status = 2
-        elif k_att >= maxiter:
-            status = 1
-        else:
-            status = -1
-        # retry on failure (1/2/3) with attempts left: reset the Hessian and
-        # continue from the current point; the ftol stop is never retried.
-        # n_small survives a retry: failure -> reset -> failure again is the
-        # noise-floor confirmation.
-        if status > 0 and status != 4 and attempt < n_extra_attempts:
-            status = -1
-            h_inv = eye
-            k_att = 0
-            attempt += 1
+            k_att += 1
+            ftol_stop = False
+            if ftol is not None:
+                inc = 1 if ls_ok else (ftol_patience if n_small >= 1 else 1)
+                n_small = n_small + inc if small[0] else 0
+                ftol_stop = n_small >= ftol_patience
+            if nan_hit:
+                status = 3
+            elif converged:
+                status = 0
+            elif ftol_stop:
+                status = 4
+            elif not ls_ok:
+                status = 2
+            elif k_att >= maxiter:
+                status = 1
+            else:
+                status = -1
+            # retry on failure (1/2/3) with attempts left: reset the Hessian and
+            # continue from the current point; the ftol stop is never retried.
+            # n_small survives a retry: failure -> reset -> failure again is the
+            # noise-floor confirmation.
+            if status > 0 and status != 4 and attempt < n_extra_attempts:
+                status = -1
+                h_inv = eye
+                k_att = 0
+                attempt += 1
 
-        n_evals += ls_evals
-        k_total += 1
-        f_old = f
-        x, f, g = x_new, f_new, g_new
+            n_evals += ls_evals
+            k_total += 1
+            f_old = f
+            x, f, g = x_new, f_new, g_new
 
     result = BFGSResult(
         x=x,

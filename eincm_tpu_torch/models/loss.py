@@ -39,6 +39,7 @@ from eincm_tpu_torch.ops.warp import (
     warp_events_multi_ref,
     warp_events_multi_ref_coarse,
 )
+from eincm_tpu_torch.utils import profiling
 
 EPSN = sys.float_info.epsilon
 SENTINEL = -1e4
@@ -190,6 +191,7 @@ def _masked_tv(
     return l1.sum() / (nz.sum().to(dtype) + EPSN)
 
 
+@profiling.spanned("eincm.loss", "loss.evals", "loss.dispatch_ns")
 def solver_loss(
     theta: torch.Tensor,
     xs: torch.Tensor,
@@ -206,7 +208,8 @@ def solver_loss(
 
     FWL is never computed; the IWE divergence is skipped when delta == 0
     and TV when gamma == 0 or above the finest pyramid level
-    (src/eincm/losses.py:171).
+    (src/eincm/losses.py:171). Each call is counted (`loss.evals`, its host
+    ns in `loss.dispatch_ns`) and is an `eincm.loss` span.
     """
     sensor_size = statics.sensor_size
     xs, ys, ts = _sanitize_events(xs, ys, ts)

@@ -6,7 +6,9 @@ statics are computed once per window and shared by every level, attempt
 and handover evaluation; each level runs BFGS with the reference's retry
 loop; at the levels in `solve_handover_for_levels` the blend weight with
 the prior is solved by golden section. State is explicit: priors go in,
-results come out.
+results come out. Under a profiler the solve is an `eincm.window` span
+holding `eincm.statics` and one `eincm.level<l>` a level, each with its
+BFGS and its `eincm.handover` (`utils/profiling.py`).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from eincm_tpu_torch.models.loss import (
     solver_loss,
 )
 from eincm_tpu_torch.ops.resize import downscale_theta, upscale_theta
+from eincm_tpu_torch.utils import profiling
 
 
 class WindowSample(NamedTuple):
@@ -210,6 +213,7 @@ def _solve_theta_level(
     return res.x.reshape(shape), res, hist
 
 
+@profiling.spanned("eincm.handover")
 def _solve_handover_weight(
     cfg: SolverConfig,
     lvl: int,
@@ -244,6 +248,7 @@ def _solve_handover_weight(
     return w_star, hist
 
 
+@profiling.spanned("eincm.statics")
 def stage_prior_pyramid(
     cfg: SolverConfig, prior_pyr: Sequence[torch.Tensor]
 ) -> Tuple[torch.Tensor, ...]:
@@ -260,6 +265,7 @@ def stage_prior_pyramid(
     return tuple(prior)
 
 
+@profiling.spanned("eincm.window")
 def solve_window(
     cfg: SolverConfig,
     sample: WindowSample,
@@ -270,9 +276,10 @@ def solve_window(
     src/eincm/solver.py:197-267). The first window skips handover."""
     n = cfg.n_pyr_lvls
     ho = cfg.handover
-    wstat = compute_window_statics(
-        sample.xs, sample.ys, sample.edges, cfg.sensor_size
-    )
+    with profiling.annotate("eincm.statics"):
+        wstat = compute_window_statics(
+            sample.xs, sample.ys, sample.edges, cfg.sensor_size
+        )
     with torch.no_grad():
         prior = stage_prior_pyramid(cfg, prior_pyr)
         if is_first_sample or not cfg.compute_prior_loss:
@@ -298,52 +305,54 @@ def solve_window(
         return torch.full((), v, dtype=like.dtype, device=like.device)
 
     for lvl in reversed(range(n)):
-        opt[lvl], opt_states[lvl], histories[lvl] = _solve_theta_level(
-            cfg, lvl, pre_opt[lvl], sample, wstat
-        )
-        with torch.no_grad():
-            if is_first_sample or not ho.use_handover:
-                weights[lvl] = scalar(ho.init_handover_weight, opt[lvl])
-                final[lvl] = opt[lvl]
-                if (
-                    cfg.collect_intermediate
-                    and ho.use_handover
-                    and lvl in ho.solve_handover_for_levels
-                ):
-                    # an empty history of the solved one's shape, so that
-                    # first and later windows' results have one structure
-                    maxiter = cfg.handover_opt_maxiters[max(lvl - 1, 0)]
-                    cap = max(2, ho.handover_grid_probes) + 2 + maxiter
-                    ho_histories[lvl] = BFGSHistory(
-                        xs=torch.zeros((cap,), dtype=torch.float32, device=opt[lvl].device),
-                        fs=torch.zeros((cap,), dtype=opt[lvl].dtype, device=opt[lvl].device),
-                        n=0,
-                    )
-            else:
-                if lvl in ho.solve_handover_for_levels:
-                    if lvl > 0:
-                        prior_for_solve = prior[lvl - 1]
-                        theta_for_solve = upscale_theta(
-                            opt[lvl],
-                            base=cfg.base_between(lvl - 1),
-                            method=cfg.pyramid_upscale_method,
+        with profiling.annotate(f"eincm.level{lvl}"):
+            opt[lvl], opt_states[lvl], histories[lvl] = _solve_theta_level(
+                cfg, lvl, pre_opt[lvl], sample, wstat
+            )
+            with torch.no_grad():
+                if is_first_sample or not ho.use_handover:
+                    weights[lvl] = scalar(ho.init_handover_weight, opt[lvl])
+                    final[lvl] = opt[lvl]
+                    if (
+                        cfg.collect_intermediate
+                        and ho.use_handover
+                        and lvl in ho.solve_handover_for_levels
+                    ):
+                        # an empty history of the solved one's shape, so that
+                        # first and later windows' results have one structure
+                        maxiter = cfg.handover_opt_maxiters[max(lvl - 1, 0)]
+                        cap = max(2, ho.handover_grid_probes) + 2 + maxiter
+                        dev = opt[lvl].device
+                        ho_histories[lvl] = BFGSHistory(
+                            xs=torch.zeros((cap,), dtype=torch.float32, device=dev),
+                            fs=torch.zeros((cap,), dtype=opt[lvl].dtype, device=dev),
+                            n=0,
+                        )
+                else:
+                    if lvl in ho.solve_handover_for_levels:
+                        if lvl > 0:
+                            prior_for_solve = prior[lvl - 1]
+                            theta_for_solve = upscale_theta(
+                                opt[lvl],
+                                base=cfg.base_between(lvl - 1),
+                                method=cfg.pyramid_upscale_method,
+                            )
+                        else:
+                            prior_for_solve = prior[lvl]
+                            theta_for_solve = opt[lvl]
+                        w, ho_histories[lvl] = _solve_handover_weight(
+                            cfg, lvl, prior_for_solve, theta_for_solve, sample, wstat
                         )
                     else:
-                        prior_for_solve = prior[lvl]
-                        theta_for_solve = opt[lvl]
-                    w, ho_histories[lvl] = _solve_handover_weight(
-                        cfg, lvl, prior_for_solve, theta_for_solve, sample, wstat
+                        w = scalar(ho.alpha_handover, opt[lvl])
+                    weights[lvl] = w
+                    final[lvl] = w * prior[lvl] + (1.0 - w) * opt[lvl]
+                if lvl > 0:
+                    pre_opt[lvl - 1] = upscale_theta(
+                        final[lvl],
+                        base=cfg.base_between(lvl - 1),
+                        method=cfg.pyramid_upscale_method,
                     )
-                else:
-                    w = scalar(ho.alpha_handover, opt[lvl])
-                weights[lvl] = w
-                final[lvl] = w * prior[lvl] + (1.0 - w) * opt[lvl]
-            if lvl > 0:
-                pre_opt[lvl - 1] = upscale_theta(
-                    final[lvl],
-                    base=cfg.base_between(lvl - 1),
-                    method=cfg.pyramid_upscale_method,
-                )
 
     collected = cfg.collect_intermediate
     return SolveResult(

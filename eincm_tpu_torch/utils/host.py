@@ -5,7 +5,9 @@ trials, the status bits of each iteration), of `evals/theta_metrics.py`
 (the small bundle of one evaluation) and of the experiment manager (a
 solve's record, the armijo rescue's anomaly check) goes through `to_host`,
 so the count a solve reports (`SolveResult.n_host_syncs`) can be held
-against a counter wrapped around this function.
+against the counter `host.reads` that it keeps (`utils/profiling.py`),
+beside `host.read_wait_ns`, the host ns spent waiting in it. Each read is
+an `eincm.read` span in a profiler's trace.
 """
 
 from __future__ import annotations
@@ -15,9 +17,12 @@ from typing import Dict
 import numpy as np
 import torch
 
+from eincm_tpu_torch.utils import profiling
+
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64, torch.int64: np.int64}
 
 
+@profiling.spanned("eincm.read", "host.reads", "host.read_wait_ns")
 def to_host(t: torch.Tensor) -> list:
     """`t`'s values as (nested) Python numbers: one device -> host copy,
     which waits for the work queued before it."""

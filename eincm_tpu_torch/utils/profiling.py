@@ -2,25 +2,105 @@
 
 - `trace(dir)` wraps a block in a `torch.profiler` trace (CPU, and CUDA
   where there is a card), written to `dir` for TensorBoard or Perfetto;
-- `annotate(name)` adds a named region to such a trace;
+- `annotate(name)` opens a named span in such a trace, and costs one check
+  while no profiler runs; `spanned(name, calls, ns)` wraps a function in
+  one and counts its calls and host ns;
+- `count`, `counters()`, `since(before)` and `reset_counters()`: the
+  program's counters, always on (one integer add each);
 - `Timer` / `timed` measure wall time on the host clock, ending in
   `force_sync` so that the device work is inside the measurement;
 - `cuda_ms` times device work with CUDA events;
 - `card()` names the card and its power limit, as nvidia-smi reports them,
   to stand beside every number taken on it.
+
+The solve's spans, nested in this order (a span's self time is its length
+less its children's): `eincm.window` (`solve_window`), `eincm.statics`
+(the window statics and the staged priors), `eincm.level<l>` (one pyramid
+level: its BFGS and its handover), `eincm.bfgs` (one iteration; its self
+time is the direction, initial step, Hessian update and status bits),
+`eincm.linesearch` (an Armijo or strong-Wolfe search), `eincm.handover`
+(the golden-section weight solve), `eincm.loss` (the forward of
+`solver_loss`), `eincm.grad` (the backward of `value_and_grad`) and
+`eincm.read` (`to_host`). Under a profiler they lie on its clock, the one
+of the device ops.
+
+The counters: `loss.evals` (`solver_loss` calls, of every kind),
+`loss.grad_evals` (backwards of `value_and_grad`), `loss.dispatch_ns`
+(host ns inside both: the loss's enqueue time), `host.reads` and
+`host.read_wait_ns` (`to_host` calls and the ns the host waited in them),
+`bfgs.reads.probe` and `bfgs.reads.status` (BFGS's reads by cause: an
+Armijo probe or Wolfe trial, or an iteration's status bits). They count
+under a lock, so solves in threads of one process lose no count; the
+counters are the process's, not a thread's.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import subprocess
+import threading
 import time
-from typing import Dict
+from collections import defaultdict
+from typing import Dict, Optional
 
 import torch
 from torch.profiler import record_function
 
-annotate = record_function
+_NO_SPAN = contextlib.nullcontext()
+_COUNTS: Dict[str, int] = defaultdict(int)
+_LOCK = threading.Lock()
+
+
+def annotate(name: str):
+    """A span named `name` while a `torch.profiler` session runs (a
+    `record_function` user annotation, on the profiler's clock); else a
+    shared null context, and no `RecordFunction` is made."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return record_function(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    with _LOCK:
+        _COUNTS[name] += n
+
+
+def counters() -> Dict[str, int]:
+    """A snapshot of every counter."""
+    with _LOCK:
+        return dict(_COUNTS)
+
+
+def since(before: Dict[str, int]) -> Dict[str, int]:
+    """Each counter's growth since the snapshot `before`."""
+    return {k: v - before.get(k, 0) for k, v in counters().items()}
+
+
+def reset_counters() -> None:
+    with _LOCK:
+        _COUNTS.clear()
+
+
+def spanned(name: str, calls: Optional[str] = None, ns: Optional[str] = None):
+    """Decorator: each call in the span `name`, counted under `calls`, its
+    host ns added to `ns`."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            t0 = time.perf_counter_ns()
+            with annotate(name):
+                out = fn(*args, **kwargs)
+            if calls is not None:
+                count(calls)
+            if ns is not None:
+                count(ns, time.perf_counter_ns() - t0)
+            return out
+
+        return inner
+
+    return wrap
 
 
 def _tensors(tree):
