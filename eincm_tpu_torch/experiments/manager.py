@@ -100,9 +100,10 @@ class EINCMExperiment:
     """One experiment on `device` (CUDA by default; a CUDA device without
     CUDA raises). `stats[idx]` records each window's staging seconds, solve
     ms, host syncs, BFGS loss evaluations and rescue, and its EVAL ms; a
-    sequential solve also its `solver_loss` calls, the ms the host waited
-    in reads and the ms it spent enqueueing the loss (`utils/profiling.py`'s
-    counters over the window)."""
+    sequential solve also its `solver_loss` calls, those replayed from a
+    CUDA graph and the graphs captured (`models/graphs.py`), the ms the
+    host waited in reads and the ms it spent enqueueing the loss
+    (`utils/profiling.py`'s counters over the window)."""
 
     def __init__(self, cfg: ExperimentConfig, device=torch.device("cuda")):
         cfg.check_runnable()
@@ -266,6 +267,8 @@ class EINCMExperiment:
                 host_syncs=spent.get("host.reads", 0),
                 evals=evals,
                 loss_evals=spent.get("loss.evals", 0),
+                graph_replays=spent.get("loss.graph_replays", 0),
+                graph_captures=spent.get("loss.graph_captures", 0),
                 read_wait_ms=spent.get("host.read_wait_ns", 0) * 1e-6,
                 dispatch_ms=spent.get("loss.dispatch_ns", 0) * 1e-6,
                 rescued=rescued,

@@ -8,7 +8,9 @@ loop; at the levels in `solve_handover_for_levels` the blend weight with
 the prior is solved by golden section. State is explicit: priors go in,
 results come out. Under a profiler the solve is an `eincm.window` span
 holding `eincm.statics` and one `eincm.level<l>` a level, each with its
-BFGS and its `eincm.handover` (`utils/profiling.py`).
+BFGS and its `eincm.handover` (`utils/profiling.py`). The solver that
+`make_window_solver` builds on the card evaluates the loss through CUDA
+graphs (`models/graphs.py`); `solve_window` without them runs eager.
 """
 
 from __future__ import annotations
@@ -23,14 +25,13 @@ from eincm_tpu_torch.models.bfgs import (
     BFGSResult,
     minimize_bfgs,
     minimize_bounded_scalar,
-    value_and_grad,
 )
+from eincm_tpu_torch.models.graphs import LossGraphs, loss_functions
 from eincm_tpu_torch.models.loss import (
     LossParams,
     LossStatics,
     WindowStatics,
     compute_window_statics,
-    solver_loss,
 )
 from eincm_tpu_torch.ops.resize import downscale_theta, upscale_theta
 from eincm_tpu_torch.utils import profiling
@@ -178,16 +179,13 @@ def _solve_theta_level(
     theta0: torch.Tensor,
     sample: WindowSample,
     wstat: WindowStatics,
+    graphs: Optional[LossGraphs] = None,
 ) -> Tuple[torch.Tensor, BFGSResult, Optional[BFGSHistory]]:
     """BFGS at one pyramid level, with the reference's retry loop."""
     shape = theta0.shape
-    statics = cfg.loss_statics
-
-    def fun(flat):
-        return solver_loss(
-            flat.reshape(shape), sample.xs, sample.ys, sample.ts,
-            sample.edges, sample.edge_ts, cfg.params, lvl, statics, wstat,
-        )
+    fun, fun_and_grad = loss_functions(
+        cfg.params, lvl, cfg.loss_statics, shape, sample, wstat, graphs
+    )
 
     heartbeat = None
     if cfg.progress_heartbeat:
@@ -195,7 +193,7 @@ def _solve_theta_level(
             print(f"  [lvl {lvl}] iter {int(k):3d}  loss {float(f):.6f}")
 
     out = minimize_bfgs(
-        value_and_grad(fun),
+        fun_and_grad,
         theta0.reshape(-1),
         maxiter=cfg.theta_opt_maxiters[lvl],
         gtol=cfg.theta_gtol,
@@ -221,6 +219,7 @@ def _solve_handover_weight(
     theta: torch.Tensor,
     sample: WindowSample,
     wstat: WindowStatics,
+    graphs: Optional[LossGraphs] = None,
 ) -> Tuple[torch.Tensor, Optional[BFGSHistory]]:
     """Golden-section solve of the blend weight at one level, with its
     probe history when collected. For levels > 0 the weight is solved one
@@ -229,13 +228,12 @@ def _solve_handover_weight(
     ho = cfg.handover
     loss_lvl = lvl - 1 if lvl > 0 else lvl
     maxiter = cfg.handover_opt_maxiters[loss_lvl]
+    loss, _ = loss_functions(
+        cfg.params, loss_lvl, cfg.loss_statics, theta.shape, sample, wstat, graphs
+    )
 
     def fun(w):
-        theta_ho = w * prior_theta + (1.0 - w) * theta
-        return solver_loss(
-            theta_ho, sample.xs, sample.ys, sample.ts, sample.edges,
-            sample.edge_ts, cfg.params, loss_lvl, cfg.loss_statics, wstat,
-        )
+        return loss((w * prior_theta + (1.0 - w) * theta).reshape(-1))
 
     out = minimize_bounded_scalar(
         fun, ho.handover_limits, maxiter=maxiter,
@@ -271,15 +269,20 @@ def solve_window(
     sample: WindowSample,
     prior_pyr: Sequence[torch.Tensor],
     is_first_sample: bool,
+    graphs: Optional[LossGraphs] = None,
 ) -> SolveResult:
     """Full coarse-to-fine solve of one event window (reference:
-    src/eincm/solver.py:197-267). The first window skips handover."""
+    src/eincm/solver.py:197-267). The first window skips handover. With
+    `graphs` the loss is evaluated through its CUDA graphs, bound to this
+    window."""
     n = cfg.n_pyr_lvls
     ho = cfg.handover
     with profiling.annotate("eincm.statics"):
         wstat = compute_window_statics(
             sample.xs, sample.ys, sample.edges, cfg.sensor_size
         )
+        if graphs is not None:
+            graphs.bind(sample, wstat)
     with torch.no_grad():
         prior = stage_prior_pyramid(cfg, prior_pyr)
         if is_first_sample or not cfg.compute_prior_loss:
@@ -287,10 +290,10 @@ def solve_window(
                 (), float("inf"), dtype=prior[0].dtype, device=prior[0].device
             )
         else:
-            prior_loss0 = solver_loss(
-                prior[0], sample.xs, sample.ys, sample.ts, sample.edges,
-                sample.edge_ts, cfg.params, 0, cfg.loss_statics, wstat,
+            loss0, _ = loss_functions(
+                cfg.params, 0, cfg.loss_statics, prior[0].shape, sample, wstat, graphs
             )
+            prior_loss0 = loss0(prior[0].reshape(-1))
 
     pre_opt: list = [None] * n
     opt: list = [None] * n
@@ -307,7 +310,7 @@ def solve_window(
     for lvl in reversed(range(n)):
         with profiling.annotate(f"eincm.level{lvl}"):
             opt[lvl], opt_states[lvl], histories[lvl] = _solve_theta_level(
-                cfg, lvl, pre_opt[lvl], sample, wstat
+                cfg, lvl, pre_opt[lvl], sample, wstat, graphs
             )
             with torch.no_grad():
                 if is_first_sample or not ho.use_handover:
@@ -341,7 +344,8 @@ def solve_window(
                             prior_for_solve = prior[lvl]
                             theta_for_solve = opt[lvl]
                         w, ho_histories[lvl] = _solve_handover_weight(
-                            cfg, lvl, prior_for_solve, theta_for_solve, sample, wstat
+                            cfg, lvl, prior_for_solve, theta_for_solve, sample, wstat,
+                            graphs,
                         )
                     else:
                         w = scalar(ho.alpha_handover, opt[lvl])
@@ -375,9 +379,11 @@ def make_window_solver(cfg: SolverConfig, device):
     """(sample, prior_pyr, is_first) -> SolveResult, solving on `device`.
 
     The sample must already lie on `device` (see `data.staging`); the prior
-    pyramid is moved there explicitly.
+    pyramid is moved there explicitly. On a CUDA device the solver keeps
+    the CUDA graphs of its loss (`models/graphs.py`, as `run.graphs`).
     """
     device = torch.device(device)
+    graphs = LossGraphs() if device.type == "cuda" else None
 
     def run(
         sample: WindowSample, prior_pyr: Sequence[torch.Tensor], is_first: bool
@@ -390,6 +396,7 @@ def make_window_solver(cfg: SolverConfig, device):
                     f"sample tensor on {t.device}, solver on {device}"
                 )
         prior = tuple(p.to(device) for p in prior_pyr)
-        return solve_window(cfg, sample, prior, is_first_sample=is_first)
+        return solve_window(cfg, sample, prior, is_first_sample=is_first, graphs=graphs)
 
+    run.graphs = graphs
     return run

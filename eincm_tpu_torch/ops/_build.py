@@ -10,11 +10,15 @@ CPU-only test suite imports every module without a toolkit.
 
 Every kernel wrapper is a `Kernel`: it resolves its entry point lazily,
 raises when the launch returns a CUDA error, and counts its launches, so a
-run can show that the main path went through the kernel.
+run can show that the main path went through the kernel. While a CUDA
+graph is captured (`tally_launches`) a call launches nothing, so it is
+counted in the graph's tally instead, and each replay of the graph adds
+that tally (`add_launches`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,7 +28,7 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -35,6 +39,10 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# the tally of the CUDA graph being captured (Kernel -> calls), if any: a
+# process-wide setting, since autograd's backward launches from its own
+# thread
+_TALLY: Optional[Dict["Kernel", int]] = None
 
 
 def _nvcc() -> str:
@@ -148,7 +156,28 @@ class Kernel:
             raise RuntimeError(
                 f"{self.symbol} launch failed: cudaError_t {err}"
             )
-        self.launches += 1
+        if _TALLY is None:
+            self.launches += 1
+        else:
+            _TALLY[self] = _TALLY.get(self, 0) + 1
+
+
+@contextlib.contextmanager
+def tally_launches(tally: Dict[Kernel, int]):
+    """Count the block's kernel calls into `tally` and not as launches: a
+    CUDA graph's capture, whose calls launch nothing until it is replayed."""
+    global _TALLY
+    prev, _TALLY = _TALLY, tally
+    try:
+        yield
+    finally:
+        _TALLY = prev
+
+
+def add_launches(tally: Dict[Kernel, int]) -> None:
+    """Count a graph's replay: the calls its capture tallied."""
+    for kernel, n in tally.items():
+        kernel.launches += n
 
 
 P = ctypes.c_void_p

@@ -27,6 +27,7 @@ take raises.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
@@ -363,12 +364,30 @@ def plan_interp(E, h, w, backward=False, offsets=(0, 0, 0), mode=None,
 
 
 _TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+# the counters of the CUDA graphs being captured, by capture stream
+_GRAPH_TICKETS: Dict[int, torch.Tensor] = {}
+
+
+@contextlib.contextmanager
+def graph_ticket(stream: int, ticket: torch.Tensor):
+    """While a CUDA graph is captured on `stream`, its backward launches
+    take `ticket` (a zeroed int32 that the graph keeps), so the graph's
+    launches share a counter with nothing else."""
+    _GRAPH_TICKETS[stream] = ticket
+    try:
+        yield
+    finally:
+        del _GRAPH_TICKETS[stream]
 
 
 def _ticket(device: torch.device, stream: int) -> torch.Tensor:
     """The backward's arrival counter for launches on `stream` of `device`:
     zero between launches (the last block resets it), so the launches of a
-    stream, which run in order, share it."""
+    stream, which run in order, share it; a graph being captured on the
+    stream has its own (`graph_ticket`)."""
+    t = _GRAPH_TICKETS.get(stream)
+    if t is not None:
+        return t
     t = _TICKETS.get((device, stream))
     if t is None:
         t = _TICKETS[device, stream] = torch.zeros(1, dtype=torch.int32, device=device)

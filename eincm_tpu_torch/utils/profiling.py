@@ -29,9 +29,13 @@ The counters: `loss.evals` (`solver_loss` calls, of every kind),
 (host ns inside both: the loss's enqueue time), `host.reads` and
 `host.read_wait_ns` (`to_host` calls and the ns the host waited in them),
 `bfgs.reads.probe` and `bfgs.reads.status` (BFGS's reads by cause: an
-Armijo probe or Wolfe trial, or an iteration's status bits). They count
+Armijo probe or Wolfe trial, or an iteration's status bits),
+`loss.graph_replays` and `loss.graph_captures` (evaluations replayed from
+a CUDA graph, which `loss.evals` counts too, and graphs captured;
+`models/graphs.py`). They count
 under a lock, so solves in threads of one process lose no count; the
-counters are the process's, not a thread's.
+counters are the process's, not a thread's. `uncounted()` drops one
+thread's counts in a block.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from torch.profiler import record_function
 _NO_SPAN = contextlib.nullcontext()
 _COUNTS: Dict[str, int] = defaultdict(int)
 _LOCK = threading.Lock()
+_UNCOUNTED = threading.local()
 
 
 def annotate(name: str):
@@ -62,8 +67,21 @@ def annotate(name: str):
 
 
 def count(name: str, n: int = 1) -> None:
+    if getattr(_UNCOUNTED, "on", False):
+        return
     with _LOCK:
         _COUNTS[name] += n
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Drop the counts this thread makes in the block: a CUDA graph's
+    capture runs the loss's code but evaluates nothing."""
+    prev, _UNCOUNTED.on = getattr(_UNCOUNTED, "on", False), True
+    try:
+        yield
+    finally:
+        _UNCOUNTED.on = prev
 
 
 def counters() -> Dict[str, int]:

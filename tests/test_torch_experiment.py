@@ -452,6 +452,9 @@ def test_record_is_one_host_transfer_and_syncs_are_counted(tmp_path, monkeypatch
     # and each window's loss calls, read waits and loss dispatch
     assert all(s["loss_evals"] > 0 and s["read_wait_ms"] > 0 and s["dispatch_ms"] > 0
                for s in exp.stats.values())
+    # the CPU solves the loss eagerly: no CUDA graph captured or replayed
+    assert all(s["graph_replays"] == 0 and s["graph_captures"] == 0
+               for s in exp.stats.values())
     dl = exp.cfg.dataset.make_loader()
     dl.get_ready()
     res = exp.window_solver(exp.stage(dl[0]).window, exp.solver_cfg.zero_pyramid(device=CPU), True)

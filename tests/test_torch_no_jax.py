@@ -41,7 +41,8 @@ assert {"eincm_tpu_torch.parallel", "eincm_tpu_torch.parallel.batch",
         "eincm_tpu_torch.examples.sequence_sharding", "eincm_tpu_torch.utils.benchmarks",
         "eincm_tpu_torch.utils.blosc", "eincm_tpu_torch.native.blosc",
         "eincm_tpu_torch.utils.h5_lite", "eincm_tpu_torch.utils.h5_latest",
-        "eincm_tpu_torch.utils.h5_features", "eincm_tpu_torch.scripts"} | {
+        "eincm_tpu_torch.utils.h5_features", "eincm_tpu_torch.scripts",
+        "eincm_tpu_torch.models.graphs"} | {
         "eincm_tpu_torch.scripts." + s for s in (
             "ls_evals_ab", "ftol_ab", "mvsec_loss_breakdown", "edge_sensitivity",
             "armijo_interp_probe", "hessian_warmstart_probe", "armijo_rescue_validation")

@@ -17,6 +17,8 @@ import torch
 
 from eincm_tpu_torch import compat
 from eincm_tpu_torch.models import bfgs
+from eincm_tpu_torch.models import graphs as tg
+from eincm_tpu_torch.models import loss as tl
 from eincm_tpu_torch.models import pyramid as tp
 from eincm_tpu_torch.utils import host, profiling
 
@@ -98,14 +100,15 @@ def test_loss_evals_count_every_solver_loss_call(first, monkeypatch):
     BFGS's probes and gradients, the golden section's probes and the prior
     loss; `loss.grad_evals` the calls that ran a backward."""
     calls = {"all": 0, "grad": 0}
-    real = tp.solver_loss
+    real = tl.solver_loss
 
     def wrapped(theta, *args):
         calls["all"] += 1
         calls["grad"] += bool(theta.requires_grad)
         return real(theta, *args)
 
-    monkeypatch.setattr(tp, "solver_loss", wrapped)
+    # the pyramid's every loss call goes through `graphs.loss_functions`
+    monkeypatch.setattr(tg, "solver_loss", wrapped)
     in_handover = []
     real_ho = tp._solve_handover_weight
 
@@ -146,7 +149,7 @@ def test_a_failed_armijo_search_makes_no_evaluation_of_its_own():
     wstat = tp.compute_window_statics(sample.xs, sample.ys, sample.edges, SENSOR)
 
     def fun(flat):
-        return tp.solver_loss(flat.reshape(2, 2, 2), sample.xs, sample.ys, sample.ts,
+        return tl.solver_loss(flat.reshape(2, 2, 2), sample.xs, sample.ys, sample.ts,
                               sample.edges, sample.edge_ts, cfg.params, 0,
                               cfg.loss_statics, wstat)
 
