@@ -12,7 +12,18 @@ For each window of the sample, what the timed solve produced is judged:
   would measure rounding against nothing);
 - the window's answer, its flow at the sensor (the port's upscale of the
   final level-0 theta, made in the timed loop), against the reference's
-  upscale of the same theta: `flow_px`, the largest gap in pixels.
+  upscale of the same theta: `flow_px`, the largest gap in pixels;
+- where the configuration sets gamma (the event-masked TV term, added at
+  level 0 only), the loss and gradient gaps against the TV term itself,
+  each the largest over the sample: `tv_rel` = |f - f_ref| /
+  |gamma TV_ref| at every level (TV_ref of that level's theta, whether or
+  not the term belongs there), and `tv_grad_rel` = |g - g_ref| /
+  |gamma grad TV_ref| at level 0. The term is ~3e-3 of the loss and its
+  gradient 2-8% of the data terms', inside `loss_rel`'s and `grad_rel`'s
+  limits, so a program that left it out, or kept its value but not its
+  gradient, or added it above level 0, would pass those: each reads ~1
+  in one of these two. A window whose term is 0 gives no reading, and a
+  number with no reading reads inf.
 Beside these, `run.py` compares `aee_max`, the largest AEE of any window
 the run completed against the generator's exact velocity, which holds
 the solve to its answer: the three above judge the loss and flow at
@@ -34,6 +45,7 @@ import torch
 from benchmark import reference
 
 NUMBERS = ("loss_rel", "grad_rel", "flow_px")
+TV_NUMBERS = ("tv_rel", "tv_grad_rel")  # compared only where gamma != 0
 
 
 def finite_max(values) -> float:
@@ -49,11 +61,13 @@ def finite_max(values) -> float:
 class Checker:
     def __init__(self, config: Dict, raw: List[Dict], device):
         exp = config["experiment"]
-        if exp.get("gamma", 0.0) or exp.get("delta", 0.0):
-            raise NotImplementedError("the reference has no TV or divergence term")
+        if exp.get("delta", 0.0):
+            raise NotImplementedError("the reference has no IWE divergence term (delta)")
         if exp.get("solver", {}).get("scale_theta_to_sensor_size_method", "bilinear") != "bilinear":
             raise NotImplementedError("the reference upscales bilinearly")
         self.alpha, self.beta = float(exp["alpha"]), float(exp["beta"])
+        self.gamma = float(exp.get("gamma", 0.0))
+        self.numbers = NUMBERS + (TV_NUMBERS if self.gamma else ())
         self.edge_cfg = exp["edge"]
         self.sensor = tuple(int(s) for s in exp["dataset"]["sensor_size"])
         self.raw = raw
@@ -65,19 +79,25 @@ class Checker:
         if (k, dtype) not in self._windows:
             edges = self._windows[(k, torch.float64)].edges_np if dtype != torch.float64 else None
             self._windows[(k, dtype)] = reference.RefWindow(
-                self.raw[k], self.edge_cfg, self.sensor, self.device, dtype, edges)
+                self.raw[k], self.edge_cfg, self.sensor, self.device, dtype, edges,
+                self.mask(k))
         return self._windows[(k, dtype)]
 
-    def aee(self, k: int, theta0: torch.Tensor, vel) -> float:
+    def mask(self, k: int) -> torch.Tensor:
+        """Window k's pixels with events, made once for the AEE of every
+        window the run completed and for the sample's reference windows."""
         if k not in self._masks:
             self._masks[k] = reference.event_mask(self.raw[k], self.sensor, self.device)
-        return reference.aee(theta0, vel, self._masks[k], self.sensor)
+        return self._masks[k]
+
+    def aee(self, k: int, theta0: torch.Tensor, vel) -> float:
+        return reference.aee(theta0, vel, self.mask(k), self.sensor)
 
     def check(self, items, control: bool = False, program_edges=None) -> Dict:
         """`items`: (window k, BFGS states, level shapes, final level-0
         theta, flow) of each window of the sample."""
-        got: Dict[str, List[float]] = {n: [] for n in NUMBERS}
-        ctl: Dict[str, List[float]] = {n: [] for n in NUMBERS}
+        got: Dict[str, List[float]] = {n: [] for n in self.numbers}
+        ctl: Dict[str, List[float]] = {n: [] for n in self.numbers}
         edges = []
         for k, states, shapes, theta0, flow in items:
             ref = self.window(k)
@@ -92,30 +112,51 @@ class Checker:
             if program_edges is not None:
                 edges.append(float((program_edges[k].to(torch.float64)
                                     - ref.edges).abs().max()))
-        out = {n: finite_max(v) for n, v in got.items()}
+        out = _maxima(got)
         out["windows"] = len(items)
         out["levels"] = sum(len(it[1]) for it in items)
         if edges:
             out["edges_max"] = max(edges)
         if control:
-            out["control"] = {n: finite_max(v) for n, v in ctl.items()}
+            out["control"] = _maxima(ctl)
         return out
 
     def _levels(self, ref, states, shapes, into, low=None) -> None:
-        """loss_rel of each level and grad_rel of the window, of the
-        program's values or (with `low`) of the reference in `low`'s
-        precision, at the thetas BFGS ended on."""
+        """loss_rel of each level, grad_rel of the window and, where
+        gamma != 0, tv_rel of each level and tv_grad_rel of level 0, of
+        the program's values or (with `low`) of the reference in `low`'s
+        precision, at the thetas BFGS ended on (`states[0]` the finest
+        level)."""
         d2, r2 = 0.0, 0.0
-        for st, shape in zip(states, shapes):
+        for level, (st, shape) in enumerate(zip(states, shapes)):
             theta = st.x.detach().reshape(shape)
             f_ref, g_ref = ref.loss_and_grad(theta, self.alpha, self.beta)
+            if self.gamma:
+                tv, g_tv = ref.tv_and_grad(theta)
+                weight = reference.tv_weight(self.gamma, level)
+                if weight != 0.0:
+                    f_ref, g_ref = f_ref + weight * tv, g_ref + weight * g_tv
             if low is None:
                 f, g = st.fun_val, st.grad
             else:
-                f, g = low.loss_and_grad(theta, self.alpha, self.beta)
+                f, g = low.loss_and_grad(theta, self.alpha, self.beta, self.gamma, level)
             f = f.to(torch.float64).reshape(())
             g = g.to(torch.float64).reshape(-1)
             into["loss_rel"].append((f - f_ref).abs() / f_ref.abs())
-            d2 += float(((g - g_ref.reshape(-1)) ** 2).sum())
+            gap2 = float(((g - g_ref.reshape(-1)) ** 2).sum())
+            d2 += gap2
             r2 += float((g_ref ** 2).sum())
+            if self.gamma:
+                term = abs(self.gamma * float(tv))
+                if term > 0:
+                    into["tv_rel"].append(float((f - f_ref).abs()) / term)
+                term_g = abs(self.gamma) * float(torch.linalg.norm(g_tv))
+                if level == 0 and term_g > 0:
+                    into["tv_grad_rel"].append(math.sqrt(gap2) / term_g)
         into["grad_rel"].append(math.sqrt(d2 / r2) if r2 > 0 else math.inf)
+
+
+def _maxima(readings: Dict[str, List[float]]) -> Dict:
+    """Each number's largest reading; inf where no window of the sample
+    gave one."""
+    return {n: finite_max(v) if v else math.inf for n, v in readings.items()}

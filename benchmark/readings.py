@@ -3,9 +3,10 @@
     python3 benchmark/readings.py --workload <cell> --seconds <s> --seeds <n> ... [--out FILE]
 
 Runs the cell once per seed, as `run.py` does but with a window of
-`--seconds`, and reads each number the check compares (`run.compared_numbers`)
-three times over the same run: of the program (the lower reading is the
-largest over the seeds); of the control, the plain reference in bfloat16
+`--seconds`, and reads each number the check compares (`run.compared_numbers`,
+with `tv_rel` and `tv_grad_rel` where the configuration sets gamma) three
+times over the same run: of the program (the lower reading is the largest
+over the seeds); of the control, the plain reference in bfloat16
 put in the program's place; and of a solve that hands back its prior (each
 upper reading is the smallest over the seeds of the control or, for
 `aee_max`, of that fault). Each of the three is judged by `run.assemble`

@@ -20,7 +20,11 @@ The loss of a coarse theta (h, w, 2) over one window:
 4. loss = alpha * -mean_r(w_r C_r / C_0) + beta * -mean_r(w_r K_r / K_0,r),
    C the mean squared Scharr gradient of the frame, K = -mean((edge_r -
    normalised frame)^2), w the Gaussian weights of the frames, and C_0,
-   K_0 the same of the unwarped events.
+   K_0 the same of the unwarped events;
+5. at the finest level (0) only, where gamma != 0, + gamma * TV: the
+   event-masked L1 total variation of the theta upscaled to the sensor
+   (src/eincm/regularizers.py:14-38, applied at level 0 by
+   src/eincm/losses.py:171; `masked_tv`).
 """
 
 from __future__ import annotations
@@ -109,10 +113,11 @@ def edge_maps(images: np.ndarray, edge_cfg: Dict) -> np.ndarray:
 class RefWindow:
     """A raw window made ready for the reference on `device` in `dtype`:
     times normalised to the evaluation span, edge maps worked out again,
-    and the unwarped frame's statistics."""
+    the pixels with events (`mask`) and the unwarped frame's statistics."""
 
     def __init__(self, datasample: Dict, edge_cfg: Dict, sensor: Tuple[int, int],
-                 device, dtype=torch.float64, edges: np.ndarray = None):
+                 device, dtype=torch.float64, edges: np.ndarray = None,
+                 mask: torch.Tensor = None):
         ev = datasample["events"]
         t0, t1 = np.asarray(datasample["eval_ts"], np.float64)
         span = t1 - t0 + EPS
@@ -133,12 +138,34 @@ class RefWindow:
         q = np.linspace(-1.5, 1.5, n)
         wts = np.exp(-0.5 * q * q)
         self.weights = as_t(wts / wts.sum())
+        self.mask = event_mask(datasample, self.sensor, device) if mask is None else mask
         with torch.no_grad():
             zero = splat(self.xs[None], self.ys[None], self.sensor)[0]
             self.zero_contrast = contrast(zero)
             self.zero_corrs = -((self.edges - unit_range(zero)) ** 2).mean(dim=(-2, -1))
 
-    def loss(self, theta: torch.Tensor, alpha: float, beta: float) -> torch.Tensor:
+    def loss(self, theta: torch.Tensor, alpha: float, beta: float, gamma: float = 0.0,
+             level: int = 0) -> torch.Tensor:
+        """The loss of `theta` at pyramid `level` (0 the finest); with
+        gamma 0 only the data terms, by the same operations at every
+        level."""
+        data = self._data_loss(theta, alpha, beta)
+        weight = tv_weight(gamma, level)
+        if weight != 0.0:
+            return data + weight * self.tv(theta)
+        return data
+
+    def tv(self, theta: torch.Tensor) -> torch.Tensor:
+        return masked_tv(theta, self.mask, self.sensor)
+
+    def tv_and_grad(self, theta):
+        """The masked TV of `theta` and its gradient, whatever the level."""
+        th = theta.detach().to(self.dtype).clone().requires_grad_(True)
+        f = self.tv(th)
+        (g,) = torch.autograd.grad(f, th)
+        return f.detach(), g
+
+    def _data_loss(self, theta: torch.Tensor, alpha: float, beta: float) -> torch.Tensor:
         th = interp_at_events(theta, self.xs, self.ys, self.sensor)
         dts = self.ts[None, :] - self.frame_ts[:, None]
         wx = torch.round(self.xs)[None, :] - th[None, :, 0] * dts
@@ -149,9 +176,10 @@ class RefWindow:
         rel_k = self.weights * corrs / (self.zero_corrs + EPS)
         return alpha * -rel_c.mean() + beta * -rel_k.mean()
 
-    def loss_and_grad(self, theta, alpha: float, beta: float):
+    def loss_and_grad(self, theta, alpha: float, beta: float, gamma: float = 0.0,
+                      level: int = 0):
         th = theta.detach().to(self.dtype).clone().requires_grad_(True)
-        f = self.loss(th, alpha, beta)
+        f = self.loss(th, alpha, beta, gamma, level)
         (g,) = torch.autograd.grad(f, th)
         return f.detach(), g
 
@@ -255,6 +283,38 @@ def unit_range(frames: torch.Tensor) -> torch.Tensor:
     lo = torch.amin(frames, dim=(-2, -1), keepdim=True)
     hi = torch.amax(frames, dim=(-2, -1), keepdim=True)
     return (frames - lo) / (hi - lo + EPS)
+
+
+def tv_weight(gamma: float, level: int) -> float:
+    """The TV term's weight in the loss at pyramid `level`: gamma at the
+    finest level (0), else 0."""
+    return gamma if level == 0 else 0.0
+
+
+def tv_terms(theta: torch.Tensor, mask: torch.Tensor, sensor):
+    """(l1, nonzero), each (H, W), of a coarse theta (h, w, 2): the flow
+    upscaled to the sensor and zeroed at pixels without events (`mask`),
+    the Scharr x and y gradients of both its channels, l1 a quarter of
+    their four absolute values summed, and `nonzero` where any of the
+    four is nonzero.
+
+    The gradient takes d|x|/dx = sign(x), and 0 at x = 0 (torch.abs's,
+    as jnp.abs's in the published method): outside the mask the flow is
+    exactly 0, so a pixel whose 3x3 neighbourhood holds no event adds
+    nothing to l1, to the count or to the gradient."""
+    flow = upscale(theta, sensor) * mask[..., None].to(theta.dtype)
+    grads = [_conv3(flow[..., c], k) for c in (0, 1) for k in (SCHARR_X, SCHARR_Y)]
+    mags = [g.abs() for g in grads]
+    l1 = 0.25 * (mags[0] + mags[1] + mags[2] + mags[3])
+    nonzero = (mags[0] > 0) | (mags[1] > 0) | (mags[2] > 0) | (mags[3] > 0)
+    return l1, nonzero
+
+
+def masked_tv(theta: torch.Tensor, mask: torch.Tensor, sensor) -> torch.Tensor:
+    """The event-masked L1 total variation: l1 summed over the count of
+    nonzero pixels (+ EPS), `tv_terms`."""
+    l1, nonzero = tv_terms(theta, mask, sensor)
+    return l1.sum() / (nonzero.sum().to(theta.dtype) + EPS)
 
 
 def event_mask(datasample: Dict, sensor, device) -> torch.Tensor:

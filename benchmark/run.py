@@ -207,8 +207,9 @@ JUDGED = ("program", "control", "prior")
 
 def compared_numbers(run, judged: str = "program") -> Dict[str, float]:
     """The numbers the check compares, each the largest over the chains:
-    the reference's three on the sample (`compare.py`), and `aee_max`,
-    the largest AEE of any window the run completed.
+    the reference's three on the sample (`compare.py`), `tv_rel` and
+    `tv_grad_rel` where the configuration sets gamma, and `aee_max`, the
+    largest AEE of any window the run completed.
 
     `judged` says whose they are: the program's; the control's, the plain
     reference in bfloat16 put in the program's place (at the program's
@@ -219,11 +220,10 @@ def compared_numbers(run, judged: str = "program") -> Dict[str, float]:
 
     if judged not in JUDGED:
         raise ValueError(f"judged must be one of {JUDGED}")
-    out = {}
-    for name in compare.NUMBERS:
-        src = "control" if judged == "control" else None
-        out[name] = max((f["compared"][src] if src else f["compared"])[name]
-                        for f in run.final)
+    src = "control" if judged == "control" else None
+    compared = [f["compared"][src] if src else f["compared"] for f in run.final]
+    names = compare.NUMBERS + tuple(n for n in compare.TV_NUMBERS if n in compared[0])
+    out = {name: max(c[name] for c in compared) for name in names}
     aees = [a for f in run.final for a in f["aee_prior" if judged == "prior" else "aee"]]
     out["aee_max"] = compare.finite_max(aees) if aees else math.inf
     return out

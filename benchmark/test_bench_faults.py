@@ -8,7 +8,10 @@ answer altered where it is made; a solve that stops at its prior), and
 once with the control, the plain reference in bfloat16 put in the
 program's place, whose result `run.assemble` has to judge not correct
 under each cell's limits. One chip, so no exchange between chips can be
-left out.
+left out. The tiny cell with gamma set (`tiny_tv_cell`) has three faults
+more, in the TV term of the timed loss: left out (`tv_rel` and
+`tv_grad_rel` fail), kept in value with no gradient (`tv_grad_rel`), and
+added at every pyramid level, not at the finest alone (`tv_rel`).
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from __future__ import annotations
 import pytest
 
 from benchmark import run, spec
-from benchmark.test_bench_harness import tiny_run
+from benchmark.test_bench_harness import tiny_run, tiny_tv_cell
 
 
 def test_a_sound_run_is_correct():
@@ -109,3 +112,57 @@ def test_the_control_is_not_correct_under_any_cells_limits():
     got, control = run.compared_numbers(r), run.compared_numbers(r, "control")
     assert all(got[n] < control[n] / 100 for n in ("loss_rel", "grad_rel", "flow_px")), \
         (got, control)
+
+
+def _failed(out):
+    return {n for n, c in out["checks"].items() if c["value"] > c["limit"]}
+
+
+def test_a_sound_run_with_tv_is_correct():
+    _, out = tiny_run(cell=tiny_tv_cell())
+    assert out["correct"] is True, out["checks"]
+    assert "tv_rel" in out["checks"]
+
+
+def test_the_tv_term_left_out_fails_tv_rel(monkeypatch):
+    from eincm_tpu_torch.models import loss
+
+    monkeypatch.setattr(loss, "_masked_tv", lambda scaled, mask: 0.0 * scaled.sum())
+    _, out = tiny_run(cell=tiny_tv_cell())
+    assert out["correct"] is False
+    assert {"tv_rel", "tv_grad_rel"} <= _failed(out), out["checks"]
+    assert out["checks"]["tv_rel"]["value"] > 0.5
+
+
+def test_the_tv_term_with_no_gradient_fails_tv_grad_rel(monkeypatch):
+    from eincm_tpu_torch.models import loss
+
+    masked_tv = loss._masked_tv
+    monkeypatch.setattr(loss, "_masked_tv",
+                        lambda scaled, mask: masked_tv(scaled.detach(), mask))
+    _, out = tiny_run(cell=tiny_tv_cell())
+    assert out["correct"] is False
+    assert "tv_grad_rel" in _failed(out), out["checks"]
+    assert out["checks"]["tv_grad_rel"]["value"] > 0.5
+
+
+def test_the_tv_term_at_every_level_fails_tv_rel(monkeypatch):
+    from eincm_tpu_torch.models import graphs
+
+    solver_loss = graphs.solver_loss
+
+    def at_every_level(theta, xs, ys, ts, edges, edge_ts, params, lvl, statics, wstat):
+        return solver_loss(theta, xs, ys, ts, edges, edge_ts, params, 0, statics, wstat)
+
+    monkeypatch.setattr(graphs, "solver_loss", at_every_level)
+    _, out = tiny_run(cell=tiny_tv_cell())
+    assert out["correct"] is False
+    assert "tv_rel" in _failed(out), out["checks"]
+    assert out["checks"]["tv_rel"]["value"] > 0.5
+
+
+def test_the_control_with_tv_is_not_correct():
+    r, _ = tiny_run(cell=tiny_tv_cell(), control=True)
+    out = run.assemble(r, False, judged="control")
+    assert out["correct"] is False
+    assert {"grad_rel", "flow_px", "tv_rel", "tv_grad_rel"} <= _failed(out), out["checks"]

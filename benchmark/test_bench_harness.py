@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import chain, reference, run, spec, trace, traffic
+from benchmark import chain, compare, reference, run, spec, trace, traffic
 
 
 def tiny_cell(chains: int = 2) -> spec.Cell:
@@ -33,14 +33,29 @@ def tiny_cell(chains: int = 2) -> spec.Cell:
                      bench["end_to_end"], bench["per_layer"])
 
 
+TINY_GAMMA = 0.0025  # configs/mvsec_outdoor.yaml's
+TINY_TV_LIMITS = {"tv_rel": 0.25, "tv_grad_rel": 0.25}
+
+
+def tiny_tv_cell() -> spec.Cell:
+    """The tiny cell with the TV term on (gamma as MVSEC outdoor_day1's
+    tuning sets it) and limits of `tv_rel` and `tv_grad_rel` beside the
+    four."""
+    cell = tiny_cell()
+    cell.config["experiment"]["gamma"] = TINY_GAMMA
+    cell.limits = dict(cell.limits, limits=dict(cell.limits["limits"], **TINY_TV_LIMITS))
+    return cell
+
+
 def tiny_run(trace_on: bool = False, control: bool = False, seed: int = 2**31 + 11,
-             launch=run.ChainThread):
-    """One run of the tiny cell, its chains in threads of this process
-    (so that a test can break the program underneath) unless `launch`
-    says otherwise; a traced run takes processes, one profiler each."""
+             launch=run.ChainThread, cell: spec.Cell = None):
+    """One run of the tiny cell (or `cell`), its chains in threads of this
+    process (so that a test can break the program underneath) unless
+    `launch` says otherwise; a traced run takes processes, one profiler
+    each."""
     import time
 
-    cell = tiny_cell()
+    cell = tiny_cell() if cell is None else cell
     r = run.run_cell(cell, seed, 1.5, trace_on, device="cpu", launch=launch,
                      control=control, t_start=time.perf_counter())
     return r, run.assemble(r, trace_on)
@@ -54,7 +69,9 @@ def test_every_cell_finds_its_config_mix_limits_and_readers_by_name():
         cell = spec.Cell.named(w["name"])
         assert cell.config["experiment"]["dataset"]["des_n_events"] > 0
         assert cell.mix["chains"] >= 1
-        assert set(cell.limits["limits"]) == {"loss_rel", "grad_rel", "flow_px", "aee_max"}
+        four = {"loss_rel", "grad_rel", "flow_px", "aee_max"}
+        tv = set(compare.TV_NUMBERS) if cell.config["experiment"].get("gamma", 0.0) else set()
+        assert set(cell.limits["limits"]) == four | tv
         assert {m["name"] for m in cell.end_to_end} >= {"setup_s", "windows_per_s"}
         for m in cell.per_layer:
             assert callable(spec.reader(m["name"]))
@@ -164,6 +181,115 @@ def test_reference_gradient_is_the_loss_slope():
     fp, _ = w.loss_and_grad(theta + d, 20.0, 35.0)
     fm, _ = w.loss_and_grad(theta - d, 20.0, 35.0)
     assert float((fp - fm) / 2e-6) == pytest.approx(float(g[1, 0, 1]), rel=1e-4, abs=1e-6)
+
+
+def _port_tv(theta, mask, sensor):
+    from eincm_tpu_torch.models.loss import _masked_tv
+    from eincm_tpu_torch.ops.resize import scale_theta_to_sensor_size
+
+    return _masked_tv(scale_theta_to_sensor_size(theta, sensor, "bilinear"), mask)
+
+
+def _value_and_grad(fn, theta, *args):
+    th = theta.clone().requires_grad_(True)
+    f = fn(th, *args)
+    (g,) = torch.autograd.grad(f, th)
+    return f.detach(), g
+
+
+@pytest.mark.parametrize("kind", ["random", "constant"])
+def test_reference_tv_is_the_ports_in_float64(kind):
+    # a constant theta makes a constant flow: inside the mask its Scharr
+    # gradients are exactly 0, outside it the masked flow is, so the count
+    # and the subgradient at 0 both matter
+    cell = tiny_cell()
+    plan = traffic.ChainPlan(cell.mix, cell.config, 5, 1)
+    mask = reference.event_mask(plan.window(2), plan.sensor, "cpu")
+    gen = torch.Generator().manual_seed(23)
+    theta = (torch.randn(4, 4, 2, generator=gen, dtype=torch.float64) if kind == "random"
+             else torch.tensor([1.5, -0.75], dtype=torch.float64).expand(4, 4, 2))
+    f, g = _value_and_grad(reference.masked_tv, theta, mask, plan.sensor)
+    f_port, g_port = _value_and_grad(_port_tv, theta, mask, plan.sensor)
+    assert float(f) > 0
+    assert float(f) == pytest.approx(float(f_port), rel=1e-12, abs=0)
+    torch.testing.assert_close(g, g_port, rtol=1e-12, atol=1e-12 * float(g_port.abs().max()))
+
+
+@pytest.mark.parametrize("v, tv, grad", [((1.0, -2.0), 6.0, (2.0, -2.0)),
+                                         ((1.0, 0.0), 2.0, (2.0, 0.0))])
+def test_tv_of_one_masked_pixel_worked_by_hand(v, tv, grad):
+    # a 1x1 theta is the flow v at every pixel of a 4x4 sensor; masked to
+    # pixel (1, 1), each channel's Scharr gradients there are the kernels
+    # themselves around it: |x| and |y| kernels summed are [[6, 10, 6],
+    # [10, 0, 10], [6, 10, 6]] times |v_c|; l1 a quarter of both channels'
+    # sum, nonzero on the 8 pixels around (1, 1) and not at it, so
+    # TV = 0.25 * 64 * (|v_x| + |v_y|) / 8 and its gradient 2 sign(v),
+    # with sign(0) = 0
+    mask = torch.zeros(4, 4, dtype=torch.bool)
+    mask[1, 1] = True
+    theta = torch.tensor([[v]], dtype=torch.float64)
+    l1, nonzero = reference.tv_terms(theta, mask, (4, 4))
+    ring = torch.tensor([[6.0, 10.0, 6.0], [10.0, 0.0, 10.0], [6.0, 10.0, 6.0]],
+                        dtype=torch.float64)
+    want = torch.zeros(4, 4, dtype=torch.float64)
+    want[:3, :3] = 0.25 * ring * (abs(v[0]) + abs(v[1]))
+    assert torch.equal(l1, want)
+    assert torch.equal(nonzero, want > 0) and int(nonzero.sum()) == 8
+    f, g = _value_and_grad(reference.masked_tv, theta, mask, (4, 4))
+    assert float(f) == tv
+    assert g.reshape(2).tolist() == list(grad)
+
+
+def _loss_before_tv(w: reference.RefWindow, theta, alpha, beta):
+    """`RefWindow.loss` as it was before the TV term, operation for
+    operation."""
+    th = reference.interp_at_events(theta, w.xs, w.ys, w.sensor)
+    dts = w.ts[None, :] - w.frame_ts[:, None]
+    wx = torch.round(w.xs)[None, :] - th[None, :, 0] * dts
+    wy = torch.round(w.ys)[None, :] - th[None, :, 1] * dts
+    frames = reference.splat(wx, wy, w.sensor)
+    corrs = -((w.edges - reference.unit_range(frames)) ** 2).mean(dim=(-2, -1))
+    rel_c = w.weights * reference.contrast(frames) / (w.zero_contrast + reference.EPS)
+    rel_k = w.weights * corrs / (w.zero_corrs + reference.EPS)
+    return alpha * -rel_c.mean() + beta * -rel_k.mean()
+
+
+def test_tv_enters_the_reference_loss_at_level_0_only():
+    cell = tiny_cell()
+    plan = traffic.ChainPlan(cell.mix, cell.config, 3, 0)
+    w = reference.RefWindow(plan.window(1), cell.config["experiment"]["edge"], plan.sensor,
+                            "cpu")
+    gen = torch.Generator().manual_seed(4)
+    for level, n in enumerate((4, 2, 1)):
+        theta = torch.randn(n, n, 2, generator=gen, dtype=torch.float64)
+        before = _loss_before_tv(w, theta, 20.0, 35.0)
+        f, g = w.loss_and_grad(theta, 20.0, 35.0, 0.0, level)
+        assert torch.equal(w.loss(theta, 20.0, 35.0, 0.0, level), before)
+        assert torch.equal(f, before)
+        f_tv, g_tv = w.loss_and_grad(theta, 20.0, 35.0, TINY_GAMMA, level)
+        tv, g_term = w.tv_and_grad(theta)
+        assert float(tv) > 0 and torch.equal(tv, w.tv(theta))
+        if level == 0:
+            term = TINY_GAMMA * tv
+            assert torch.equal(f_tv, before + term)
+            # the checker's route: the data terms' gradient and the TV's, summed
+            torch.testing.assert_close(g_tv, g + TINY_GAMMA * g_term, rtol=1e-14, atol=0)
+            assert float(torch.linalg.norm(TINY_GAMMA * g_term)) > 1e-3 * float(
+                torch.linalg.norm(g))
+        else:
+            assert torch.equal(f_tv, f) and torch.equal(g_tv, g)
+
+
+def test_the_check_reads_the_tv_numbers_only_where_gamma_is_set():
+    r, out = tiny_run()
+    assert not set(compare.TV_NUMBERS) & (set(out["checks"]) | set(run.compared_numbers(r)))
+    assert all(set(f["compared"]) == {"loss_rel", "grad_rel", "flow_px", "windows",
+                                      "levels", "edges_max"} for f in r.final)
+    r, out = tiny_run(cell=tiny_tv_cell())
+    assert list(run.compared_numbers(r)) == ["loss_rel", "grad_rel", "flow_px", "tv_rel",
+                                             "tv_grad_rel", "aee_max"]
+    for name, limit in TINY_TV_LIMITS.items():
+        assert 0 < out["checks"][name]["value"] <= limit / 10, out["checks"]
 
 
 # ---- the run and its result line ---------------------------------------------
